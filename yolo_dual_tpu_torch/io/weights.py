@@ -1,0 +1,82 @@
+"""Carry weights into the port's modules.
+
+`state_dict_from_flax` maps the JAX package's variables to the port's
+state_dict; it is this package's own copy of the mapping in
+yolo_dual_tpu/train/checkpoint.py:92-143 (export_torch_state_dict). Orbax
+checkpoints are not read here.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def state_dict_from_flax(variables) -> dict:
+    """JAX `{"params", "batch_stats"}` tree (nested dicts of arrays) -> torch
+    state_dict with the reference's names and layouts:
+
+    - `model_{i}` -> `model.{i}`, `model_{i}_{r}` -> `model.{i}.{r}`, `m_{j}` -> `m.{j}`;
+    - the Segment head's `detect` level is dropped (the torch Segment subclasses Detect);
+    - conv `kernel` HWIO -> `weight` OIHW; BN `scale` -> `weight`;
+      `mean`/`var` -> `running_mean`/`running_var`;
+    - every BatchNorm gets the `num_batches_tracked` buffer the JAX tree lacks.
+    """
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _flatten(variables.get(coll, {})):
+            v = np.asarray(v)
+            segs = list(path)
+            m = re.fullmatch(r"model_(\d+)(?:_(\d+))?", segs[0])
+            if m:
+                segs[0] = f"model.{m.group(1)}" + (f".{m.group(2)}" if m.group(2) else "")
+            if len(segs) > 2 and segs[1] == "detect":
+                segs.pop(1)
+            new = []
+            for s in segs[:-1]:
+                mm = re.fullmatch(r"m_(\d+)", s)
+                new.append(f"m.{mm.group(1)}" if mm else s)
+            leaf = segs[-1]
+            if coll == "batch_stats":
+                leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
+                if leaf == "running_mean":
+                    out[".".join(new + ["num_batches_tracked"])] = torch.tensor(0, dtype=torch.long)
+            elif leaf == "kernel":
+                leaf = "weight"
+                if v.ndim == 4:
+                    v = v.transpose(3, 2, 0, 1)
+            elif leaf == "scale":
+                leaf = "weight"
+            out[".".join(new + [leaf])] = torch.from_numpy(np.array(v, copy=True))
+    return out
+
+
+# Buffers of the reference torch Detect that the port derives from the config.
+_DERIVED = ("anchors", "anchor_grid")
+
+
+def load_state_dict_file(path) -> dict:
+    """Read a reference-style `.pt` state_dict (a plain dict of tensors, or one
+    under a "state_dict"/"model" key) with `torch.load(weights_only=True)`."""
+    path = Path(path)
+    if path.suffix != ".pt":
+        raise ValueError(f"{path}: only .pt state_dicts are read; orbax checkpoints "
+                         "are not supported by this package yet")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            sd = sd[key]
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path} does not hold a state_dict")
+    return {k: v for k, v in sd.items() if k.rsplit(".", 1)[-1] not in _DERIVED}

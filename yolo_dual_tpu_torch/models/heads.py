@@ -1,0 +1,89 @@
+"""Detection / instance-segmentation heads with anchor decode (port of
+yolo_dual_tpu/models/heads.py; reference models/yolo.py:38-106).
+
+Raw level maps keep the JAX package's logical layout (bs, na, ny, nx, no): a
+view of the 1x1 conv output (bs, na·no, ny, nx), so producing it copies nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from yolo_dual_tpu_torch.nn.common import Proto
+
+
+def _level_grid(ny: int, nx: int, device, dtype=torch.float32):
+    """(1, 1, ny, nx, 2) grid of cell (x, y) offsets minus 0.5 (ref models/yolo.py:81-89)."""
+    yv, xv = torch.meshgrid(torch.arange(ny, device=device, dtype=dtype),
+                            torch.arange(nx, device=device, dtype=dtype), indexing="ij")
+    return (torch.stack((xv, yv), -1) - 0.5)[None, None]
+
+
+class Detect(nn.Module):
+    """Anchor-based YOLO detection head (reference models/yolo.py:38-89).
+
+    anchors: ((w,h)*na per level) in input pixels; strides: per-level stride.
+    """
+
+    def __init__(self, nc: int, anchors: Tuple[Tuple[float, ...], ...],
+                 strides: Tuple[int, ...], nm: int = 0, ch: Sequence[int] = ()):
+        super().__init__()
+        self.nc, self.nm = nc, nm
+        self.anchors = tuple(tuple(a) for a in anchors)
+        self.strides = tuple(strides)
+        self.na = len(anchors[0]) // 2
+        self.nl = len(anchors)
+        self.no = nc + 5 + nm
+        self.m = nn.ModuleList(nn.Conv2d(c, self.no * self.na, 1) for c in ch)
+
+    def forward(self, xs, decode: bool = True):
+        na, no = self.na, self.no
+        raw, z = [], []
+        for i, x in enumerate(xs):
+            p = self.m[i](x)
+            bs, _, ny, nx = p.shape
+            # (bs, na·no, ny, nx) -> (bs, na, ny, nx, no), a view
+            p = p.view(bs, na, no, ny, nx).permute(0, 1, 3, 4, 2)
+            raw.append(p)
+            if decode:
+                stride = float(self.strides[i])
+                grid = _level_grid(ny, nx, p.device, p.dtype)
+                anchor_grid = torch.tensor(self.anchors[i], dtype=p.dtype,
+                                           device=p.device).view(1, na, 1, 1, 2)
+                if self.nm:
+                    xy, wh, conf, mask = p.split((2, 2, 1 + self.nc, self.nm), -1)
+                    xy = (xy.sigmoid() * 2 + grid) * stride
+                    wh = (wh.sigmoid() * 2) ** 2 * anchor_grid
+                    y = torch.cat((xy, wh, conf.sigmoid(), mask), -1)
+                else:
+                    ps = p.sigmoid()
+                    xy = (ps[..., :2] * 2 + grid) * stride
+                    wh = (ps[..., 2:4] * 2) ** 2 * anchor_grid
+                    y = torch.cat((xy, wh, ps[..., 4:]), -1)
+                z.append(y.reshape(bs, na * ny * nx, no))
+        if decode:
+            return torch.cat(z, 1), raw
+        return raw
+
+
+class Segment(Detect):
+    """Detect + mask coefficients + Proto net (reference models/yolo.py:92-106).
+    The torch reference subclasses Detect, so its convs are `m.{i}` and the
+    proto net is `proto` (no `detect` level, unlike the JAX variable tree)."""
+
+    def __init__(self, nc: int, anchors, strides, nm: int = 32, npr: int = 256,
+                 ch: Sequence[int] = ()):
+        super().__init__(nc, anchors, strides, nm=nm, ch=ch)
+        self.npr = npr
+        self.proto = Proto(ch[0], npr, nm)
+
+    def forward(self, xs, decode: bool = True):
+        protos = self.proto(xs[0])
+        det = super().forward(xs, decode=decode)
+        if decode:
+            pred, raw = det
+            return pred, protos, raw
+        return det, protos
