@@ -58,7 +58,7 @@ def load_library(name: str) -> ctypes.CDLL:
                                       capture_output=True, text=True)
                 if proc.returncode:
                     raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+                os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
             finally:
                 if os.path.exists(tmp):
                     os.unlink(tmp)

@@ -34,7 +34,7 @@ class LayerSpec:
     f: Union[int, Tuple[int, ...]]          # input layer index/indices (-1 = previous)
     n: int                                  # sequential repeats of the whole module
     name: str                               # registry module name
-    kwargs: Tuple[Tuple[str, Any], ...]     # frozen kwargs for the module builder
+    kwargs: Tuple[Tuple[str, Any], ...]     # frozen kwargs for the module constructor
     c1: Union[int, Tuple[int, ...]]         # input channels (a tuple for multi-input rows)
     c2: int                                 # output channels
 
@@ -55,7 +55,7 @@ class ModelSpec:
 
 
 # ---------------------------------------------------------------------------
-# Module registry: name -> builder(c1, kwargs) -> nn.Module
+# Module registry: name -> make(c1, kwargs) -> nn.Module
 # ---------------------------------------------------------------------------
 
 REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
