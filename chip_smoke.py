@@ -60,6 +60,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def letterbox_bytes(b: int, h: int, w: int, s: int, scaleup: bool) -> int:
+    """Least bytes the letterbox of b (h, w, 3) uint8 frames onto an (s, s)
+    canvas must move: the float32 canvas written once, plus the 32-byte
+    sectors of each frame that hold a tap of nonzero weight, read once. A
+    downscale by 3 (1080p -> 640) needs only every third row and column; its
+    second tap has weight 0. Frames are b back-to-back copies of one layout,
+    so one frame's sectors are counted and multiplied by b."""
+    from yolo_dual_tpu_torch.kernels.preprocess import _content_box, axis_taps
+    _, nh, nw, _, _ = _content_box(h, w, s, scaleup)
+
+    def needed(n_in, n_out):
+        taps, weights = axis_taps(n_in, n_out)
+        return np.unique(taps[weights > 0]).astype(np.int64)
+    rows, cols = needed(h, nh), needed(w, nw)
+    col_bytes = (3 * cols[:, None] + np.arange(3)).ravel()
+    sectors = np.unique((rows[:, None] * (w * 3) + col_bytes[None, :]) // 32)
+    return b * len(sectors) * 32 + b * 3 * s * s * 4
+
+
 def library_letterbox(x: torch.Tensor, s: int, fill: float, scaleup: bool) -> torch.Tensor:
     """One library pipeline for the same function: bilinear F.interpolate,
     F.pad and /255. Timed as a yardstick only; the port never calls it."""
@@ -96,8 +115,8 @@ def kernel_phase():
         if not err <= 1e-5:
             raise AssertionError(f"letterbox {name}: max abs error {err} > 1e-5")
         # cycle inputs whose total exceeds the 50 MB L2, as a stream of new frames would
-        nbytes = b * h * w * 3 + b * 3 * s * s * 4
-        xs = [x] + [torch.randint(0, 256, x.shape, dtype=torch.uint8, device="cuda", generator=gen)
+        nbytes = letterbox_bytes(b, h, w, s, scaleup)
+        xs =[x] + [torch.randint(0, 256, x.shape, dtype=torch.uint8, device="cuda", generator=gen)
                     for _ in range(max(0, -(-64 * 2**20 // (b * h * w * 3)) - 1))]
         it = {"i": 0}
 
@@ -138,6 +157,20 @@ def make_frames(n: int, seed: int = 0):
     return frames
 
 
+def h2d_ms(frames) -> float:
+    """Mean host-clock ms per frame of the predictor's pre stage without the
+    letterbox: the pageable copy of the uint8 frame to the card, synchronized
+    before and after as the stage's Profile timer is."""
+    total = 0.0
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(f).to("cuda")[None].contiguous()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / len(frames) * 1e3
+
+
 def calibrate_bn(model, frames):
     """Set every BatchNorm's running statistics to those of `frames` (a
     seeded calibration batch). With identity statistics a random network's
@@ -158,24 +191,6 @@ def calibrate_bn(model, frames):
     return model.eval()
 
 
-def match_detections(want, got, iou_min=0.99, conf_tol=1e-4):
-    """Share of `want` rows with a `got` row of the same class, IoU > iou_min
-    (or corners within 1e-3 px) and |conf diff| < conf_tol (the rule of
-    tests/test_torch_port_predict.py)."""
-    from yolo_dual_tpu_torch.ops.boxes import box_iou
-    if len(want) == 0:
-        return 1.0
-    if len(got) == 0:
-        return 0.0
-    iou = box_iou(torch.tensor(want[:, :4], dtype=torch.float64),
-                  torch.tensor(got[:, :4], dtype=torch.float64)).numpy()
-    # coinciding corners also match: a zero-area box has IoU 0 with itself
-    same = (iou > iou_min) | (np.abs(want[:, None, :4] - got[None, :, :4]).max(-1) < 1e-3)
-    ok = same & (want[:, None, 5] == got[None, :, 5]) & \
-        (np.abs(want[:, None, 4] - got[None, :, 4]) < conf_tol)
-    return float(ok.any(1).mean())
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -186,8 +201,8 @@ def main() -> int:
     from yolo_dual_tpu_torch.kernels.build import library_path, load_library
     from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
     from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.ops.boxes import match_detections
     from yolo_dual_tpu_torch.ops.nms import nms_from_raw
-    from yolo_dual_tpu_torch.utils.general import Profile
 
     # 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -217,11 +232,11 @@ def main() -> int:
     frames = make_frames(N_FRAMES)
     predict_images(model, frames[:3], imgsz=640, conf_thres=CONF_LOW, save_img=False,
                    device="cuda")  # warm-up: cuDNN plans, allocator, tap tables
-    dt = [Profile(device="cuda") for _ in range(3)]
     letterbox_normalize.launches = 0
     dets = predict_images(model, frames, imgsz=640, conf_thres=CONF_LOW, save_img=False,
-                          device="cuda", profiles=dt)
+                          device="cuda")
     launches = {"letterbox_normalize": letterbox_normalize.launches}
+    dt = predict_images.profiles
     assert len(dets) == N_FRAMES
     for i, d in enumerate(dets):
         if not (0 < len(d) <= 300 and d.shape[1] == 6 + nm and np.isfinite(d).all()):
@@ -230,6 +245,7 @@ def main() -> int:
         raise AssertionError(f"letterbox kernel launched {launches['letterbox_normalize']} times "
                              f"for {N_FRAMES} frames")
     stream = {k: v.t / N_FRAMES * 1e3 for k, v in zip(("pre_ms", "infer_ms", "post_ms"), dt)}
+    stream["pre_h2d_ms"] = h2d_ms(frames)
     print(f"slice: yolov5s-seg 640 fused, {N_FRAMES} frames on cuda, detections per frame "
           f"{[len(d) for d in dets]}, launches {launches}", flush=True)
 

@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import match_detections
 from torch_port_common import SEG_CFG, random_variables
 from yolo_dual_tpu.engine import predict_images as jax_predict_images
 from yolo_dual_tpu.models.model import SegmentationModel as JaxSegmentationModel
 from yolo_dual_tpu_torch.engine.predictor import predict_images
 from yolo_dual_tpu_torch.io.weights import state_dict_from_flax
 from yolo_dual_tpu_torch.models.model import SegmentationModel
+from yolo_dual_tpu_torch.ops.boxes import match_detections
 from yolo_dual_tpu_torch.segment import predict as predict_cli
 
 cv2 = pytest.importorskip("cv2")
@@ -73,6 +73,7 @@ def test_in_memory_and_npy_frames_equal_image_files(tmp_path):
     from_files = predict_images(model, str(src), save_dir=str(tmp_path / "a"), **kw)
     in_memory = predict_images(model, frames, save_dir=str(tmp_path / "b"), **kw)
     from_npy = predict_images(model, str(npy), save_dir=str(tmp_path / "c"), **kw)
+    assert [p.t > 0 for p in predict_images.profiles] == [True] * 3  # pre, infer, post
     for a, b, c in zip(from_files, in_memory, from_npy):
         assert len(a) > 0
         np.testing.assert_array_equal(a, b)

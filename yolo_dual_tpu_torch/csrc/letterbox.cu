@@ -10,9 +10,11 @@
 // tap choice carries no float32 rounding.
 //
 // Bound: memory bytes (uint8 frame read once, float32 canvas written once; about
-// 4 flops per output value). A 1080p -> 640 frame moves 6.2 MB in + 4.9 MB out, about
-// 11 MB, which is ~3.3 us at 3.35 TB/s: at batch 1 the call is bound by its launch.
-// The output is NCHW, the port's layout, so no transpose follows.
+// 4 flops per output value). A 1080p -> 640 frame is 6.2 MB in + 4.9 MB out, about
+// 11 MB, ~3.3 us at 3.35 TB/s. At that exact scale of 3 only every third row holds a
+// tap of nonzero weight (the second row tap has weight 0 and is not read), so the
+// least it must move is 2.1 MB in + 4.9 MB out, ~2.1 us: at batch 1 the call is
+// bound by its launch. The output is NCHW, the port's layout, so no transpose follows.
 //
 // Plain C interface, built with nvcc into a shared library and bound with ctypes.
 
@@ -46,7 +48,8 @@ __global__ void letterbox_normalize_kernel(
   const float2 wx = xw[ox];
   const uint8_t* frame = img + (size_t)b * H * W * 3;
   const uint8_t* r0 = frame + (size_t)ty.x * W * 3;
-  const uint8_t* r1 = frame + (size_t)ty.y * W * 3;
+  // a zero-weight row tap re-reads row r0 (0 * v adds exactly 0) instead of its own row
+  const uint8_t* r1 = wy.y != 0.0f ? frame + (size_t)ty.y * W * 3 : r0;
   const int c0 = tx.x * 3, c1 = tx.y * 3;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {

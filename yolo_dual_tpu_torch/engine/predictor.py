@@ -104,16 +104,15 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
                    save_dir: str = "runs/predict-seg/exp", save_txt: bool = False,
                    save_img: bool = True, names=None, line_thickness: int = 3,
                    hide_labels: bool = False, hide_conf: bool = False, fuse: bool = True,
-                   save_conf: bool = False, exist_ok: bool = False, device="cuda",
-                   profiles: Optional[Sequence[Profile]] = None):
+                   save_conf: bool = False, exist_ok: bool = False, device="cuda"):
     """Run streaming prediction. Returns the list of per-frame detection
     arrays (n, 6+nm) rows [x1, y1, x2, y2, conf, cls, mask coefs...] in
     letterboxed `imgsz` pixels, as the JAX function does.
 
     model: a SegmentationModel; it is moved to `device`, put in eval mode and,
-    with fuse=True, conv+BN-folded in place. profiles: optional (pre, infer,
-    post) Profile timers to accumulate into, for callers that report the
-    stage times; made here when not given.
+    with fuse=True, conv+BN-folded in place. The call's (pre, infer, post)
+    Profile timers, whose totals the final speed line reports, stay readable
+    afterwards as `predict_images.profiles`.
     """
     dev = select_device(device)
     if save_img:
@@ -140,7 +139,7 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
         return out, n_valid, protos
 
     results = []
-    dt = list(profiles) if profiles is not None else [Profile(device=dev) for _ in range(3)]
+    dt = predict_images.profiles = tuple(Profile(device=dev) for _ in range(3))
     for path, im0 in iter_source(source):
         with dt[0]:
             frame = torch.as_tensor(im0).to(dev)[None].contiguous()
@@ -165,3 +164,6 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
                 f"{dt[2].t / n_img * 1e3:.1f}ms post per image"
                 + (f"; results saved to {save_dir}" if save_img or save_txt else ""))
     return results
+
+
+predict_images.profiles = ()

@@ -3,6 +3,7 @@ utils/general.py:752-884)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,3 +41,22 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.
     area1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
     area2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])
     return inter / (area1[..., :, None] + area2[..., None, :] - inter + eps)
+
+
+def match_detections(want: np.ndarray, got: np.ndarray, iou_min: float = 0.99,
+                     conf_tol: float = 1e-4) -> float:
+    """Share of the `want` detection rows [x1, y1, x2, y2, conf, cls, ...] that
+    have a `got` row of the same class, IoU > iou_min (or corners within
+    1e-3 px) and a confidence within conf_tol. Compares two runs of the same
+    model whose near-tied candidates may be ordered differently."""
+    if len(want) == 0:
+        return 1.0
+    if len(got) == 0:
+        return 0.0
+    iou = box_iou(torch.tensor(want[:, :4], dtype=torch.float64),
+                  torch.tensor(got[:, :4], dtype=torch.float64)).numpy()
+    # coinciding corners also match: a zero-area box has IoU 0 with itself
+    same = (iou > iou_min) | (np.abs(want[:, None, :4] - got[None, :, :4]).max(-1) < 1e-3)
+    ok = same & (want[:, None, 5] == got[None, :, 5]) & \
+        (np.abs(want[:, None, 4] - got[None, :, 4]) < conf_tol)
+    return float(ok.any(1).mean())
