@@ -52,6 +52,22 @@ def test_module_matches_jax(name):
     np.testing.assert_allclose(nhwc(got), want, **TOL)
 
 
+def test_state_dict_from_flax_transposes_dense_kernels():
+    """A flax Dense kernel (in, out) becomes an nn.Linear weight (out, in)."""
+    import flax.linen as fnn
+    jm = fnn.Dense(5)
+    v = random_variables(lambda k, x: jm.init(k, x), (2, 3, 4, 3), seed=3)
+    x = np.random.default_rng(4).normal(0, 1, (2, 3, 4, 3)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    pm = torch.nn.Linear(3, 5)
+    pm.load_state_dict(state_dict_from_flax(v), strict=True)
+    np.testing.assert_array_equal(pm.weight.detach().numpy(), v["params"]["kernel"].T)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("size", "nsmlx")
 def test_compiler_matches_jax(size):
     cfg = f"yolov5{size}-seg"

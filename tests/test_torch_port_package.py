@@ -21,6 +21,18 @@ def test_json_config_equals_yaml(size):
     assert port == yaml.safe_load((SEG_CFG / f"{name}.yaml").read_text())
 
 
+def test_dcnv3_json_is_yolov5s_seg_with_rows_4_6_8_renamed():
+    """yolov5s-seg-dcnv3.json is yolov5s-seg.yaml with exactly backbone rows 4,
+    6 and 8 changed from C3 to C3_DCNV3."""
+    port = json.loads((PORT / "configs" / "segment" / "yolov5s-seg-dcnv3.json").read_text())
+    ref = yaml.safe_load((SEG_CFG / "yolov5s-seg.yaml").read_text())
+    assert [i for i, (p, r) in enumerate(zip(port["backbone"], ref["backbone"])) if p != r] == [4, 6, 8]
+    for i in (4, 6, 8):
+        assert ref["backbone"][i][2] == "C3"
+        ref["backbone"][i][2] = "C3_DCNV3"
+    assert port == ref
+
+
 def _imported_top_levels(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -33,6 +45,7 @@ def _imported_top_levels(path):
 def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {PORT / "nn" / "dcn.py", PORT / "kernels" / "dcn_sampling.py"} <= set(files)
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_levels(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}

@@ -29,7 +29,8 @@ def state_dict_from_flax(variables) -> dict:
 
     - `model_{i}` -> `model.{i}`, `model_{i}_{r}` -> `model.{i}.{r}`, `m_{j}` -> `m.{j}`;
     - the Segment head's `detect` level is dropped (the torch Segment subclasses Detect);
-    - conv `kernel` HWIO -> `weight` OIHW; BN `scale` -> `weight`;
+    - conv `kernel` HWIO -> `weight` OIHW; Dense `kernel` (in, out) ->
+      Linear `weight` (out, in); BN `scale` -> `weight`;
       `mean`/`var` -> `running_mean`/`running_var`;
     - every BatchNorm gets the `num_batches_tracked` buffer the JAX tree lacks.
     """
@@ -56,6 +57,8 @@ def state_dict_from_flax(variables) -> dict:
                 leaf = "weight"
                 if v.ndim == 4:
                     v = v.transpose(3, 2, 0, 1)
+                elif v.ndim == 2:
+                    v = v.T
             elif leaf == "scale":
                 leaf = "weight"
             out[".".join(new + [leaf])] = torch.from_numpy(np.array(v, copy=True))

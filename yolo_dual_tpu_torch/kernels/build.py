@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled with
 nvcc for sm_90a into `build/torch_kernels/<name>-<hash>.so` at the repository
 root (the hash covers the source and the flags, so an edit rebuilds) and loaded
-with ctypes. Nothing is compiled when a module is imported.
+with ctypes. Nothing is compiled when a module is imported. Kernels of
+different names may be built at the same time from several threads.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict = {}
+_LOCKS: dict = {}  # one lock per kernel name, so different kernels build in parallel
 _LOCK = threading.Lock()
 
 
@@ -46,6 +48,8 @@ def library_path(name: str) -> Path:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if its library is not built yet, and load it."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         so = library_path(name)

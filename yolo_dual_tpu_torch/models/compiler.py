@@ -4,7 +4,8 @@ Compiles a config dict (`nc / depth_multiple / width_multiple / anchors /
 backbone / head`, rows `[from, number, module, args]`, reference
 models/yolo.py:299-382 parse_model) into a static `ModelSpec`, and builds torch
 modules from it through an explicit registry. Only the detect-style dialect
-and the modules of the yolov5{n,s,m,l,x}-seg configs are ported.
+and the modules of the yolov5{n,s,m,l,x}-seg configs, plus the DCNv3 blocks
+(`C3_DCNV3`, `DCNV3_YoLo`), are ported.
 
 Unlike the JAX spec, each layer records its input channels `c1`, because torch
 modules are built with them.
@@ -66,9 +67,11 @@ def _populate_registry():
         return
     from yolo_dual_tpu_torch.models import heads as H
     from yolo_dual_tpu_torch.nn import common as C
+    from yolo_dual_tpu_torch.nn import dcn as D
 
     for nm, cls in {"Conv": C.Conv, "Bottleneck": C.Bottleneck, "C3": C.C3,
-                    "SPPF": C.SPPF, "Proto": C.Proto}.items():
+                    "SPPF": C.SPPF, "Proto": C.Proto, "DCNV3_YoLo": D.DCNV3_YoLo,
+                    "C3_DCNV3": D.C3_DCNV3}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(c1, **kw)
     for nm, cls in {"Concat": C.Concat, "Upsample": C.Upsample,
                     "nn.Upsample": C.Upsample}.items():
@@ -91,8 +94,10 @@ def build_module(layer: LayerSpec) -> nn.Module:
 
 
 # Modules whose first arg is c2 and gets width-scaled.
-_CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3"}
-# Modules where the compiler inserts the repeat count as an `n` kwarg.
+_CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3", "DCNV3_YoLo", "C3_DCNV3"}
+# Modules where the compiler inserts the repeat count as an `n` kwarg. As in the
+# JAX compiler, C3_DCNV3 is not one of them: its row repeat stays a repeat of
+# whole C3_DCNV3 modules, each with one inner bottleneck.
 _REPEAT_AS_N = {"C3"}
 
 
@@ -130,7 +135,7 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
             kw["act"] = act
         return kw
 
-    if name == "Conv":
+    if name in ("Conv", "DCNV3_YoLo"):
         return actkw(dict(zip(["c2", "k", "s", "p", "g", "d", "act"], a))), n
     if name == "Bottleneck":
         return actkw(dict(zip(["c2", "shortcut", "g", "e"], a))), n
@@ -142,6 +147,8 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
         return dict(zip(["size", "scale_factor", "mode"], a)), n
     if name == "Concat":
         return {"d": a[0] if a else 1}, n
+    if name == "C3_DCNV3":  # the JAX compiler's default branch: c2 only
+        return dict(zip(["c2"], a)), n
     raise KeyError(f"Module {name!r} is not ported. Known: "
                    f"{sorted(_CONVLIKE | {'Concat', 'Upsample', 'nn.Upsample', 'Detect', 'Segment'})}")
 

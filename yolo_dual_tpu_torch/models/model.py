@@ -17,6 +17,7 @@ import torch.nn as nn
 from yolo_dual_tpu_torch.models.compiler import ModelSpec, build_module, parse_config, with_strides
 from yolo_dual_tpu_torch.models.heads import Detect
 from yolo_dual_tpu_torch.nn.common import Conv
+from yolo_dual_tpu_torch.nn.dcn import DCNv3
 from yolo_dual_tpu_torch.utils.general import find_cfg, load_config, select_device
 
 _HEADS = ("Detect", "Segment")
@@ -73,18 +74,24 @@ def _probe_strides(spec: ModelSpec) -> ModelSpec:
 
 
 def init_weights(model: nn.Module, generator: torch.Generator):
-    """Random weights from `generator` (a CPU generator): conv kernels
-    N(0, 1/fan_in), as flax's lecun_normal init; zero conv biases; identity
-    BatchNorms with fresh running stats."""
+    """Random weights from `generator` (a CPU generator): conv and linear
+    weights N(0, 1/fan_in), as flax's lecun_normal init; zero biases; identity
+    BatchNorms with fresh running stats; zero DCNv3 offset and mask heads, as
+    the JAX DCNv3 initializes them (every sample on its grid point, uniform mask)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
+        for m in model.modules():
+            if isinstance(m, DCNv3):
+                for head in (m.offset, m.mask):
+                    head.weight.zero_()
+                    head.bias.zero_()
 
 
 def initialize_detect_biases(model: GraphModel):

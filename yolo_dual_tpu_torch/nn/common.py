@@ -90,7 +90,11 @@ class C3(nn.Module):
         self.cv1 = Conv(c1, c_, 1, 1, act=act)
         self.cv2 = Conv(c1, c_, 1, 1, act=act)
         self.cv3 = Conv(2 * c_, c2, 1, act=act)
-        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0, act=act) for _ in range(n)))
+        self.m = nn.Sequential(*self.inner(c_, n, shortcut, g, act))
+
+    def inner(self, c_, n, shortcut, g, act):
+        """The inner bottlenecks; the override point of C3 variants (JAX C3.inner)."""
+        return [Bottleneck(c_, c_, shortcut, g, e=1.0, act=act) for _ in range(n)]
 
     def forward(self, x):
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
