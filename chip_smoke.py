@@ -8,16 +8,19 @@ without a CUDA device it exits non-zero and prints no result. Phases, each of
 which raises on failure:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile csrc/letterbox.cu and csrc/dcnv3.cu from this checkout with
-   nvcc, one process each, started together;
+2. build: compile csrc/letterbox.cu, csrc/dcnv3.cu and csrc/dcnv3_bwd.cu from
+   this checkout with nvcc, one process each, started together;
 3. kernels: each kernel against its plain torch version at the shapes its
-   main path gives it (max abs error <= 1e-5), with its time, the plain
-   version's, one library call's (timed only) and the least time the card
-   could take:
-   - letterbox (library: F.interpolate + F.pad + /255);
-   - DCNv3 sampling at the three shapes of yolov5s-seg-dcnv3 at 640 px, batch
-     1 and 32, with seeded offsets of a few px that reach past the border
-     (library: the reference's F.grid_sample formulation);
+   main paths give it, with its time, the plain version's, one library call's
+   (timed only) and the least time the card could take:
+   - letterbox (max abs error <= 1e-5; library: F.interpolate + F.pad + /255);
+   - DCNv3 sampling (K2) at the three shapes of yolov5s-seg-dcnv3 at 640 px,
+     batch 1, 16 and 32, with seeded offsets of a few px that reach past the
+     border (max abs error <= 1e-5; library: the reference's F.grid_sample
+     formulation);
+   - DCNv3 backward (K3) at the same shapes at batch 16, the training path's
+     (dx, doffset, dmask each within 1e-5 of its largest magnitude; library:
+     autograd's backward of the grid_sample formulation);
 4. slice, for each model: yolov5s-seg and yolov5s-seg-dcnv3 (nc=80, 640 px,
    full width and depth, seeded random weights with the bias prior; the DCNv3
    offset and mask heads drawn from the seeded generator so offsets span ~2
@@ -33,7 +36,22 @@ which raises on failure:
    run and the shares printed;
 6. timing, for each model: the streaming predictor's per-frame pre/infer/post
    ms, and the batched forward + nms_from_raw at bs 32, 640 px in img/s;
-7. a JSON line of every kernel with its launches on the main paths, then the
+7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
+   hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
+   seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
+   overlap-indexed masks with each instance inside its box) through
+   Trainer.train_step; every loss item is finite, the counts set to 0 just
+   before read 48 K2 and 48 K3 launches, the parameters move at micro-steps 4
+   and 8 only, the EMA counts 2 updates; then 8 more micro-steps are timed,
+   split as forward+loss / backward / optimizer+EMA (CUDA events), in img/s,
+   and torch.profiler records one accumulation cycle (device busy share,
+   the kernels that take most);
+8. card against CPU, training: one train_step of the same model at bs 2,
+   256 px, TF32 off, past warmup, from the same weights and batch on the GPU
+   and on the CPU, and on the CPU in float64: loss items agree to 1e-4, and
+   every gradient and parameter update of the card stands no further from the
+   float64 step than the CPU's float32 does (see train_card_vs_cpu);
+9. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 """
 
@@ -62,6 +80,9 @@ MODELS = ("yolov5s-seg.json", "yolov5s-seg-dcnv3.json")
 DCN_PATH_SHAPES = {(80, 80, 64): 2, (40, 40, 128): 3, (20, 20, 256): 1}
 DCN_OFFSET_BIAS_PX = 1.0  # the smoke model's DCNv3 offset heads: biases N(0, 1 px^2) ...
 DCN_OFFSET_GAIN = 0.2  # ... and weights N(0, gain^2 / fan_in); see draw_dcnv3_heads
+TRAIN_BS, TRAIN_IMGSZ, TRAIN_MICRO_STEPS, TRAIN_MAX_BOXES = 16, 640, 8, 8
+ACCUMULATE = max(round(64 / TRAIN_BS), 1)  # nominal batch 64 (segment/train.py --nbs)
+EPOCHS, STEPS_PER_EPOCH = 100, 7393  # the CLI's default epochs; COCO train2017 at bs 16
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -187,7 +208,7 @@ def dcnv3_phase():
     gen = torch.Generator(device="cuda").manual_seed(2)
     args = (3, 1, 1, 1, 1)  # kernel, stride, pad, dilation, group
     results = {}
-    for b in (1, 32):
+    for b in (1, TRAIN_BS, 32):
         for (h, w, c) in DCN_PATH_SHAPES:
             name = f"{b}x{h}x{w}x{c}"
             x, offset, mask = dcnv3_inputs(gen, b, h, w, c)
@@ -236,6 +257,82 @@ def dcnv3_phase():
             del sets, x, offset, mask, out, ref, lib, sx, sy
     return results
 
+
+
+def dcnv3_bwd_bytes(b: int, h: int, w: int, c: int, kk: int) -> int:
+    """Least bytes one DCNv3 backward call must move (stride 1, one group): x,
+    offset, mask and the output gradient read once, dx, doffset and dmask
+    written once, all float32."""
+    return 4 * (3 * b * h * w * c + 2 * b * h * w * kk * 3)
+
+
+def dcnv3_bwd_flops(b: int, h: int, w: int, c: int, kk: int) -> int:
+    """Least float32 operations of the backward per output value and sample
+    point, an FMA counted as 2, with the mask folded into the four corner
+    weights once per point: the row differences a = v1 − v0 and b = v3 − v2
+    (2); top = v0 + wx·a and bot = v2 + wx·b (4); d = bot − top (1), which is
+    d(sample)/dsy; the sample top + wy·d (2) and its product into dmask (2);
+    d(sample)/dsx = a + wy·(b − a) (3) and the two products into doffset (4);
+    the four weighted adds into dx (8). 26 in all."""
+    return 26 * b * h * w * c * kk
+
+
+def dcnv3_bwd_phase():
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import (
+        dcnv3_core_bwd, dcnv3_core_grid_sample, dcnv3_sampling_backward)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args = (3, 1, 1, 1, 1)  # kernel, stride, pad, dilation, group
+    results = {}
+    for (h, w, c) in DCN_PATH_SHAPES:
+        b = TRAIN_BS
+        name = f"{b}x{h}x{w}x{c}"
+
+        def inputs():
+            x, offset, mask = dcnv3_inputs(gen, b, h, w, c)
+            return x, offset, mask, torch.randn(b, h, w, c, device="cuda", generator=gen)
+        sets = [inputs()]
+        got = dcnv3_sampling_backward(*sets[0], *args, c, 1.0)
+        want = dcnv3_core_bwd(*sets[0], *args, c, 1.0)
+        torch.cuda.synchronize()
+        errs = {k: (a - r).abs().max().item() for k, a, r in zip(("dx", "doffset", "dmask"), got, want)}
+        mags = {k: r.abs().max().item() for k, r in zip(("dx", "doffset", "dmask"), want)}
+        for k in errs:
+            if not errs[k] <= 1e-5 * max(1.0, mags[k]):
+                raise AssertionError(f"dcnv3_sampling_backward {name} {k}: max abs error "
+                                     f"{errs[k]} > 1e-5 x {mags[k]}")
+        del got, want
+        nbytes, flops = dcnv3_bwd_bytes(b, h, w, c, 9), dcnv3_bwd_flops(b, h, w, c, 9)
+        sets += [inputs() for _ in range(max(0, -(-64 * 2**20 // nbytes) - 1))]
+        # the library yardstick: autograd's backward of the grid_sample formulation
+        graphs = []
+        for x, offset, mask, g in sets:
+            leaves = [t.detach().requires_grad_() for t in (x, offset, mask)]
+            graphs.append((dcnv3_core_grid_sample(*leaves, *args, c, 1.0), leaves, g))
+        it = {"i": 0}
+
+        def nxt(seq):
+            it["i"] = (it["i"] + 1) % len(seq)
+            return seq[it["i"]]
+
+        def library():
+            out, leaves, g = nxt(graphs)
+            return torch.autograd.grad(out, leaves, g, retain_graph=True)
+        r = dict(
+            shape=[b, h, w, c], max_abs_err=max(errs.values()), errs=errs, magnitudes=mags,
+            ms=cuda_ms(lambda: dcnv3_sampling_backward(*nxt(sets), *args, c, 1.0), 20),
+            plain_ms=cuda_ms(lambda: dcnv3_core_bwd(*nxt(sets), *args, c, 1.0), 5),
+            library_ms=cuda_ms(library, 10),
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, flops_ms=flops / FP32_FLOP_PER_S * 1e3,
+            bytes=nbytes, flops=flops)
+        r["bound_ms"] = max(r["bytes_ms"], r["flops_ms"])
+        results[name] = r
+        print(f"kernel dcnv3_sampling_backward {name} k3 s1 p1 d1 g1: max abs error {errs} "
+              f"(largest magnitudes {mags}) kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
+              f"({nbytes} bytes, {flops} flop)", flush=True)
+        del sets, graphs
+    torch.cuda.empty_cache()
+    return results
 
 def make_frames(n: int, seed: int = 0):
     """n seeded uint8 RGB frames cycling 1080p, 720p, 480p: smooth structure
@@ -453,6 +550,216 @@ def model_path(cfg: str, frames, card: str) -> dict:
     return launches
 
 
+
+def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
+    """One seeded synthetic batch as the JAX package's loader yields it: uint8
+    NHWC images, targets (bs, M, 5) normalised [cls, x, y, w, h] with 1..M
+    boxes an image, their mask (bs, M), and (bs, imgsz/4, imgsz/4)
+    overlap-indexed masks, each instance an ellipse inside its box, targets
+    ordered as encode_overlap_masks numbers the instances."""
+    from yolo_dual_tpu_torch.losses.segment import encode_overlap_masks
+    M, mh = TRAIN_MAX_BOXES, imgsz // 4
+    targets = np.zeros((bs, M, 5), np.float32)
+    tmask = np.zeros((bs, M), bool)
+    masks = np.zeros((bs, mh, mh), np.float32)
+    yy, xx = np.mgrid[0:mh, 0:mh] + 0.5
+    for i in range(bs):
+        n = int(rng.integers(1, M + 1))
+        wh = rng.uniform(0.05, 0.5, (n, 2))
+        xy = rng.uniform(wh / 2, 1 - wh / 2)
+        boxes = np.concatenate([rng.integers(0, 80, (n, 1)), xy, wh], 1)
+        inst = np.stack([((xx / mh - x) / (w / 2)) ** 2 + ((yy / mh - y) / (h / 2)) ** 2 <= 1
+                         for _, x, y, w, h in boxes])
+        masks[i], order = encode_overlap_masks(inst)
+        targets[i, :n] = boxes[order]
+        tmask[i, :n] = True
+    image = rng.integers(0, 256, (bs, imgsz, imgsz, 3), dtype=np.uint8)
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            dict(image=image, targets=targets, tmask=tmask, masks=masks).items()}
+
+
+def train_setup(model, bs: int, accumulate: int, count: int = 0):
+    """Trainer and state for `model`: SGD with hyp.scratch-low (weight decay
+    scaled by bs · accumulate / 64), the EMA, the overlap segment loss; the
+    optimizer's inner step count starts at `count`."""
+    from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
+    from yolo_dual_tpu_torch.train.ema import ModelEMA
+    from yolo_dual_tpu_torch.train.optim import smart_optimizer
+    from yolo_dual_tpu_torch.train.trainer import Trainer
+    from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
+    hyp = load_config(find_cfg("hyp.scratch-low.json"))
+    head = model.model[-1]
+    loss = ComputeSegmentLoss(head.anchors, head.strides, model.nc, head.nm, hyp, overlap=True)
+    opt = smart_optimizer(model, "SGD", hyp, epochs=EPOCHS, steps_per_epoch=STEPS_PER_EPOCH,
+                          accumulate=accumulate, total_batch_size=bs)
+    opt.count = count
+    trainer = Trainer(model, loss, opt, ModelEMA(model), task="segment")
+    return trainer, trainer.init_state()
+
+
+def dcnv3_train_model(device="cuda"):
+    """yolov5s-seg-dcnv3 at full width and depth with the predict phases'
+    seeded weights, drawn DCNv3 heads and calibrated BatchNorm, unfused."""
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    gen = torch.Generator().manual_seed(0)
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device=device, generator=gen)
+    draw_dcnv3_heads(model, gen)
+    return calibrate_bn(model, make_frames(3, seed=1))
+
+
+def train_path(card: str) -> dict:
+    """Phase 7: 8 checked micro-steps, 8 timed ones, then one profiled
+    accumulation cycle."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # torch's default for float32 convolutions
+    model = dcnv3_train_model()
+    trainer, state = train_setup(model, TRAIN_BS, ACCUMULATE)
+    rng = np.random.default_rng(4)
+    batches = [train_batch(rng, TRAIN_BS, TRAIN_IMGSZ, "cuda") for _ in range(TRAIN_MICRO_STEPS)]
+    params = [p for p in model.parameters()]
+    flat = lambda: torch.cat([p.detach().flatten() for p in params])  # noqa: E731
+    torch.cuda.synchronize()
+    letterbox_normalize.launches = dcnv3_sampling.launches = dcnv3_sampling_backward.launches = 0
+    items, moved = [], []
+    for batch in batches:
+        before = flat()
+        state, metrics = trainer.train_step(state, batch)
+        moved.append(not torch.equal(before, flat()))
+        items.append(metrics["items"].tolist())
+    torch.cuda.synchronize()
+    launches = {"letterbox_normalize": letterbox_normalize.launches,
+                "dcnv3_sampling": dcnv3_sampling.launches,
+                "dcnv3_sampling_backward": dcnv3_sampling_backward.launches}
+    n_dcn = sum(DCN_PATH_SHAPES.values()) * TRAIN_MICRO_STEPS
+    want = {"letterbox_normalize": 0, "dcnv3_sampling": n_dcn, "dcnv3_sampling_backward": n_dcn}
+    boundaries = [(i + 1) % ACCUMULATE == 0 for i in range(TRAIN_MICRO_STEPS)]
+    print(f"train: yolov5s-seg-dcnv3 bs {TRAIN_BS} {TRAIN_IMGSZ} px accumulate {ACCUMULATE}, "
+          f"{TRAIN_MICRO_STEPS} micro-steps, items [lbox, lseg, lobj, lcls] {items}, "
+          f"parameters moved {moved}, optimizer steps {state.optimizer.count}, "
+          f"EMA updates {state.ema.updates}, launches {launches}", flush=True)
+    if not np.isfinite(items).all():
+        raise AssertionError(f"train: a loss item is not finite: {items}")
+    if launches != want:
+        raise AssertionError(f"train: kernel launches {launches}, expected {want}")
+    if moved != boundaries or state.ema.updates != TRAIN_MICRO_STEPS // ACCUMULATE:
+        raise AssertionError(f"train: parameters moved at {moved}, expected {boundaries}; "
+                             f"EMA updates {state.ema.updates}")
+
+    # timing: 8 more micro-steps, each split by CUDA events, then 8 whole ones
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    split = []
+    for batch in batches:
+        e = [ev() for _ in range(4)]
+        model.zero_grad(set_to_none=True)
+        e[0].record()
+        loss, _ = trainer.forward_loss(model, batch)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        trainer.apply_gradients(state)
+        e[3].record()
+        split.append(e)
+    torch.cuda.synchronize()
+    parts = np.array([[a.elapsed_time(b) for a, b in zip(e, e[1:])] for e in split])
+    x = batches[0]["image"].permute(0, 3, 1, 2).float().div(255).contiguous()
+    forward_ms = cuda_ms(lambda: model(x, decode=False), TRAIN_MICRO_STEPS, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    whole = cuda_ms(lambda: trainer.train_step(state, batches[0]), TRAIN_MICRO_STEPS, warmup=0)
+    real = [i for i in range(TRAIN_MICRO_STEPS) if boundaries[i]]
+    timing = {"model": "yolov5s-seg-dcnv3", "card": card, "bs": TRAIN_BS, "imgsz": TRAIN_IMGSZ,
+              "accumulate": ACCUMULATE, "tf32": {"cudnn_conv": True, "matmul": False},
+              "micro_step_ms": whole, "img_per_s": TRAIN_BS / (whole / 1e3),
+              "forward_loss_ms": float(parts[:, 0].mean()), "forward_alone_ms": forward_ms,
+              "backward_ms": float(parts[:, 1].mean()),
+              "optimizer_ema_ms": float(parts[:, 2].mean()),
+              "optimizer_ema_ms_on_real_steps": float(parts[real, 2].mean()),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("train timing " + json.dumps(timing), flush=True)
+    print("train profile " + json.dumps(profile_steps(trainer, state, batches[:ACCUMULATE], whole)),
+          flush=True)
+    del model, trainer, state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_steps(trainer, state, batches, step_ms: float) -> dict:
+    """torch.profiler over one accumulation cycle of train steps: the device
+    time summed over the kernels it recorded, that sum over the profiled
+    host-clock window (which the profiler's own overhead lengthens) and over
+    the same number of unprofiled micro-steps of `step_ms` (the device's busy
+    share), and the kernels that took most."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            trainer.train_step(state, b)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731  (us -> ms)
+    # the kernels themselves: the aten ops that launched them carry the same time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev(e) > 0]
+    device_ms = sum(dev(e) for e in events)
+    if not device_ms:
+        return {"micro_steps": len(batches), "wall_ms": wall_ms, "device_ms": "not measured"}
+    top = sorted(events, key=dev, reverse=True)[:15]
+    return {"micro_steps": len(batches), "wall_ms": wall_ms, "device_ms": device_ms,
+            "kernel_launches": sum(e.count for e in events),
+            "busy_share_of_profiled_window": device_ms / wall_ms,
+            "busy_share": device_ms / (len(batches) * step_ms),
+            "top_ms": [[e.key[:90], round(dev(e), 4), e.count] for e in top]}
+
+
+def train_card_vs_cpu():
+    """Phase 8: one train step, bs 2 at 256 px, from the same weights and batch
+    on the card and on the CPU in float32, TF32 off, past warmup so every group
+    moves, and on the CPU in float64 as the anchor. Max pools (SPPF) route each
+    gradient to an argmax, which can flip between near-tied values under any
+    float32 rounding, so a float32 gradient or update may stand off the
+    float64 one by what such a flip moves. The card must stand no further off
+    it than the CPU's float32 does (the largest error of any tensor, relative
+    to that tensor's largest magnitude: card ≤ 2 · CPU + 1e-3), the loss items
+    must agree to 1e-4, and card and CPU within 1e-2 of each tensor's largest
+    magnitude."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = dcnv3_train_model()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = train_batch(np.random.default_rng(5), 2, 256, "cpu")
+    batch64 = dict(batch, image=batch["image"].double() / 255.0, targets=batch["targets"].double())
+    runs = {}
+    for name, m, b in (("cuda", model, batch), ("cpu", cpu_model, batch),
+                       ("cpu64", copy.deepcopy(cpu_model).double(), batch64)):
+        trainer, state = train_setup(m, 2, 1, count=30000)
+        start = {k: v.detach().clone() for k, v in m.named_parameters()}
+        state, metrics = trainer.train_step(state, b)
+        runs[name] = {"items": metrics["items"].cpu().double(),
+                      "grads": {k: p.grad.cpu().double() for k, p in m.named_parameters()},
+                      "updates": {k: (p.detach() - start[k]).cpu().double()
+                                  for k, p in m.named_parameters()}}
+    g, c, d = runs["cuda"], runs["cpu"], runs["cpu64"]
+
+    def errs(a, b, key):  # per tensor: largest error relative to b's largest magnitude
+        return sorted(((a[key][k] - v).abs().max().item() / v.abs().max().item(), k)
+                      for k, v in b[key].items() if v.abs().max().item() > 1e-6)[::-1]
+    out = {"items": {k: r["items"].tolist() for k, r in runs.items()},
+           "items_max_rel_err": ((g["items"] - c["items"]).abs() / c["items"].abs()).max().item()}
+    ok = out["items_max_rel_err"] <= 1e-4
+    for key in ("grads", "updates"):
+        e = {pair: errs(a, b, key) for pair, a, b in (("card_vs_cpu", g, c), ("card_vs_f64", g, d),
+                                                       ("cpu_vs_f64", c, d))}
+        out[key] = {pair: v[:3] for pair, v in e.items()}
+        ok &= e["card_vs_f64"][0][0] <= 2 * e["cpu_vs_f64"][0][0] + 1e-3
+        ok &= e["card_vs_cpu"][0][0] <= 1e-2
+    print("train card vs cpu (bs 2, 256 px, tf32 off; worst 3 tensors, error over the "
+          "tensor's largest magnitude): " + json.dumps(out), flush=True)
+    if not ok:
+        raise AssertionError(f"train card vs CPU: {out}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -475,7 +782,7 @@ def main() -> int:
         load_library(name)
         return time.perf_counter() - t0
     t0 = time.perf_counter()
-    names = ("letterbox", "dcnv3")
+    names = ("letterbox", "dcnv3", "dcnv3_bwd")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         secs = dict(zip(names, pool.map(build, names)))
     print("build: " + ", ".join(f"csrc/{n}.cu -> {library_path(n).name} in {t:.2f} s"
@@ -485,39 +792,42 @@ def main() -> int:
     # 3. kernels against their plain versions
     lres = letterbox_phase()
     dres = dcnv3_phase()
+    bres = dcnv3_bwd_phase()
 
-    # 4-6. each model's main path
+    # 4-6. each model's prediction path; 7. the training path; 8. training, card vs CPU
     frames = make_frames(N_FRAMES)
     by_path = {cfg.removesuffix(".json"): model_path(cfg, frames, card) for cfg in MODELS}
+    by_path["train yolov5s-seg-dcnv3"] = train_path(card)
+    train_card_vs_cpu()
 
-    # 7. kernels line: times averaged over the calls of the main paths
+    # 9. kernels line: times are means over the launches of the main paths, each
+    # launch weighted by the shape it ran at
     def total(kernel):
-        return sum(p[kernel] for p in by_path.values())
-    mix = [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)] for i in range(N_FRAMES)]
-    lmean = lambda key: float(np.mean([lres[n][key] for n in mix]))  # noqa: E731
-    dcalls = {f"1x{h}x{w}x{c}": n for (h, w, c), n in DCN_PATH_SHAPES.items()}
-    dmean = lambda key: float(sum(dres[n][key] * k for n, k in dcalls.items())  # noqa: E731
-                              / sum(dcalls.values()))
-    kernels = [{
-        "name": "letterbox_normalize", "route": "cuda",
-        "source": "yolo_dual_tpu_torch/csrc/letterbox.cu",
-        "replaces": "yolo_dual_tpu/kernels/preprocess.py:91",
-        "launches": total("letterbox_normalize"),
-        "launches_by_path": {k: p["letterbox_normalize"] for k, p in by_path.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in lres.values()),
-        "ms": lmean("ms"), "plain_ms": lmean("plain_ms"), "bound_ms": lmean("bound_ms"),
-        "bound_by": "bytes", "library_ms": lmean("library_ms"),
-    }, {
-        "name": "dcnv3_sampling", "route": "cuda",
-        "source": "yolo_dual_tpu_torch/csrc/dcnv3.cu",
-        "replaces": "yolo_dual_tpu/kernels/dcn_sampling.py:252",
-        "launches": total("dcnv3_sampling"),
-        "launches_by_path": {k: p["dcnv3_sampling"] for k, p in by_path.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in dres.values()),
-        "ms": dmean("ms"), "plain_ms": dmean("plain_ms"), "bound_ms": dmean("bound_ms"),
-        "bound_by": "bytes" if dmean("bytes_ms") >= dmean("flops_ms") else "operations",
-        "library_ms": dmean("library_ms"),
-    }]
+        return sum(p.get(kernel, 0) for p in by_path.values())
+
+    def wmean(res, weights, key):
+        return float(sum(res[n][key] * k for n, k in weights.items()) / sum(weights.values()))
+    lcalls = {n: [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)] for i in range(N_FRAMES)].count(n)
+              for n in MAIN_SHAPES}
+    # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training)
+    dcalls = {f"{b}x{h}x{w}x{c}": n * reps for (h, w, c), n in DCN_PATH_SHAPES.items()
+              for b, reps in ((1, N_FRAMES), (TRAIN_BS, TRAIN_MICRO_STEPS))}
+    bcalls = {f"{TRAIN_BS}x{h}x{w}x{c}": n * TRAIN_MICRO_STEPS for (h, w, c), n in DCN_PATH_SHAPES.items()}
+    rows = (("letterbox_normalize", "letterbox.cu", "preprocess.py:91", lres, lcalls),
+            ("dcnv3_sampling", "dcnv3.cu", "dcn_sampling.py:252", dres, dcalls),
+            ("dcnv3_sampling_backward", "dcnv3_bwd.cu", "dcn_sampling.py:437", bres, bcalls))
+    kernels = []
+    for name, src, tpu, res, calls in rows:
+        row = {"name": name, "route": "cuda", "source": f"yolo_dual_tpu_torch/csrc/{src}",
+               "replaces": f"yolo_dual_tpu/kernels/{tpu}", "launches": total(name),
+               "launches_by_path": {k: p.get(name, 0) for k, p in by_path.items()},
+               "max_abs_err": max(r["max_abs_err"] for r in res.values())}
+        row.update({k: wmean(res, calls, k) for k in ("ms", "plain_ms", "bound_ms")})
+        bound_by_bytes = "bytes_ms" not in next(iter(res.values())) or \
+            wmean(res, calls, "bytes_ms") >= wmean(res, calls, "flops_ms")
+        row["bound_by"] = "bytes" if bound_by_bytes else "operations"
+        row["library_ms"] = wmean(res, calls, "library_ms")
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,14 +8,18 @@ that has neither; tests/conftest.py imports JAX, hence:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerance: 1e-5 absolute on values of order 1, the limit chip_smoke.py holds
-the kernels to; the kernel and the plain version sum in other orders.
+the kernels to; the kernel and the plain version sum in other orders. The
+backward kernel is held to 1e-5 relative to the largest magnitude of each
+gradient: dx sums up to 36 float atomic adds per value in an order that changes
+from run to run, and doffset sums over the group's channels.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_core, dcnv3_sampling
+from yolo_dual_tpu_torch.kernels.dcn_sampling import (
+    dcnv3_core, dcnv3_core_bwd, dcnv3_sampling, dcnv3_sampling_backward)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,12 +71,43 @@ def test_dcnv3_kernel_matches_plain(cuda, name):
     assert (got - want).abs().max().item() <= 1e-5
 
 
-def test_dcnv3_raises_where_a_gradient_is_needed(cuda):
-    x, offset, mask = (torch.from_numpy(a).to(cuda) for a in sampling_inputs(0, 1, 6, 6, 1, 8, 3))
-    with pytest.raises(NotImplementedError, match="_dcnv3_banded_bwd"):
-        dcnv3_sampling(x.requires_grad_(), offset, mask, 3, 1, 1, 1, 1, 8, 1.0)
-    with torch.no_grad():
-        assert dcnv3_sampling(x, offset, mask, 3, 1, 1, 1, 1, 8, 1.0).shape == (1, 6, 6, 8)
+def assert_grads_close(got, want):
+    for name, a, b in zip(("dx", "doffset", "dmask"), got, want):
+        assert a.shape == b.shape and a.is_contiguous(), name
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * max(1.0, b.abs().max().item()), (name, err)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_dcnv3_backward_kernel_matches_plain(cuda, name):
+    b, h, w, g, gc, k, s, p, d, scale, std, integer = CASES[name]
+    x, offset, mask = (torch.from_numpy(a).to(cuda) for a in
+                       sampling_inputs(len(name), b, h, w, g, gc, k, s, std, integer))
+    gout = torch.randn((b, *offset.shape[1:3], g * gc), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(len(name)))
+    want = dcnv3_core_bwd(x, offset, mask, gout, k, s, p, d, g, gc, scale)
+    before = dcnv3_sampling_backward.launches
+    got = dcnv3_sampling_backward(x, offset, mask, gout, k, s, p, d, g, gc, scale)
+    torch.cuda.synchronize()
+    assert dcnv3_sampling_backward.launches == before + 1
+    assert_grads_close(got, want)
+
+
+def test_dcnv3_backward_launches_its_kernel_once(cuda):
+    """The autograd backward of dcnv3_sampling launches K3 once, on the
+    non-contiguous gradient a permute hands it, and matches the plain backward."""
+    x, offset, mask = (torch.from_numpy(a).to(cuda).requires_grad_() for a in
+                       sampling_inputs(0, 2, 6, 7, 1, 32, 3))
+    before = (dcnv3_sampling.launches, dcnv3_sampling_backward.launches)
+    out = dcnv3_sampling(x, offset, mask, 3, 1, 1, 1, 1, 32, 1.0)
+    gout = torch.randn(2, 32, 6, 7, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    (out.permute(0, 3, 1, 2) * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (dcnv3_sampling.launches, dcnv3_sampling_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = dcnv3_core_bwd(x.detach(), offset.detach(), mask.detach(),
+                          gout.permute(0, 2, 3, 1).contiguous(), 3, 1, 1, 1, 1, 32, 1.0)
+    assert_grads_close((x.grad, offset.grad, mask.grad), want)
 
 
 def test_dcnv3_rejects_what_the_kernel_does_not_take(cuda):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import nhwc, random_variables
+from torch_port_common import CORE_CASES, nhwc, random_variables, sampling_inputs
 from yolo_dual_tpu.engine import predict_images as jax_predict_images
 from yolo_dual_tpu.kernels.dcn_sampling import _dcnv3_banded_dispatch
 from yolo_dual_tpu.models.compiler import parse_config as jax_parse_config
@@ -45,26 +45,6 @@ def dcn_cfg(base: str) -> dict:
     for r in DCN_ROWS:
         d["backbone"][r][2] = "C3_DCNV3"
     return d
-
-
-def sampling_inputs(seed, b, h, w, g, gc, k, stride=1, offset_std=2.0):
-    rng = np.random.default_rng(seed)
-    ho, wo = -(-h // stride), -(-w // stride)
-    x = rng.standard_normal((b, h, w, g * gc)).astype(np.float32)
-    offset = (rng.standard_normal((b, ho, wo, g * k * k * 2)) * offset_std).astype(np.float32)
-    logits = rng.standard_normal((b, ho, wo, g, k * k))
-    mask = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
-    return x, offset, mask.reshape(b, ho, wo, g * k * k).astype(np.float32)
-
-
-CORE_CASES = {  # name: (b, h, w, g, gc, k, stride, pad, dilation, offset_scale, offset_std)
-    "g1": (2, 8, 9, 1, 4, 3, 1, 1, 1, 1.0, 2.0),
-    "g2": (2, 8, 9, 2, 4, 3, 1, 1, 1, 1.0, 2.0),
-    "offset_scale2": (1, 7, 6, 2, 3, 3, 1, 1, 1, 2.0, 2.0),
-    "stride2": (1, 10, 8, 1, 5, 3, 2, 1, 1, 1.0, 2.0),
-    "dilation2_k5": (1, 9, 9, 2, 2, 5, 1, 4, 2, 1.0, 1.5),
-    "far_outside": (1, 6, 7, 2, 3, 3, 1, 1, 1, 1.0, 8.0),
-}
 
 
 @pytest.mark.parametrize("name", sorted(CORE_CASES))

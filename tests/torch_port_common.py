@@ -1,6 +1,6 @@
 """Shared helpers of the tests/test_torch_port_*.py files: seeded numpy
 variables for a flax module, so the JAX package and the port run on the same
-weights without a compiled JAX init."""
+weights without a compiled JAX init, and seeded DCNv3 sampling inputs."""
 
 from pathlib import Path
 
@@ -42,3 +42,25 @@ def random_variables(init_fn, x_shape, seed):
 def nhwc(t):
     """Port NCHW tensor -> NHWC numpy for comparison with JAX outputs."""
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def sampling_inputs(seed, b, h, w, g, gc, k, stride=1, offset_std=2.0):
+    """Seeded channels-last DCNv3 sampling inputs: x N(0, 1), offsets
+    N(0, offset_std px), a mask softmaxed over the k·k points of each group."""
+    rng = np.random.default_rng(seed)
+    ho, wo = -(-h // stride), -(-w // stride)
+    x = rng.standard_normal((b, h, w, g * gc)).astype(np.float32)
+    offset = (rng.standard_normal((b, ho, wo, g * k * k * 2)) * offset_std).astype(np.float32)
+    logits = rng.standard_normal((b, ho, wo, g, k * k))
+    mask = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return x, offset, mask.reshape(b, ho, wo, g * k * k).astype(np.float32)
+
+
+CORE_CASES = {  # name: (b, h, w, g, gc, k, stride, pad, dilation, offset_scale, offset_std)
+    "g1": (2, 8, 9, 1, 4, 3, 1, 1, 1, 1.0, 2.0),
+    "g2": (2, 8, 9, 2, 4, 3, 1, 1, 1, 1.0, 2.0),
+    "offset_scale2": (1, 7, 6, 2, 3, 3, 1, 1, 1, 2.0, 2.0),
+    "stride2": (1, 10, 8, 1, 5, 3, 2, 1, 1, 1.0, 2.0),
+    "dilation2_k5": (1, 9, 9, 2, 2, 5, 1, 4, 2, 1.0, 1.5),
+    "far_outside": (1, 6, 7, 2, 3, 3, 1, 1, 1, 1.0, 8.0),
+}

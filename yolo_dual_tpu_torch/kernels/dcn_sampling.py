@@ -1,21 +1,21 @@
-"""DCNv3 deformable sampling (port of yolo_dual_tpu/kernels/dcn_sampling.py and
-of the sampling core in yolo_dual_tpu/nn/dcn.py).
+"""DCNv3 deformable sampling and its gradient (port of
+yolo_dual_tpu/kernels/dcn_sampling.py and of the sampling core in
+yolo_dual_tpu/nn/dcn.py).
 
-`dcnv3_sampling` launches the hand-written CUDA kernel csrc/dcnv3.cu on CUDA
-tensors and runs the plain torch version, `dcnv3_core`, on CPU tensors (and on
-meta tensors, which carry shapes only: the model's stride probe runs on them).
-All tensors are channels-last, as in the JAX package: x (B, H, W, C = g·gc), offset
-(B, Ho, Wo, g·kk·2) as (Δx, Δy) pairs, mask (B, Ho, Wo, g·kk) softmaxed over kk;
-the output is (B, Ho, Wo, C). The kernel takes float32; the plain version any
-one floating type (float64 for a CPU reference).
-
-The kernel is forward only. Its backward (the JAX package's second DCNv3 Pallas
-kernel) is not ported yet, so on CUDA `dcnv3_sampling` raises when a gradient
-would be needed instead of returning an output without one.
+`dcnv3_sampling` is a `torch.autograd.Function`, as the JAX `custom_vjp` is. On
+CUDA tensors its forward launches the hand-written kernel csrc/dcnv3.cu and its
+backward csrc/dcnv3_bwd.cu (`dcnv3_sampling_backward`); on CPU tensors the
+forward is the plain `dcnv3_core` and the backward the plain `dcnv3_core_bwd`
+(on meta tensors, which carry shapes only, the forward is `dcnv3_core`: the
+model's stride probe runs on them). All tensors are channels-last, as in the
+JAX package: x (B, H, W, C = g·gc), offset (B, Ho, Wo, g·kk·2) as (Δx, Δy)
+pairs, mask (B, Ho, Wo, g·kk) softmaxed over kk; the output is (B, Ho, Wo, C).
+The kernels take float32; the plain versions any one floating type (float64
+for a CPU reference or gradcheck).
 
 `dcnv3_core_grid_sample` is the reference's grid_sample formulation of the same
-function; chip_smoke.py times it as a yardstick and nothing in the package
-calls it.
+function; chip_smoke.py times it, and its autograd backward, as a yardstick and
+nothing in the package calls it.
 """
 
 from __future__ import annotations
@@ -95,6 +95,71 @@ def dcnv3_core(x, offset, mask, kernel: int, stride: int, pad: int, dilation: in
     return out.permute(0, 2, 3, 1, 4).reshape(b, ho, wo, c)
 
 
+def dcnv3_core_bwd(x, offset, mask, g_out, kernel: int, stride: int, pad: int, dilation: int,
+                   group: int, group_channels: int, offset_scale: float):
+    """Plain torch DCNv3 sampling gradients (JAX nn/dcn.py:dcnv3_core_bwd), in
+    the dtype of x: (dx, doffset, dmask) for the output gradient `g_out`
+    (B, Ho, Wo, C).
+
+    - dx: scatter-add of bilinear corner weight × mask × ḡ into the four
+      corners of the padded input, cropped to the unpadded input;
+    - doffset: ḡ·mask·∂sample/∂s, with ∂sample/∂sx = (1−wy)(v01−v00) +
+      wy(v11−v10) (and likewise for y), times offset_scale = ∂s/∂offset;
+    - dmask: ⟨sample, ḡ⟩ per kernel point."""
+    b, h, w, c = x.shape
+    gc = group_channels
+    kk = kernel * kernel
+    hin, win = h + 2 * pad, w + 2 * pad
+    ho, wo = offset.shape[1:3]
+    bg = b * group
+    P = ho * wo * kk
+    xg = F.pad(x, (0, 0, pad, pad, pad, pad)).reshape(b, hin, win, group, gc) \
+        .permute(0, 3, 1, 2, 4).reshape(bg, hin * win, gc)
+    sxf, syf = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale)
+    x0 = torch.floor(sxf)
+    y0 = torch.floor(syf)
+    wx = (sxf - x0).to(x.dtype)
+    wy = (syf - y0).to(x.dtype)
+
+    def corner(dy, dx):
+        yi, xi = y0 + dy, x0 + dx
+        inb = (xi >= 0) & (xi < win) & (yi >= 0) & (yi < hin)
+        flat = (yi.clamp(0, hin - 1).long() * win + xi.clamp(0, win - 1).long())[..., None] \
+            .expand(bg, P, gc)
+        return torch.gather(xg, 1, flat) * inb[..., None], flat, inb
+
+    v00, f00, i00 = corner(0, 0)
+    v01, f01, i01 = corner(0, 1)   # +x
+    v10, f10, i10 = corner(1, 0)   # +y
+    v11, f11, i11 = corner(1, 1)
+    w00, w01, w10, w11 = (1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy
+
+    gk = g_out.reshape(b, ho, wo, group, gc).permute(0, 3, 1, 2, 4) \
+        .reshape(bg, ho * wo, 1, gc).expand(bg, ho * wo, kk, gc).reshape(bg, P, gc)
+    m = mask.reshape(b, ho, wo, group, kk).permute(0, 3, 1, 2, 4).reshape(bg, P)
+    dsamp = gk * m[..., None]
+
+    samp = v00 * w00[..., None] + v01 * w01[..., None] + v10 * w10[..., None] + v11 * w11[..., None]
+    dmask_flat = (samp * gk).sum(-1)
+    dd_dwx = (1 - wy)[..., None] * (v01 - v00) + wy[..., None] * (v11 - v10)
+    dd_dwy = (1 - wx)[..., None] * (v10 - v00) + wx[..., None] * (v11 - v01)
+    dsx = (dsamp * dd_dwx).sum(-1) * offset_scale
+    dsy = (dsamp * dd_dwy).sum(-1) * offset_scale
+
+    dxg = torch.zeros((bg, hin * win, gc), dtype=x.dtype, device=x.device)
+    for flat, inb, wgt in ((f00, i00, w00), (f01, i01, w01), (f10, i10, w10), (f11, i11, w11)):
+        dxg.scatter_add_(1, flat, dsamp * (wgt * inb)[..., None])
+    dx = dxg.reshape(b, group, hin, win, gc).permute(0, 2, 3, 1, 4).reshape(b, hin, win, c)
+    dx = dx[:, pad:hin - pad, pad:win - pad].contiguous()
+
+    def unflat(t):  # (bg, P) -> (b, ho, wo, group, kk)
+        return t.reshape(b, group, ho, wo, kk).permute(0, 2, 3, 1, 4)
+
+    doff = torch.stack([unflat(dsx), unflat(dsy)], -1).reshape(b, ho, wo, group * kk * 2)
+    dmask = unflat(dmask_flat).reshape(b, ho, wo, group * kk)
+    return dx, doff.to(offset.dtype), dmask.to(mask.dtype)
+
+
 def dcnv3_core_grid_sample(x, offset, mask, kernel: int, stride: int, pad: int, dilation: int,
                            group: int, group_channels: int, offset_scale: float) -> torch.Tensor:
     """The same function as the reference's dcnv3_core_pytorch computes it:
@@ -118,7 +183,7 @@ def dcnv3_core_grid_sample(x, offset, mask, kernel: int, stride: int, pad: int, 
 
 
 def _check(x, offset, mask, kernel, group, group_channels):
-    # the kernel takes float32; the plain version any one floating type
+    # the kernels take float32; the plain versions any one floating type
     want = torch.float32 if x.device.type == "cuda" else x.dtype
     if not x.is_floating_point() or {offset.dtype, mask.dtype, x.dtype} != {want}:
         raise TypeError(f"dcnv3_sampling expects {'float32' if want == torch.float32 else want} "
@@ -134,54 +199,117 @@ def _check(x, offset, mask, kernel, group, group_channels):
         raise ValueError(f"offset shape {tuple(offset.shape)}: expected (B, Ho, Wo, {group * kk * 2})")
     if tuple(mask.shape) != (b, ho, wo, group * kk):
         raise ValueError(f"mask shape {tuple(mask.shape)}: expected {(b, ho, wo, group * kk)}")
+    if x.device.type in ("cpu", "meta"):
+        return
+    if x.device.type != "cuda":
+        raise ValueError(f"dcnv3_sampling: unsupported device {x.device}")
+    if offset.device != x.device or mask.device != x.device:
+        raise ValueError("dcnv3_sampling: x, offset and mask must be on one device")
+    if not (x.is_contiguous() and offset.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("dcnv3_sampling expects contiguous channels-last tensors")
+
+
+def _launch(fn, ptrs, x, offset, kernel, stride, pad, dilation, group, group_channels,
+            offset_scale):
+    launch, error_string = _kernel(fn)
+    b, h, w, c = x.shape
+    ho, wo = offset.shape[1:3]
+    with torch.cuda.device(x.device):
+        rc = launch(*(t.data_ptr() for t in ptrs), b, h, w, c, ho, wo, group, group_channels,
+                    kernel, stride, pad, dilation, float(offset_scale),
+                    torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"{fn} failed: {error_string(rc).decode()}")
+
+
+def _forward(x, offset, mask, cfg):
+    if x.device.type in ("cpu", "meta"):
+        return dcnv3_core(x, offset, mask, *cfg)
+    out = torch.empty((x.shape[0], *offset.shape[1:3], x.shape[3]), dtype=torch.float32,
+                      device=x.device)
+    _launch("dcnv3_sampling_launch", (x, offset, mask, out), x, offset, *cfg)
+    dcnv3_sampling.launches += 1
+    return out
+
+
+class _DCNv3Sampling(torch.autograd.Function):
+    """The sampling with its gradient: K2 forward and K3 backward on CUDA, the
+    plain versions on the CPU (JAX kernels/dcn_sampling.py:111-150)."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, cfg):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, offset, mask)
+        return _forward(x, offset, mask, cfg)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, offset, mask = ctx.saved_tensors
+        dx, doffset, dmask = dcnv3_sampling_backward(x, offset, mask, grad_out.contiguous(),
+                                                     *ctx.cfg)
+        return dx, doffset, dmask, None
 
 
 def dcnv3_sampling(x, offset, mask, kernel: int, stride: int, pad: int, dilation: int,
                    group: int, group_channels: int, offset_scale: float) -> torch.Tensor:
     """DCNv3 sampling, (B, H, W, C) -> (B, Ho, Wo, C), with Ho and Wo those of
-    `offset`. On a CUDA tensor this launches csrc/dcnv3.cu and counts the
-    launch in `dcnv3_sampling.launches`; on a CPU or meta tensor it runs
-    `dcnv3_core`."""
+    `offset`, differentiable in x, offset and mask. On CUDA tensors the forward
+    launches csrc/dcnv3.cu (counted in `dcnv3_sampling.launches`) and the
+    backward `dcnv3_sampling_backward`; on CPU or meta tensors they are the
+    plain `dcnv3_core` and `dcnv3_core_bwd`."""
     _check(x, offset, mask, kernel, group, group_channels)
-    if x.device.type in ("cpu", "meta"):
-        return dcnv3_core(x, offset, mask, kernel, stride, pad, dilation, group,
-                          group_channels, offset_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"dcnv3_sampling: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or offset.requires_grad or mask.requires_grad):
-        raise NotImplementedError(
-            "dcnv3_sampling on CUDA is forward only: its backward kernel (the port of "
-            "yolo_dual_tpu/kernels/dcn_sampling.py:_dcnv3_banded_bwd) is not written yet; "
-            "run under torch.no_grad() or torch.inference_mode()")
-    if offset.device != x.device or mask.device != x.device:
-        raise ValueError("dcnv3_sampling: x, offset and mask must be on one device")
-    if not (x.is_contiguous() and offset.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("dcnv3_sampling expects contiguous channels-last tensors")
-    b, h, w, c = x.shape
-    ho, wo = offset.shape[1:3]
-    out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        rc = lib.dcnv3_sampling_launch(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, h, w, c, ho, wo, group, group_channels, kernel, stride, pad, dilation,
-            float(offset_scale), torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"dcnv3_sampling kernel launch failed: {lib.dcnv3_error_string(rc).decode()}")
-    dcnv3_sampling.launches += 1
-    return out
+    cfg = (kernel, stride, pad, dilation, group, group_channels, float(offset_scale))
+    return _DCNv3Sampling.apply(x, offset, mask, cfg)
 
 
 dcnv3_sampling.launches = 0
 
 
-def _library() -> ctypes.CDLL:
+def dcnv3_sampling_backward(x, offset, mask, grad_out, kernel: int, stride: int, pad: int,
+                            dilation: int, group: int, group_channels: int,
+                            offset_scale: float):
+    """(dx, doffset, dmask) of DCNv3 sampling for the output gradient
+    `grad_out` (B, Ho, Wo, C). On CUDA tensors this launches csrc/dcnv3_bwd.cu
+    and counts the launch in `dcnv3_sampling_backward.launches`; on CPU tensors
+    it runs `dcnv3_core_bwd`."""
+    _check(x, offset, mask, kernel, group, group_channels)
+    want = (x.shape[0], *offset.shape[1:3], x.shape[3])
+    if tuple(grad_out.shape) != want or grad_out.dtype != x.dtype or grad_out.device != x.device:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} on {grad_out.device}: "
+                         f"expected {want} {x.dtype} on {x.device}")
+    cfg = (kernel, stride, pad, dilation, group, group_channels, offset_scale)
+    if x.device.type == "cpu":
+        return dcnv3_core_bwd(x, offset, mask, grad_out, *cfg)
+    if x.device.type != "cuda":
+        raise ValueError(f"dcnv3_sampling_backward: unsupported device {x.device}")
+    if not grad_out.is_contiguous():
+        raise ValueError("dcnv3_sampling_backward expects a contiguous grad_out")
+    dx = torch.zeros_like(x)  # the kernel accumulates into it
+    doffset = torch.empty_like(offset)
+    dmask = torch.empty_like(mask)
+    _launch("dcnv3_backward_launch", (x, offset, mask, grad_out, dx, doffset, dmask), x, offset,
+            *cfg)
+    dcnv3_sampling_backward.launches += 1
+    return dx, doffset, dmask
+
+
+dcnv3_sampling_backward.launches = 0
+
+# launch function -> (source in csrc/, pointer arguments, error-string function)
+_KERNELS = {"dcnv3_sampling_launch": ("dcnv3", 4, "dcnv3_error_string"),
+            "dcnv3_backward_launch": ("dcnv3_bwd", 7, "dcnv3_backward_error_string")}
+
+
+def _kernel(fn: str):
+    """(launch function, error-string function) for `fn`, built and bound at first use."""
     from yolo_dual_tpu_torch.kernels.build import load_library
-    lib = load_library("dcnv3")
-    if lib.dcnv3_sampling_launch.argtypes is None:
+    name, n_ptr, err = _KERNELS[fn]
+    lib = load_library(name)
+    launch, error_string = getattr(lib, fn), getattr(lib, err)
+    if launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcnv3_sampling_launch.argtypes = [p, p, p, p] + [i] * 12 + [ctypes.c_float, p]
-        lib.dcnv3_sampling_launch.restype = ctypes.c_int
-        lib.dcnv3_error_string.argtypes = [ctypes.c_int]
-        lib.dcnv3_error_string.restype = ctypes.c_char_p
-    return lib
+        launch.argtypes = [p] * n_ptr + [i] * 12 + [ctypes.c_float, p]
+        launch.restype = ctypes.c_int
+        error_string.argtypes = [ctypes.c_int]
+        error_string.restype = ctypes.c_char_p
+    return launch, error_string

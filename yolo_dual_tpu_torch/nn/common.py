@@ -43,14 +43,38 @@ def fuse_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> nn.Conv2d:
     return fused
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose training forward updates `running_var` with the biased
+    batch variance, as flax's BatchNorm does (JAX nn/common.py:210-244);
+    torch's own feeds in the unbiased one. The normalised output, the
+    gradients, the running mean and the state_dict keys are torch's."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        # momentum 1 makes F.batch_norm write the batch mean and unbiased variance
+        # into these scratch buffers, so no second pass over x is needed
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
+        return y
+
+
 class Conv(nn.Module):
     """Conv2d + BN + act (reference models/common.py:47-64). After `fuse()` the
-    BN is folded into the conv and `bn` is None."""
+    BN is folded into the conv and `bn` is None. The BN keeps JAX's running
+    variance in training (`BatchNorm2d`)."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = resolve_act(act)
 
     def forward(self, x):

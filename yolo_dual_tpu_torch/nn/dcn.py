@@ -7,9 +7,10 @@ Attribute names follow the JAX variable tree (`cv1`, `cv2.conv`,
 `cv2.dcnv3.{input_proj,dw_conv,offset,mask,output_proj}`), so weights carried
 by io/weights.py:state_dict_from_flax load with `strict=True`.
 
-The sampling itself, with the plain `dcnv3_coords`/`dcnv3_core` it is held
-against, is in kernels/dcn_sampling.py: the CUDA kernel on the card, the plain
-version on the CPU.
+The sampling itself and its gradient, with the plain `dcnv3_coords`,
+`dcnv3_core` and `dcnv3_core_bwd` they are held against, are in
+kernels/dcn_sampling.py: the CUDA kernels on the card, the plain versions on
+the CPU.
 """
 
 from __future__ import annotations

@@ -72,15 +72,17 @@ def load_config(path) -> dict:
 
 def find_cfg(name) -> Path:
     """Resolve a config name: an existing path, else the package's JSON copy of
-    that config (`yolov5s-seg.yaml` and `yolov5s-seg.json` both find
-    configs/segment/yolov5s-seg.json)."""
+    that model or hyperparameter config (`yolov5s-seg.yaml` and
+    `yolov5s-seg.json` both find configs/segment/yolov5s-seg.json;
+    `hyp.scratch-low.yaml` finds configs/hyps/hyp.scratch-low.json)."""
     p = Path(name)
     if p.exists():
         return p
-    c = CONFIGS / "segment" / (p.stem + ".json")
-    if c.exists():
-        return c
-    raise FileNotFoundError(f"config {name} not found (nor {c})")
+    cands = [CONFIGS / sub / (p.stem + ".json") for sub in ("segment", "hyps")]
+    for c in cands:
+        if c.exists():
+            return c
+    raise FileNotFoundError(f"config {name} not found (nor {' nor '.join(map(str, cands))})")
 
 
 def select_device(device="cuda") -> torch.device:
