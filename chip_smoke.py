@@ -2,6 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port (yolo_dual_tpu_torch).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --device-times [ROOT]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc;
 without a CUDA device it exits non-zero and prints no result. Phases, each of
@@ -21,6 +22,8 @@ which raises on failure:
    - DCNv3 backward (K3) at the same shapes at batch 16, the training path's
      (dx, doffset, dmask each within 1e-5 of its largest magnitude; library:
      autograd's backward of the grid_sample formulation);
+   for K2 and K3 also each shape's launch plan and the share of samples with
+   a corner outside their block's shared-memory window;
 4. slice, for each model: yolov5s-seg and yolov5s-seg-dcnv3 (nc=80, 640 px,
    full width and depth, seeded random weights with the bias prior; the DCNv3
    offset and mask heads drawn from the seeded generator so offsets span ~2
@@ -42,21 +45,35 @@ which raises on failure:
    overlap-indexed masks with each instance inside its box) through
    Trainer.train_step; every loss item is finite, the counts set to 0 just
    before read 48 K2 and 48 K3 launches, the parameters move at micro-steps 4
-   and 8 only, the EMA counts 2 updates; then 8 more micro-steps are timed,
-   split as forward+loss / backward / optimizer+EMA (CUDA events), in img/s,
-   and torch.profiler records one accumulation cycle (device busy share,
-   the kernels that take most);
+   and 8 only, the EMA counts 2 updates; the model's offsets on the first
+   batch and the share of their samples outside the kernels' windows; then 8
+   more micro-steps are timed, split as forward+loss / backward /
+   optimizer+EMA (CUDA events), in img/s, and (after phase 9)
+   torch.profiler records one accumulation cycle (device busy share, the
+   kernels that take most);
 8. card against CPU, training: one train_step of the same model at bs 2,
    256 px, TF32 off, past warmup, from the same weights and batch on the GPU
    and on the CPU, and on the CPU in float64: loss items agree to 1e-4, and
    every gradient and parameter update of the card stands no further from the
    float64 step than the CPU's float32 does (see train_card_vs_cpu);
-9. a JSON line of every kernel with its launches on the main paths, then the
+9. device times: each K2 and K3 shape's own device time per launch from
+   torch.profiler (at batch 1 the CUDA events of phase 3 measure the host's
+   wrapper as well), after every timed path, as a profiler session can slow
+   the host's later launches; then K2's and K3's device times on the inputs
+   of the trained model's six DCNv3 calls (bs 16, its offsets after phase 7)
+   under window margins of 1 and 2 px, each beside its window-escape share;
+10. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
+
+`--device-times ROOT` runs phase 1 and phase 9's device times at every DCNv3
+path shape only, with the package of the checkout at ROOT (default: this one),
+for instance the parent commit unpacked with `git archive`: the same
+measurement of two versions in one call. It prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import copy
 import json
@@ -97,6 +114,42 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_kernel_ms(fn, kernel: str, iters: int):
+    """Mean device ms per launch of the CUDA kernels whose name holds `kernel`
+    over `iters` calls of `fn`, each of which launches one, from
+    torch.profiler's kernel records: the kernel's own time, without the host
+    wrapper that CUDA events around the call also count at batch 1. Late in a
+    long process the profiler can drop records: a session that did not record
+    `iters` launches is run again, up to three times, else "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        if sum(e.count for e in events) == iters:
+            return sum(e.self_device_time_total for e in events) / iters / 1e3
+    return "not measured"
+
+
+def window_escapes(offset, h: int, w: int, group_channels: int, backward: bool, kernel=3,
+                   stride=1, pad=1, dilation=1, group=1, offset_scale=1.0) -> dict:
+    """The DCNv3 launch plan of one call and the share of its samples with a
+    corner outside their block's window: those read (and in the backward
+    added) in device memory instead of shared memory."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_plan, dcnv3_window_escapes
+    plan = dcnv3_plan(offset.shape[0], *offset.shape[1:3], group, group_channels, kernel,
+                      stride, pad, dilation, offset_scale, backward)
+    return {"plan": "tile {}x{} window {}x{} chunk {} x{}".format(
+                plan.th, plan.tw, plan.wh, plan.ww, plan.cc, plan.cpb),
+            "escapes": dcnv3_window_escapes(offset, h, w, kernel, stride, pad, dilation, group,
+                                            offset_scale, plan)}
 
 
 def letterbox_bytes(b: int, h: int, w: int, s: int, scaleup: bool) -> int:
@@ -248,12 +301,14 @@ def dcnv3_phase():
                     bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, flops_ms=flops / FP32_FLOP_PER_S * 1e3,
                     bytes=nbytes, flops=flops)
             r["bound_ms"] = max(r["bytes_ms"], r["flops_ms"])
+            r.update(window_escapes(offset, h, w, c, backward=False))
             results[name] = r
             print(f"kernel dcnv3_sampling {name} k3 s1 p1 d1 g1: max_abs_err={err:.3g} "
                   f"kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
                   f"library_ms={r['library_ms']:.5f} (library max diff {lib_err:.3g}) "
                   f"bound_ms={r['bound_ms']:.5f} ({nbytes} bytes, {flops} flop), "
-                  f"samples with a corner outside {outside:.4f}", flush=True)
+                  f"samples with a corner outside the image {outside:.4f}, "
+                  f"outside their window {r['escapes']:.4f} ({r['plan']})", flush=True)
             del sets, x, offset, mask, out, ref, lib, sx, sy
     return results
 
@@ -325,14 +380,102 @@ def dcnv3_bwd_phase():
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, flops_ms=flops / FP32_FLOP_PER_S * 1e3,
             bytes=nbytes, flops=flops)
         r["bound_ms"] = max(r["bytes_ms"], r["flops_ms"])
+        r.update(window_escapes(sets[0][1], h, w, c, backward=True))
         results[name] = r
         print(f"kernel dcnv3_sampling_backward {name} k3 s1 p1 d1 g1: max abs error {errs} "
               f"(largest magnitudes {mags}) kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
-              f"({nbytes} bytes, {flops} flop)", flush=True)
+              f"({nbytes} bytes, {flops} flop), samples outside their window "
+              f"{r['escapes']:.4f} ({r['plan']})", flush=True)
         del sets, graphs
     torch.cuda.empty_cache()
     return results
+
+def device_phase(dres: dict, bres: dict):
+    """Phase 9, after every timed path (a profiler session can slow the host's
+    later launches): each K2 and K3 shape's own device time per launch from
+    torch.profiler, on fresh seeded inputs, into its result as `device_ms`. At
+    batch 1 the CUDA events of phase 3 measure the host's wrapper as well.
+    `dres` and `bres` map names to results that need only a `shape` [b, h, w,
+    c], and the phase calls nothing but the public wrappers, so it times
+    another checkout's kernels alike when that checkout's package is the one
+    imported."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    args = (3, 1, 1, 1, 1)
+    for res, kernel in ((dres, "dcnv3_sampling_kernel"), (bres, "dcnv3_backward_kernel")):
+        for name, r in res.items():
+            b, h, w, c = r["shape"]
+            x, offset, mask = dcnv3_inputs(gen, b, h, w, c)
+            if res is bres:
+                gout = torch.randn(b, h, w, c, device="cuda", generator=gen)
+                fn = lambda: dcnv3_sampling_backward(x, offset, mask, gout, *args, c, 1.0)  # noqa: E731
+            else:
+                def fn():
+                    with torch.no_grad():
+                        return dcnv3_sampling(x, offset, mask, *args, c, 1.0)
+            r["device_ms"] = profiled_kernel_ms(fn, kernel, 200 if b == 1 else 20)
+            print(f"device {kernel} {name}: {r['device_ms']} ms a launch", flush=True)
+    torch.cuda.empty_cache()
+
+
+def trained_inputs_phase(calls):
+    """Phase 9, second part: K2's and K3's own device times (torch.profiler)
+    on the inputs of the trained model's DCNv3 calls (bs 16, the offsets after
+    the training micro-steps; a seeded output gradient), under the launch plan
+    with a window margin of 1 px (the kernels' own) and of 2 px, each beside
+    its share of samples outside the window. Each plan's result is first held against the plain
+    version (1e-5 of each output's largest magnitude, as the model's
+    activations exceed 1). Inputs are cycled in copies past the 50 MB L2."""
+    import itertools
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import (
+        _launch, dcnv3_core, dcnv3_core_bwd, dcnv3_plan, dcnv3_window_escapes)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for i, (x, offset, mask, cfg) in enumerate(calls):
+        b, h, w, c = x.shape
+        ho, wo = offset.shape[1:3]
+        gout = torch.randn(b, ho, wo, c, device="cuda", generator=gen)
+        ins = (x, offset, mask, gout)
+        nbytes = sum(t.numel() * t.element_size() for t in ins)
+        sets = [ins] + [tuple(t.clone() for t in ins) for _ in range(-(-64 * 2**20 // nbytes) - 1)]
+        row = {"layer": i, "shape": [b, h, w, c], "offset_std_px": offset.std().item(),
+               "offset_max_abs_px": offset.abs().max().item()}
+        for backward in (False, True):
+            want = (dcnv3_core_bwd(*ins, *cfg) if backward
+                    else (dcnv3_core(x, offset, mask, *cfg),))
+            for margin in (1, 2):
+                plan = dcnv3_plan(b, ho, wo, cfg[4], cfg[5], *cfg[:4], cfg[6], backward, margin)
+                it = itertools.cycle(sets)
+
+                def run():
+                    xs, off, m, g = next(it)
+                    if backward:
+                        outs = (torch.zeros_like(xs), torch.empty_like(off), torch.empty_like(m))
+                        _launch("dcnv3_backward_launch", (xs, off, m, g, *outs), xs, off, *cfg,
+                                plan=plan)
+                    else:
+                        outs = (torch.empty(b, ho, wo, c, device="cuda"),)
+                        _launch("dcnv3_sampling_launch", (xs, off, m, *outs), xs, off, *cfg,
+                                plan=plan)
+                    return outs
+                got = run()
+                torch.cuda.synchronize()
+                err = max((a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                          for a, r in zip(got, want))
+                key = f"{'K3' if backward else 'K2'}_margin{margin}"
+                if not err <= 1e-5:
+                    raise AssertionError(f"trained inputs, layer {i} {key}: error {err} > 1e-5")
+                row[key] = {
+                    "plan": f"tile {plan.th}x{plan.tw} window {plan.wh}x{plan.ww} chunk {plan.cc}",
+                    "device_ms": profiled_kernel_ms(
+                        run, "dcnv3_backward_kernel" if backward else "dcnv3_sampling_kernel", 20),
+                    "escapes": dcnv3_window_escapes(offset, h, w, *cfg[:5], cfg[6], plan),
+                    "err": err}
+            del want
+        print("trained inputs " + json.dumps(row), flush=True)
+        del sets
+    torch.cuda.empty_cache()
+
 
 def make_frames(n: int, seed: int = 0):
     """n seeded uint8 RGB frames cycling 1080p, 720p, 480p: smooth structure
@@ -405,19 +548,39 @@ def draw_dcnv3_heads(model, generator):
     return model
 
 
-def offset_spread(model, frame) -> dict:
-    """Std and largest magnitude, in px, of the offsets every DCNv3 layer of
-    `model` predicts for one letterboxed frame."""
-    from yolo_dual_tpu_torch.nn.dcn import DCNv3
-    seen = []
-    hooks = [m.offset.register_forward_hook(lambda mod, i, o: seen.append(o.detach()))
-             for m in model.modules() if isinstance(m, DCNv3)]
-    with torch.inference_mode():
-        model(frame, decode=False)
-    for h in hooks:
-        h.remove()
-    return {"std_px": [round(o.std().item(), 4) for o in seen],
-            "max_abs_px": [round(o.abs().max().item(), 4) for o in seen]}
+def dcnv3_calls(model, x) -> list:
+    """The inputs of every DCNv3 sampling call of one eval-mode forward of
+    `model` on the batch `x`: (x, offset, mask, (kernel, stride, pad, dilation,
+    group, group_channels, offset_scale)) each."""
+    import yolo_dual_tpu_torch.nn.dcn as dcn
+    calls, sampling = [], dcn.dcnv3_sampling
+
+    def record(*args):
+        calls.append((*(t.detach() for t in args[:3]), args[3:]))
+        return sampling(*args)
+    mode = model.training
+    dcn.dcnv3_sampling = record
+    try:
+        with torch.no_grad():
+            model.eval()(x, decode=False)
+    finally:
+        dcn.dcnv3_sampling = sampling
+        model.train(mode)
+    return calls
+
+
+def offset_spread(calls) -> dict:
+    """Std and largest magnitude, in px, of the offsets of each DCNv3 call in
+    `calls` (from dcnv3_calls), and the share of their samples with a corner
+    outside their block's window under the forward's and the backward's launch
+    plans."""
+    out = {"std_px": [round(o.std().item(), 4) for _, o, _, _ in calls],
+           "max_abs_px": [round(o.abs().max().item(), 4) for _, o, _, _ in calls]}
+    for backward in (False, True):
+        out["window_escapes_" + ("backward" if backward else "forward")] = [
+            round(window_escapes(o, *x.shape[1:3], cfg[5], backward, *cfg[:5], cfg[6])["escapes"],
+                  4) for x, o, _, cfg in calls]
+    return out
 
 
 def model_path(cfg: str, frames, card: str) -> dict:
@@ -441,8 +604,8 @@ def model_path(cfg: str, frames, card: str) -> dict:
         extra["offset_heads"] = {"bias_px": DCN_OFFSET_BIAS_PX, "weight_gain": DCN_OFFSET_GAIN}
     calibrate_bn(model, make_frames(3, seed=1)).fuse()
     if n_dcn:
-        extra["offsets"] = offset_spread(
-            model, letterbox_normalize(torch.from_numpy(frames[0])[None].cuda(), 640))
+        extra["offsets"] = offset_spread(dcnv3_calls(
+            model, letterbox_normalize(torch.from_numpy(frames[0])[None].cuda(), 640)))
     nm = model.model[-1].nm
     assert model.model[-1].npr == 128 and model.nc == 80
     predict_images(model, frames[:3], imgsz=640, conf_thres=CONF_LOW, save_img=False,
@@ -607,9 +770,10 @@ def dcnv3_train_model(device="cuda"):
     return calibrate_bn(model, make_frames(3, seed=1))
 
 
-def train_path(card: str) -> dict:
-    """Phase 7: 8 checked micro-steps, 8 timed ones, then one profiled
-    accumulation cycle."""
+def train_path(card: str):
+    """Phase 7: 8 checked micro-steps and 8 timed ones. Returns the launch
+    counts, the inputs of the trained model's DCNv3 calls on the first batch
+    (dcnv3_calls), and a function that profiles one accumulation cycle."""
     from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
     from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -635,10 +799,14 @@ def train_path(card: str) -> dict:
     n_dcn = sum(DCN_PATH_SHAPES.values()) * TRAIN_MICRO_STEPS
     want = {"letterbox_normalize": 0, "dcnv3_sampling": n_dcn, "dcnv3_sampling_backward": n_dcn}
     boundaries = [(i + 1) % ACCUMULATE == 0 for i in range(TRAIN_MICRO_STEPS)]
+    x = batches[0]["image"].permute(0, 3, 1, 2).float().div(255).contiguous()
+    calls = dcnv3_calls(model, x)
+    spread = offset_spread(calls)
     print(f"train: yolov5s-seg-dcnv3 bs {TRAIN_BS} {TRAIN_IMGSZ} px accumulate {ACCUMULATE}, "
           f"{TRAIN_MICRO_STEPS} micro-steps, items [lbox, lseg, lobj, lcls] {items}, "
           f"parameters moved {moved}, optimizer steps {state.optimizer.count}, "
-          f"EMA updates {state.ema.updates}, launches {launches}", flush=True)
+          f"EMA updates {state.ema.updates}, launches {launches}; the model's offsets on the "
+          f"first batch after the micro-steps {json.dumps(spread)}", flush=True)
     if not np.isfinite(items).all():
         raise AssertionError(f"train: a loss item is not finite: {items}")
     if launches != want:
@@ -663,7 +831,6 @@ def train_path(card: str) -> dict:
         split.append(e)
     torch.cuda.synchronize()
     parts = np.array([[a.elapsed_time(b) for a, b in zip(e, e[1:])] for e in split])
-    x = batches[0]["image"].permute(0, 3, 1, 2).float().div(255).contiguous()
     forward_ms = cuda_ms(lambda: model(x, decode=False), TRAIN_MICRO_STEPS, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     whole = cuda_ms(lambda: trainer.train_step(state, batches[0]), TRAIN_MICRO_STEPS, warmup=0)
@@ -677,11 +844,13 @@ def train_path(card: str) -> dict:
               "optimizer_ema_ms_on_real_steps": float(parts[real, 2].mean()),
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     print("train timing " + json.dumps(timing), flush=True)
-    print("train profile " + json.dumps(profile_steps(trainer, state, batches[:ACCUMULATE], whole)),
-          flush=True)
-    del model, trainer, state, batches
     torch.cuda.empty_cache()
-    return launches
+
+    def profile():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True  # as the timed micro-steps ran
+        return profile_steps(trainer, state, batches[:ACCUMULATE], whole)
+    return launches, calls, profile
 
 
 def profile_steps(trainer, state, batches, step_ms: float) -> dict:
@@ -760,12 +929,18 @@ def train_card_vs_cpu():
         raise AssertionError(f"train card vs CPU: {out}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device-times", metavar="ROOT", nargs="?",
+                    const=str(Path(__file__).resolve().parent),
+                    help="only K2's and K3's device times, of the package under ROOT")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(args.device_times or Path(__file__).resolve().parent).resolve()
+    sys.path.insert(0, str(root))
     from yolo_dual_tpu_torch.kernels.build import library_path, load_library
 
     # 1. card
@@ -775,6 +950,12 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}", flush=True)
+    if args.device_times:
+        print(f"device times of the package under {root}", flush=True)
+        shapes = [[b, *k] for b in (1, TRAIN_BS, 32) for k in DCN_PATH_SHAPES]
+        device_phase({"x".join(map(str, s)): {"shape": s} for s in shapes},
+                     {"x".join(map(str, s)): {"shape": s} for s in shapes if s[0] == TRAIN_BS})
+        return 0
 
     # 2. build: one nvcc per source, all started together
     def build(name):
@@ -797,10 +978,19 @@ def main() -> int:
     # 4-6. each model's prediction path; 7. the training path; 8. training, card vs CPU
     frames = make_frames(N_FRAMES)
     by_path = {cfg.removesuffix(".json"): model_path(cfg, frames, card) for cfg in MODELS}
-    by_path["train yolov5s-seg-dcnv3"] = train_path(card)
+    by_path["train yolov5s-seg-dcnv3"], trained, train_profile = train_path(card)
     train_card_vs_cpu()
 
-    # 9. kernels line: times are means over the launches of the main paths, each
+    # 9. the DCNv3 kernels' own device times, on seeded and on the trained model's inputs;
+    # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
+    # the later sessions of the process missed or doubled kernel records
+    device_phase(dres, bres)
+    trained_inputs_phase(trained)
+    del trained
+    print("train profile " + json.dumps(train_profile()), flush=True)
+    del train_profile
+
+    # 10. kernels line: times are means over the launches of the main paths, each
     # launch weighted by the shape it ran at
     def total(kernel):
         return sum(p.get(kernel, 0) for p in by_path.values())
@@ -823,6 +1013,8 @@ def main() -> int:
                "launches_by_path": {k: p.get(name, 0) for k, p in by_path.items()},
                "max_abs_err": max(r["max_abs_err"] for r in res.values())}
         row.update({k: wmean(res, calls, k) for k in ("ms", "plain_ms", "bound_ms")})
+        if all(isinstance(r.get("device_ms"), float) for r in res.values()):  # phase 9's
+            row["device_ms"] = wmean(res, calls, "device_ms")
         bound_by_bytes = "bytes_ms" not in next(iter(res.values())) or \
             wmean(res, calls, "bytes_ms") >= wmean(res, calls, "flops_ms")
         row["bound_by"] = "bytes" if bound_by_bytes else "operations"

@@ -2,139 +2,244 @@
 // (B, Ho, Wo, G*KK*2) as (dx, dy) pairs, mask (B, Ho, Wo, G*KK) -> out (B, Ho, Wo, C).
 //
 // Replaces the Pallas TPU kernel yolo_dual_tpu/kernels/dcn_sampling.py:_dcnv3_banded_impl
-// (pallas_call at :252). The TPU has no per-lane gather, so that kernel folds the kk
-// bilinear samples of each output row into a one-hot gather matrix over a band of input
-// rows and runs one matmul per row, with a lax.cond escape to the plain core when an
-// offset leaves the band. Hopper gathers directly: this kernel reads the four corners of
-// each sample itself, so it is exact for any offset and needs no band.
+// (pallas_call at :252). That kernel keeps a band of input rows in VMEM and, since the TPU
+// has no per-lane gather, folds the kk bilinear samples of each output row into a one-hot
+// matrix over the band; a lax.cond sends the whole call to the plain core when any sample
+// leaves the band. Here the band becomes a window of the input in shared memory, one per
+// block, and a sample that leaves the window is read from device memory inside the kernel,
+// sample by sample: exact for any offset, with no second path.
 //
-// Design: a block holds TY output pixels of one row-major run; TX threads per pixel run
-// along its C channels, which are contiguous in NHWC, so each corner read of a warp is
-// one coalesced load. First the block reads each pixel's kk (dx, dy) pairs and kk mask
-// values once and computes the sample geometry into shared memory (the coordinates of
-// yolo_dual_tpu/nn/dcn.py:dcnv3_coords: s = base + offset_scale*(grid + d) - 0.5 in
-// padded-input pixels, base = i*stride + dil*(k-1)/2 + 0.5, kernel points X-major,
-// p = ix*k + iy); nothing of it goes to device memory. Zero padding costs no copy: a
-// corner at padded (y, x) reads the unpadded input at (y - pad, x - pad) when that lies
-// inside [0, H) x [0, W) and counts 0 otherwise, which equals padding then checking the
-// padded range. Then each thread sums, in float32 and in a fixed order (kk, then the
-// corners as the plain version blends them), the mask-weighted samples of its channels.
+// Bound: memory bytes. x is read once, offset and mask once, out written once: at
+// 32 x 80 x 80 x 64 that is 52.4 + 14.7 + 7.4 + 52.4 = 127 MB, ~38 us at 3.35 TB/s; the
+// arithmetic, 11 FLOP per output value and point, takes less at the float32 rate. A direct
+// gather (the kernel before this design) makes 36 scalar corner loads per output value, which
+// go through L1/L2 and kept it at 8-9% of that bound. At batch 1 a call moves 1-4 MB and is
+// bound by its launch and by the host wrapper, not by the device.
 //
-// Bound: memory bytes. x is read once (from L2 across the neighbouring pixels that share
-// corners), offset and mask once, out written once: at 32 x 80 x 80 x 64 that is
-// 52.4 + 14.7 + 7.4 + 52.4 = 127 MB, ~38 us at 3.35 TB/s. The arithmetic, 11 FLOP per
-// output value and sample point (99 at kk = 9), stays below that time at the float32
-// rate. At batch 1 a call moves 1-4 MB (bound ~0.3-1.2 us) and is bound by its launch.
+// Design (dcnv3_common.cuh holds the geometry, the plan and the staging): a block owns one
+// image, one group and a tile of output pixels (the plan, kernels/dcn_sampling.py:dcnv3_plan).
+// 1. For each chunk of CC channels of the group (at most 128), it copies the window of x
+//    (the tile's zero-offset footprint, the +1 corner and a margin) into shared memory with
+//    cp.async, 16 bytes a copy where the channels allow; rows and columns outside the image
+//    are the copy's zero fill, which is the zero padding. Where a group's tiles alone would
+//    leave the card's 132 SMs under-filled, the plan spreads the chunks over blocks.
+// 2. While the first chunk's copy flies it computes each pixel's kk samples into shared
+//    memory, with csrc/dcnv3_bwd.cu's arithmetic bit for bit.
+// 3. The lanes of a warp run along the channels of one output pixel at a time, or of two
+//    (16 lanes each) when a chunk has at most 64 channels: each lane V = 4 or 2 neighbouring
+//    channels, read from the window and written as one 16- or 8-byte word, where the chunk
+//    allows (else one channel a lane, up to four 32 apart). A lane sums over the kk points,
+//    in the plain version's order (kk, then the corners as it blends them), in registers. A
+//    corner in the window is read from shared memory; one outside it, from device memory
+//    with the range check that gives zero padding.
+// Measured (torch.profiler's device time, chip_smoke.py --device-times, on an H100 SXM at
+// 700 W; PERF.md): at bs 32 0.155 / 0.086 / 0.048 ms at 80x80x64 / 40x40x128 / 20x20x256
+// against 0.416 / 0.203 / 0.103 for the direct gather, 24% of the byte bound at 80x80x64.
+// About 5-11% of the samples of offsets N(0, 1.5 px) leave their window, 2-39% of a trained
+// model's, whose small maps then take up to 40% longer. At batch 1 a call takes 0.012 /
+// 0.009 / 0.007 ms on the card (the direct gather 0.016 / 0.009 / 0.006, faster on the
+// smallest map) and several times that on the host.
 //
 // Plain C interface, built with nvcc into a shared library and bound with ctypes.
 
-#include <cuda_runtime.h>
+#include "dcnv3_common.cuh"
 
 namespace {
 
-struct Sample {
-  int idx[4];    // y*W + x of corners (y0,x0), (y0,x0+1), (y0+1,x0), (y0+1,x0+1); -1 outside
-  float wx, wy;  // bilinear fractions
-  float m;       // mask weight
-};
+using dcnv3::Corners;
+using dcnv3::Plan;
+using dcnv3::Geometry;
+using dcnv3::Sample;
 
-__global__ void dcnv3_sampling_kernel(
-    const float* __restrict__ x, const float* __restrict__ offset,
-    const float* __restrict__ mask, float* __restrict__ out,
-    int B, int H, int W, int C, int Ho, int Wo, int G, int GC, int K,
-    int stride, int pad, int dil, float offset_scale) {
-  extern __shared__ Sample smem[];
-  const int KK = K * K;
-  const int GK = G * KK;
-  const int TY = blockDim.y;
-  const long long n_pix = (long long)B * Ho * Wo;
-  const long long pix0 = (long long)blockIdx.x * TY;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int half = (dil * (K - 1)) / 2;
+constexpr int kLaneChannels = 4;  // V = 1: channels a lane, lane, lane + 32, lane + 64, lane + 96
 
-  // 1. sample geometry of the block's pixels, one (pixel, group, point) per thread step
-  for (int e = tid; e < TY * GK; e += nthreads) {
-    const int ty = e / GK, gp = e % GK;
-    const long long pix = pix0 + ty;
-    Sample s;
-    s.idx[0] = s.idx[1] = s.idx[2] = s.idx[3] = -1;
-    s.wx = s.wy = s.m = 0.0f;
-    if (pix < n_pix) {
-      const int ox = (int)(pix % Wo);
-      const int oy = (int)((pix / Wo) % Ho);
-      const int p = gp % KK;
-      const float gx = (float)(-half + (p / K) * dil);  // X-major: p = ix*K + iy
-      const float gy = (float)(-half + (p % K) * dil);
-      const float* off = offset + pix * (2LL * GK) + 2 * gp;
-      const float bx = (float)(ox * stride + half) + 0.5f;
-      const float by = (float)(oy * stride + half) + 0.5f;
-      // the plain version's order of operations, without contraction into FMAs
-      const float sx = __fsub_rn(__fadd_rn(bx, __fmul_rn(offset_scale, __fadd_rn(gx, off[0]))), 0.5f);
-      const float sy = __fsub_rn(__fadd_rn(by, __fmul_rn(offset_scale, __fadd_rn(gy, off[1]))), 0.5f);
-      const float x0 = floorf(sx), y0 = floorf(sy);  // floor(-0.5) is -1, not 0
-      s.wx = sx - x0;
-      s.wy = sy - y0;
-      s.m = mask[pix * GK + gp];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // unpadded corner coordinates, compared as floats so no huge offset overflows an int
-        const float yf = y0 + (float)(c >> 1) - (float)pad;
-        const float xf = x0 + (float)(c & 1) - (float)pad;
-        if (yf >= 0.0f && yf < (float)H && xf >= 0.0f && xf < (float)W)
-          s.idx[c] = (int)yf * W + (int)xf;
-      }
-    }
-    smem[e] = s;
-  }
-  __syncthreads();
-
-  // 2. mask-weighted bilinear sum, threads along the channels of one pixel
-  const long long pix = pix0 + threadIdx.y;
-  if (pix >= n_pix) return;
-  const long long b = pix / ((long long)Ho * Wo);
-  const float* xb = x + b * (long long)H * W * C;
-  const Sample* sp = smem + threadIdx.y * GK;
-  for (int ch = threadIdx.x; ch < C; ch += blockDim.x) {
-    const Sample* sg = sp + (ch / GC) * KK;
-    float acc = 0.0f;
-    for (int p = 0; p < KK; ++p) {
-      const Sample s = sg[p];
-      float v[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // branch-free: an outside corner loads pixel 0 and counts 0, as the plain version
-        const float u = __ldg(xb + (long long)max(s.idx[c], 0) * C + ch);
-        v[c] = s.idx[c] >= 0 ? u : 0.0f;
-      }
-      const float top = v[0] * (1.0f - s.wx) + v[1] * s.wx;
-      const float bot = v[2] * (1.0f - s.wx) + v[3] * s.wx;
-      acc += (top * (1.0f - s.wy) + bot * s.wy) * s.m;
-    }
-    out[pix * C + ch] = acc;
+template <int V>
+__device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    d[0] = t.x; d[1] = t.y;
+  } else {
+    d[0] = *p;
   }
 }
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&d)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+  } else {
+    *p = d[0];
+  }
+}
+
+// V = 4 or 2: a lane holds V neighbouring channels and a warp P pixels (chunks of up to
+// 32*V/P channels, a multiple of V); V = 1: up to kLaneChannels channels 32 apart (chunks of
+// up to 128, any count), a warp one pixel.
+template <int V, int P>
+__global__ void __launch_bounds__(dcnv3::kThreads) dcnv3_sampling_kernel(
+    const float* __restrict__ x, const float* __restrict__ offset,
+    const float* __restrict__ mask, float* __restrict__ out,
+    int H, int W, int C, int Ho, int Wo, int G, int GC, int K,
+    int stride, int pad, int dil, float offset_scale, Plan pl,
+    int n_tx, int n_ty, int n_cb, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KK = K * K, GK = G * KK;
+  const int npix = pl.th * pl.tw;
+  Geometry geo(smem, npix * KK);
+  float* win = reinterpret_cast<float*>(smem + Geometry::bytes((size_t)npix * KK));
+
+  long long bid = blockIdx.x;
+  const int cb = (int)(bid % n_cb); bid /= n_cb;
+  const int tx = (int)(bid % n_tx); bid /= n_tx;
+  const int ty = (int)(bid % n_ty); bid /= n_ty;
+  const int g = (int)(bid % G);
+  const long long b = bid / G;
+  const int oy0 = ty * pl.th, ox0 = tx * pl.tw;
+  const int wy0 = oy0 * stride + pl.win_off, wx0 = ox0 * stride + pl.win_off;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+
+  const float* xb = x + b * H * W * C + g * GC;
+  const int n_chunks = (GC + pl.cc - 1) / pl.cc;
+  const int ci_end = min(n_chunks, (cb + 1) * pl.cpb);
+  const int row = pl.ww * pl.cc;  // one window row, in floats
+  // 1. the first chunk's window of x, copied while the geometry is computed
+  dcnv3::stage_window(win, xb, cb * pl.cpb * pl.cc, min(pl.cc, GC - cb * pl.cpb * pl.cc), wy0,
+                      wx0, pl, H, W, C, vec);
+  // 2. sample geometry of the tile, one (pixel, point) per thread step
+  for (int e = threadIdx.x; e < npix * KK; e += blockDim.x) {
+    const int q = e / KK, p = e % KK;
+    const int oy = oy0 + q / pl.tw, ox = ox0 + q % pl.tw;
+    Sample s = dcnv3::empty_sample();
+    if (oy < Ho && ox < Wo) {
+      s = dcnv3::make_sample(offset, mask, (b * Ho + oy) * Wo + ox, g * KK + p, GK, K, oy, ox,
+                             H, W, stride, pad, dil, offset_scale);
+      dcnv3::place(s, wy0, wx0, pl);
+    }
+    geo.store(e, s);
+  }
+
+  for (int ci = cb * pl.cpb; ci < ci_end; ++ci) {
+    const int c0 = ci * pl.cc, ncur = min(pl.cc, GC - c0);
+    dcnv3::cp_async_wait_all();
+    __syncthreads();  // the geometry and this chunk's window in place
+    // 3. mask-weighted bilinear sums, lanes along the channels of a pixel
+    const float* xc = xb + c0;
+    if (V > 1) {  // P pixels a warp, each lane V neighbouring channels as one word
+      constexpr int L = 32 / P;  // lanes a pixel
+      const int ch = V * (lane % L);
+      for (int q = warp * P + lane / L; q < npix; q += nwarps * P) {
+        const int oy = oy0 + q / pl.tw, ox = ox0 + q % pl.tw;
+        if (oy >= Ho || ox >= Wo || ch >= ncur) continue;  // ncur is a multiple of V
+        float acc[V] = {};
+        Sample next = geo.load(q * KK);
+        for (int p = 0; p < KK; ++p) {
+          const Sample s = next;
+          if (p + 1 < KK) next = geo.load(q * KK + p + 1);  // in flight while s is summed
+          float v[4][V];
+          if (s.wofs >= 0) {  // fast path: the four corners in the window
+            const float* w0 = win + s.wofs + ch;
+            load_vec<V>(v[0], w0);
+            load_vec<V>(v[1], w0 + pl.cc);
+            load_vec<V>(v[2], w0 + row);
+            load_vec<V>(v[3], w0 + row + pl.cc);
+          } else {  // a corner outside the window
+            const Corners k = dcnv3::locate(geo.corner[q * KK + p], wy0, wx0, pl, H, W);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+              for (int i = 0; i < V; ++i)
+                v[c][i] = dcnv3::corner_value(k, c, win, xc, pl.cc, C, ch + i);
+          }
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float u[4] = {v[0][i], v[1][i], v[2][i], v[3][i]};
+            acc[i] += dcnv3::blend(u, s) * s.m;
+          }
+        }
+        store_vec<V>(out + ((b * Ho + oy) * Wo + ox) * C + g * GC + c0 + ch, acc);
+      }
+    } else {
+      for (int q = warp; q < npix; q += nwarps) {
+        const int oy = oy0 + q / pl.tw, ox = ox0 + q % pl.tw;
+        if (oy >= Ho || ox >= Wo) continue;  // uniform across the warp
+        float* op = out + ((b * Ho + oy) * Wo + ox) * C + g * GC + c0;
+        float acc[kLaneChannels] = {};  // V = 1: channels lane, lane + 32, ...
+        for (int p = 0; p < KK; ++p) {
+          const Sample s = geo.load(q * KK + p);
+          if (s.wofs >= 0) {  // fast path: the four corners in the window
+            const float* w0 = win + s.wofs;
+#pragma unroll
+            for (int j = 0; j < kLaneChannels; ++j) {
+              const int ch = lane + 32 * j;
+              if (ch < ncur) {
+                const float v[4] = {w0[ch], w0[ch + pl.cc], w0[ch + row], w0[ch + row + pl.cc]};
+                acc[j] += dcnv3::blend(v, s) * s.m;
+              }
+            }
+          } else {  // a corner outside the window
+            const Corners k = dcnv3::locate(geo.corner[q * KK + p], wy0, wx0, pl, H, W);
+#pragma unroll
+            for (int j = 0; j < kLaneChannels; ++j) {
+              const int ch = lane + 32 * j;
+              if (ch < ncur) {
+                float v[4];
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  v[c] = dcnv3::corner_value(k, c, win, xc, pl.cc, C, ch);
+                acc[j] += dcnv3::blend(v, s) * s.m;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kLaneChannels; ++j)
+          if (lane + 32 * j < ncur) op[lane + 32 * j] = acc[j];
+      }
+    }
+    if (ci + 1 < ci_end) {
+      __syncthreads();  // the window read: copy the next chunk's
+      dcnv3::stage_window(win, xb, c0 + pl.cc, min(pl.cc, GC - c0 - pl.cc), wy0, wx0, pl, H, W, C,
+                          vec);
+    }
+  }
+}
+
+int allowed_shared[4][64];  // per kernel and device: the most shared memory allowed so far
 
 }  // namespace
 
 extern "C" int dcnv3_sampling_launch(
     const void* x, const void* offset, const void* mask, void* out,
     int B, int H, int W, int C, int Ho, int Wo, int G, int GC, int K,
-    int stride, int pad, int dil, float offset_scale, void* stream) {
-  if (B <= 0 || Ho <= 0 || Wo <= 0 || C <= 0 || K <= 0 || G <= 0 || G * GC != C)
-    return (int)cudaErrorInvalidValue;
-  // TX threads on the channels of a pixel (a multiple of 32, at most 256), TY pixels a block
-  int tx = ((C + 31) / 32) * 32;
-  if (tx > 256) tx = 256;
-  const int ty = 256 / tx;
-  const size_t shmem = (size_t)ty * G * K * K * sizeof(Sample);
-  if (shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const long long n_pix = (long long)B * Ho * Wo;
-  const long long blocks = (n_pix + ty - 1) / ty;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dcnv3_sampling_kernel<<<(unsigned)blocks, dim3(tx, ty), shmem, (cudaStream_t)stream>>>(
+    int stride, int pad, int dil, float offset_scale,
+    int th, int tw, int cc, int cpb, int win_off, int wh, int ww, void* stream) {
+  const Plan pl{th, tw, cc, cpb, win_off, wh, ww};
+  int rc = dcnv3::check_call(B, H, W, C, Ho, Wo, G, GC, K, stride, dil, pl, 32 * kLaneChannels);
+  if (rc) return rc;
+  const int n_ty = (Ho + th - 1) / th, n_tx = (Wo + tw - 1) / tw;
+  const int n_chunks = (GC + cc - 1) / cc, n_cb = (n_chunks + cpb - 1) / cpb;
+  const long long blocks = (long long)B * G * n_ty * n_tx * n_cb;
+  const size_t shared = dcnv3::Geometry::bytes((size_t)th * tw * K * K) +
+                        (size_t)wh * ww * cc * sizeof(float);
+  if ((rc = dcnv3::check_size(blocks, shared))) return rc;
+  const bool vec = cc % 4 == 0 && GC % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  // V neighbouring channels a lane where every chunk and the output's addresses allow it; two
+  // pixels a warp where 16 lanes of 4 cover a chunk
+  const bool v4 = cc % 4 == 0 && GC % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  const bool v2 = cc <= 64 && cc % 2 == 0 && GC % 2 == 0 && ((uintptr_t)out & 7) == 0;
+  const int form = v4 ? (cc <= 64 ? 0 : 1) : v2 ? 2 : 3;
+  auto kernel = form == 0 ? dcnv3_sampling_kernel<4, 2>
+                : form == 1 ? dcnv3_sampling_kernel<4, 1>
+                : form == 2 ? dcnv3_sampling_kernel<2, 1> : dcnv3_sampling_kernel<1, 1>;
+  if ((rc = dcnv3::allow_shared(kernel, shared, allowed_shared[form]))) return rc;
+  kernel<<<(unsigned)blocks, dcnv3::kThreads, shared, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)offset, (const float*)mask, (float*)out,
-      B, H, W, C, Ho, Wo, G, GC, K, stride, pad, dil, offset_scale);
+      H, W, C, Ho, Wo, G, GC, K, stride, pad, dil, offset_scale, pl, n_tx, n_ty, n_cb, vec);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled with
 nvcc for sm_90a into `build/torch_kernels/<name>-<hash>.so` at the repository
-root (the hash covers the source and the flags, so an edit rebuilds) and loaded
+root (the hash covers the source, the csrc/ headers it includes and the flags,
+so an edit to any of them rebuilds) and loaded
 with ctypes. Nothing is compiled when a module is imported. Kernels of
 different names may be built at the same time from several threads.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,9 +41,18 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def _sources(path: Path, seen: list) -> list:
+    """`path` and, depth first, every csrc/ file it includes with #include "…"."""
+    if path not in seen:
+        seen.append(path)
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+            _sources(path.parent / inc, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in _sources(CSRC / f"{name}.cu", []))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -21,6 +21,9 @@ nothing in the package calls it.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -209,15 +212,152 @@ def _check(x, offset, mask, kernel, group, group_channels):
         raise ValueError("dcnv3_sampling expects contiguous channels-last tensors")
 
 
+class DCNv3Plan(NamedTuple):
+    """How csrc/dcnv3.cu and csrc/dcnv3_bwd.cu cut one call (csrc/dcnv3_common.cuh): a
+    block owns a tile of th × tw output pixels of one image and group, and a window of
+    the input of wh × ww pixels whose origin lies `win_off` pixels from the tile's
+    origin times the stride (rows and columns alike); it takes the group's channels in
+    chunks of `cc`, `cpb` chunks a block (the backward takes all of them). The
+    window holds x and, in the backward, dx."""
+    th: int
+    tw: int
+    cc: int
+    cpb: int
+    win_off: int
+    wh: int
+    ww: int
+    shared_bytes: int
+    blocks: int
+
+
+SHARED_BYTES = 232448  # 227 KB, the most one block of an sm_90 card may take
+SM_SHARED_BYTES = 233472  # 228 KB an SM, of which each resident block also holds 1 KB
+SMS = 132  # streaming multiprocessors of an H100 SXM
+TILES = ((8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+WINDOW_MARGIN = 1  # px of the window beyond the tile's zero-offset footprint
+CHUNK = {False: 128, True: 64}  # channels a chunk at most: forward (4 a lane), backward (2)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def dcnv3_window(th: int, tw: int, kernel: int, stride: int, pad: int, dilation: int,
+                 offset_scale: float, margin: int = WINDOW_MARGIN):
+    """(win_off, wh, ww) of a th × tw tile: its zero-offset samples span
+    ±ext = ceil(|offset_scale|·half) px about each tap's centre (capped at 16, as
+    the window only places corners and any offset stays exact), plus the +1
+    bilinear corner and `margin` px on every side."""
+    half = dilation * (kernel - 1) // 2
+    scale = abs(offset_scale) if math.isfinite(offset_scale) else 1.0
+    ext = min(math.ceil(scale * half), 16)
+    span = 2 * ext + 2 + 2 * margin
+    return half - pad - ext - margin, (th - 1) * stride + span, (tw - 1) * stride + span
+
+
+def blocks_per_sm(shared_bytes: int) -> int:
+    """Blocks of `shared_bytes` that one SM holds at once, by shared memory."""
+    return SM_SHARED_BYTES // (shared_bytes + 1024)
+
+
+@functools.lru_cache(maxsize=512)
+def dcnv3_plan(b: int, ho: int, wo: int, group: int, group_channels: int, kernel: int,
+               stride: int, pad: int, dilation: int, offset_scale: float,
+               backward: bool, margin: int = WINDOW_MARGIN) -> DCNv3Plan:
+    """The launch plan of one DCNv3 call, cached per shape. Chunks of up to
+    `CHUNK` channels, lanes along them; a window margin of `margin` px.
+    The first tile of `TILES` wins whose block leaves room for four blocks an
+    SM and whose grid gives the forward four blocks an SM (it may spread a
+    group's chunks over blocks, and at tiles of 2 x 2 halve its chunks, to get
+    there), failing that two, and the backward two (it may not spread them:
+    its doffset and dmask sum over all the group's channels in one block);
+    failing that, the plan with the most blocks. A forward call too small to
+    fill one such wave (batch 1) takes tiles of at most 4 x 4 and chunks of at
+    most 64 channels, each chunk in a block of its own. PERF.md compares these
+    picks with kernels/bench_dcnv3.py's grid."""
+    kk = kernel * kernel
+    # chunks of CHUNK channels on tiles down to 2 x 2 first; the forward then halves its
+    # chunks, spread over blocks, before the tiles shrink further
+    ccs = [min(group_channels, CHUNK[backward])]
+    while not backward and ccs[-1] > 32:
+        ccs.append(ccs[-1] // 2)
+    order = [(tile, cc) for cc in ccs for tile in TILES[:-2]] + [(t, ccs[-1]) for t in TILES[-2:]]
+    fits = []
+    for (th, tw), cc in order:
+        win_off, wh, ww = dcnv3_window(th, tw, kernel, stride, pad, dilation, offset_scale,
+                                       margin)
+        shared = dcnv3_shared_bytes(th, tw, kk, cc, wh, ww, backward)
+        if shared > SHARED_BYTES:
+            continue
+        tiles = b * group * -(-ho // th) * -(-wo // tw)
+        n_chunks = -(-group_channels // cc)
+        for cpb in ((n_chunks,) if backward else (n_chunks, 1)):
+            fits.append(DCNv3Plan(th, tw, cc, cpb, win_off, wh, ww, shared,
+                                  tiles * -(-n_chunks // cpb)))
+    if not backward and b * group * ho * wo * group_channels <= 4 * SMS * 16 * 64:
+        # a call too small for one wave of four 4 x 4 x 64 blocks an SM (batch 1): its blocks
+        # are mostly latency, and small ones spread it over the most SMs
+        small = [plan for plan in fits if plan.th * plan.tw <= 16 and plan.cc <= 64
+                 and plan.cpb == 1]
+        if small:
+            return small[0]
+    for per_sm in ((2,) if backward else (4, 2)):
+        for plan in fits:
+            if blocks_per_sm(plan.shared_bytes) >= 4 and plan.blocks >= per_sm * SMS:
+                return plan
+    if not fits:
+        raise ValueError(f"dcnv3: no launch plan fits {SHARED_BYTES} bytes of shared memory "
+                         f"(kernel {kernel}, stride {stride}, dilation {dilation})")
+    return max(fits, key=lambda plan: plan.blocks)
+
+
+def dcnv3_shared_bytes(th: int, tw: int, kk: int, cc: int, wh: int, ww: int,
+                       backward: bool) -> int:
+    """Shared memory of one block, as the launchers compute it: the tile's
+    samples (16 bytes each, plus 8 for their corner), the window's x, and in
+    the backward the samples' four sums (16 bytes each) and the window's dx;
+    each part 16-byte aligned."""
+    n = th * tw * kk
+    geometry = 16 * n + _align16(8 * n)
+    if backward:
+        return geometry + 16 * n + (wh * ww * cc + 3) // 4 * 4 * 4 * 2
+    return geometry + wh * ww * cc * 4
+
+
+def dcnv3_window_escapes(offset: torch.Tensor, h: int, w: int, kernel: int, stride: int,
+                         pad: int, dilation: int, group: int, offset_scale: float,
+                         plan: DCNv3Plan) -> float:
+    """Share of the samples of a call with a corner outside their block's
+    window: those the kernels read (and the backward adds to) in device memory."""
+    b, ho, wo = offset.shape[:3]
+    sx, sy = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale)
+    shape = (b * group, ho, wo, kernel * kernel)
+    y0 = torch.floor(sy).reshape(shape) - pad
+    x0 = torch.floor(sx).reshape(shape) - pad
+    dev = dict(device=offset.device)
+    wy0 = (torch.arange(ho, **dev) // plan.th * plan.th * stride + plan.win_off)[:, None, None]
+    wx0 = (torch.arange(wo, **dev) // plan.tw * plan.tw * stride + plan.win_off)[None, :, None]
+    out = (y0 < wy0) | (y0 + 1 >= wy0 + plan.wh) | (x0 < wx0) | (x0 + 1 >= wx0 + plan.ww)
+    return out.float().mean().item()
+
+
 def _launch(fn, ptrs, x, offset, kernel, stride, pad, dilation, group, group_channels,
-            offset_scale):
-    launch, error_string = _kernel(fn)
+            offset_scale, plan=None):
+    """Launch `fn` on `ptrs` with the cached plan of its shape, or with `plan`
+    (kernels/bench_dcnv3.py and chip_smoke.py time other plans)."""
+    launch, error_string = _BOUND.get(fn) or _bind(fn)
     b, h, w, c = x.shape
     ho, wo = offset.shape[1:3]
-    with torch.cuda.device(x.device):
-        rc = launch(*(t.data_ptr() for t in ptrs), b, h, w, c, ho, wo, group, group_channels,
-                    kernel, stride, pad, dilation, float(offset_scale),
-                    torch.cuda.current_stream().cuda_stream)
+    if plan is None:
+        plan = dcnv3_plan(b, ho, wo, group, group_channels, kernel, stride, pad, dilation,
+                          offset_scale, fn == "dcnv3_backward_launch")
+    args = (*(t.data_ptr() for t in ptrs), b, h, w, c, ho, wo, group, group_channels, kernel,
+            stride, pad, dilation, offset_scale, *plan[:7])
+    if x.device.index == torch.cuda.current_device():
+        rc = launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            rc = launch(*args, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"{fn} failed: {error_string(rc).decode()}")
 
@@ -298,18 +438,20 @@ dcnv3_sampling_backward.launches = 0
 # launch function -> (source in csrc/, pointer arguments, error-string function)
 _KERNELS = {"dcnv3_sampling_launch": ("dcnv3", 4, "dcnv3_error_string"),
             "dcnv3_backward_launch": ("dcnv3_bwd", 7, "dcnv3_backward_error_string")}
+_BOUND: dict = {}  # launch function -> (launch, error string), bound once
 
 
-def _kernel(fn: str):
-    """(launch function, error-string function) for `fn`, built and bound at first use."""
+def _bind(fn: str):
+    """Build and load `fn`'s library at first use and bind its two functions;
+    later calls find them in `_BOUND` without taking the build's locks."""
     from yolo_dual_tpu_torch.kernels.build import load_library
     name, n_ptr, err = _KERNELS[fn]
     lib = load_library(name)
     launch, error_string = getattr(lib, fn), getattr(lib, err)
-    if launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        launch.argtypes = [p] * n_ptr + [i] * 12 + [ctypes.c_float, p]
-        launch.restype = ctypes.c_int
-        error_string.argtypes = [ctypes.c_int]
-        error_string.restype = ctypes.c_char_p
-    return launch, error_string
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch.argtypes = [p] * n_ptr + [i] * 12 + [ctypes.c_float] + [i] * 7 + [p]
+    launch.restype = ctypes.c_int
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+    _BOUND[fn] = launch, error_string
+    return _BOUND[fn]
