@@ -14,7 +14,10 @@ which raises on failure:
 3. kernels: each kernel against its plain torch version at the shapes its
    main paths give it, with its time, the plain version's, one library call's
    (timed only) and the least time the card could take:
-   - letterbox (max abs error <= 1e-5; library: F.interpolate + F.pad + /255);
+   - letterbox (K1) at the frames of LETTERBOX_CASES: the streamed 1080p, 720p
+     and 480p frames, 32 x 720p, the validator's 32 x 480p with scaleup=False,
+     an upscale, a small frame padded instead, fill 128 (max abs error <= 1e-5;
+     library: F.interpolate + F.pad + /255);
    - DCNv3 sampling (K2) at the three shapes of yolov5s-seg-dcnv3 at 640 px,
      batch 1, 16 and 32, with seeded offsets of a few px that reach past the
      border (max abs error <= 1e-5; library: the reference's F.grid_sample
@@ -56,16 +59,19 @@ which raises on failure:
    and on the CPU, and on the CPU in float64: loss items agree to 1e-4, and
    every gradient and parameter update of the card stands no further from the
    float64 step than the CPU's float32 does (see train_card_vs_cpu);
-9. device times: each K2 and K3 shape's own device time per launch from
-   torch.profiler (at batch 1 the CUDA events of phase 3 measure the host's
-   wrapper as well), after every timed path, as a profiler session can slow
-   the host's later launches; then K2's and K3's device times on the inputs
-   of the trained model's six DCNv3 calls (bs 16, its offsets after phase 7)
-   under window margins of 1 and 2 px, each beside its window-escape share;
+9. device times: each K1 case's, K2 shape's and K3 shape's own device time
+   per launch from torch.profiler (at batch 1 the CUDA events of phase 3
+   measure the host's wrapper as well; K1's call through the wrapper is timed
+   by CUDA events again, and at batch 1 the host's share printed), after every
+   timed path, as a profiler session can slow the host's later launches; then
+   K2's and K3's device times on the inputs of the trained model's six DCNv3
+   calls (bs 16, its offsets after phase 7) under window margins of 1 and 2
+   px, each beside its window-escape share;
 10. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 
-`--device-times ROOT` runs phase 1 and phase 9's device times at every DCNv3
+`--device-times ROOT` runs phase 1, phase 3's K1 cases (checked, and timed
+through the wrapper) and phase 9's device times at every K1 case and DCNv3
 path shape only, with the package of the checkout at ROOT (default: this one),
 for instance the parent commit unpacked with `git archive`: the same
 measurement of two versions in one call. It prints no result line.
@@ -181,22 +187,38 @@ def library_letterbox(x: torch.Tensor, s: int, fill: float, scaleup: bool) -> to
     return F.pad(y, (left, s - nw - left, top, s - nh - top), value=fill) / 255.0
 
 
+LETTERBOX_CASES = {  # name: ((B, H, W), out_size, fill, scaleup)
+    "1080p": ((1, 1080, 1920), 640, 114.0, True),
+    "720p": ((1, 720, 1280), 640, 114.0, True),
+    "480p": ((1, 480, 640), 640, 114.0, True),
+    "720p_bs32": ((32, 720, 1280), 640, 114.0, True),
+    "val_480p_bs32_no_scaleup": ((32, 480, 640), 640, 114.0, False),  # the validator's
+    "240p_upscale": ((1, 240, 320), 640, 114.0, True),
+    "240p_no_scaleup": ((1, 240, 320), 640, 114.0, False),
+    "720p_fill128": ((1, 720, 1280), 640, 128.0, True),  # semantic_preprocess's fill
+}
+
+
+def frame_cycle(gen, x):
+    """A function returning, call by call, `x` and seeded copies of its shape
+    in turn, whose total exceeds the 50 MB L2, as a stream of new frames would."""
+    xs = [x] + [torch.randint(0, 256, x.shape, dtype=torch.uint8, device="cuda", generator=gen)
+                for _ in range(max(0, -(-64 * 2**20 // x.numel()) - 1))]
+    it = {"i": 0}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(xs)
+        return xs[it["i"]]
+    return nxt
+
+
 def letterbox_phase():
     from yolo_dual_tpu_torch.kernels.preprocess import (
         letterbox_normalize, letterbox_normalize_reference)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in full f32
-    cases = [  # name, (B, H, W), out_size, fill, scaleup
-        ("1080p", (1, 1080, 1920), 640, 114.0, True),
-        ("720p", (1, 720, 1280), 640, 114.0, True),
-        ("480p", (1, 480, 640), 640, 114.0, True),
-        ("720p_bs32", (32, 720, 1280), 640, 114.0, True),
-        ("240p_upscale", (1, 240, 320), 640, 114.0, True),
-        ("240p_no_scaleup", (1, 240, 320), 640, 114.0, False),
-        ("720p_fill128", (1, 720, 1280), 640, 128.0, True),
-    ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for name, (b, h, w), s, fill, scaleup in cases:
+    for name, ((b, h, w), s, fill, scaleup) in LETTERBOX_CASES.items():
         x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device="cuda", generator=gen)
         out = letterbox_normalize(x, s, fill=fill, scaleup=scaleup)
         ref = letterbox_normalize_reference(x, s, fill=fill, scaleup=scaleup)
@@ -206,15 +228,8 @@ def letterbox_phase():
         lib_err = (library_letterbox(x, s, fill, scaleup) - ref).abs().max().item()
         if not err <= 1e-5:
             raise AssertionError(f"letterbox {name}: max abs error {err} > 1e-5")
-        # cycle inputs whose total exceeds the 50 MB L2, as a stream of new frames would
         nbytes = letterbox_bytes(b, h, w, s, scaleup)
-        xs =[x] + [torch.randint(0, 256, x.shape, dtype=torch.uint8, device="cuda", generator=gen)
-                    for _ in range(max(0, -(-64 * 2**20 // (b * h * w * 3)) - 1))]
-        it = {"i": 0}
-
-        def nxt():
-            it["i"] = (it["i"] + 1) % len(xs)
-            return xs[it["i"]]
+        nxt = frame_cycle(gen, x)
         iters = 20 if b > 1 else 200
         r = dict(
             shape=[b, h, w, 3], out_size=s, fill=fill, scaleup=scaleup, max_abs_err=err,
@@ -229,7 +244,7 @@ def letterbox_phase():
               f"max_abs_err={err:.3g} kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']:.5f} (library max diff {lib_err:.3g}) "
               f"bound_ms={r['bound_ms']:.5f} ({nbytes} bytes)", flush=True)
-        del xs, x, out, ref
+        del nxt, x, out, ref
     return results
 
 
@@ -391,16 +406,39 @@ def dcnv3_bwd_phase():
     torch.cuda.empty_cache()
     return results
 
-def device_phase(dres: dict, bres: dict):
+def device_phase(lres: dict, dres: dict, bres: dict):
     """Phase 9, after every timed path (a profiler session can slow the host's
-    later launches): each K2 and K3 shape's own device time per launch from
-    torch.profiler, on fresh seeded inputs, into its result as `device_ms`. At
-    batch 1 the CUDA events of phase 3 measure the host's wrapper as well.
-    `dres` and `bres` map names to results that need only a `shape` [b, h, w,
-    c], and the phase calls nothing but the public wrappers, so it times
-    another checkout's kernels alike when that checkout's package is the one
-    imported."""
+    later launches): each K1, K2 and K3 case's own device time per launch from
+    torch.profiler, on fresh seeded inputs (K1's cycled past the L2 as in phase
+    3), into its result as `device_ms`. At batch 1 the CUDA events of phase 3
+    measure the host's wrapper as well; for K1 the phase times the call
+    through the wrapper by CUDA events again first, before any profiler
+    session, as `wrapper_ms`, and prints the host's share at batch 1 (events
+    less device time). `lres` maps names to results that need only `shape`
+    [b, h, w, 3], `out_size`, `fill` and `scaleup`, `dres` and `bres` to
+    results that need only a `shape` [b, h, w, c], and the phase calls nothing
+    but the public wrappers, so it times another checkout's kernels alike when
+    that checkout's package is the one imported."""
     from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    calls = {}
+    for name, r in lres.items():
+        b, h, w, _ = r["shape"]
+        nxt = frame_cycle(gen, torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                                             device="cuda", generator=gen))
+        s, fill, scaleup = r["out_size"], r["fill"], r["scaleup"]
+        calls[name] = (lambda nxt=nxt, s=s, fill=fill, scaleup=scaleup:
+                       letterbox_normalize(nxt(), s, fill=fill, scaleup=scaleup))
+        r["wrapper_ms"] = cuda_ms(calls[name], 20 if b > 1 else 200)
+    for name, r in lres.items():
+        b = r["shape"][0]
+        r["device_ms"] = profiled_kernel_ms(calls[name], "letterbox", 20 if b > 1 else 200)
+        host = (f", host share {r['wrapper_ms'] - r['device_ms']:.5f} ms"
+                if b == 1 and isinstance(r["device_ms"], float) else "")
+        print(f"device letterbox {name}: {r['device_ms']} ms a launch, through the wrapper "
+              f"{r['wrapper_ms']:.5f} ms (CUDA events){host}", flush=True)
+    del calls
     gen = torch.Generator(device="cuda").manual_seed(9)
     args = (3, 1, 1, 1, 1)
     for res, kernel in ((dres, "dcnv3_sampling_kernel"), (bres, "dcnv3_backward_kernel")):
@@ -933,7 +971,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device-times", metavar="ROOT", nargs="?",
                     const=str(Path(__file__).resolve().parent),
-                    help="only K2's and K3's device times, of the package under ROOT")
+                    help="only K1's phase 3 and K1's, K2's and K3's device times, of the "
+                         "package under ROOT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -951,9 +990,10 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}", flush=True)
     if args.device_times:
-        print(f"device times of the package under {root}", flush=True)
+        print(f"K1's phase 3 and device times of the package under {root}", flush=True)
         shapes = [[b, *k] for b in (1, TRAIN_BS, 32) for k in DCN_PATH_SHAPES]
-        device_phase({"x".join(map(str, s)): {"shape": s} for s in shapes},
+        device_phase(letterbox_phase(),
+                     {"x".join(map(str, s)): {"shape": s} for s in shapes},
                      {"x".join(map(str, s)): {"shape": s} for s in shapes if s[0] == TRAIN_BS})
         return 0
 
@@ -981,10 +1021,10 @@ def main(argv=None) -> int:
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile = train_path(card)
     train_card_vs_cpu()
 
-    # 9. the DCNv3 kernels' own device times, on seeded and on the trained model's inputs;
+    # 9. the kernels' own device times, on seeded and on the trained model's DCNv3 inputs;
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
     # the later sessions of the process missed or doubled kernel records
-    device_phase(dres, bres)
+    device_phase(lres, dres, bres)
     trained_inputs_phase(trained)
     del trained
     print("train profile " + json.dumps(train_profile()), flush=True)

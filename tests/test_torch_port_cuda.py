@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each kernel against its plain torch
-version, over the options the main path does not reach, and the wrappers'
-refusals. Every test here needs a CUDA device and skips without one.
+version, over the options and shapes the main path does not reach, and the
+wrappers' refusals. Every test here needs a CUDA device and skips without one.
 
 The file imports neither JAX nor the JAX package, so it runs on a GPU machine
 that has neither; tests/conftest.py imports JAX, hence:
@@ -21,6 +21,8 @@ import torch
 
 from yolo_dual_tpu_torch.kernels.dcn_sampling import (
     WINDOW_MARGIN, dcnv3_core, dcnv3_core_bwd, dcnv3_sampling, dcnv3_sampling_backward)
+from yolo_dual_tpu_torch.kernels.preprocess import (
+    LaunchParams, _launch, launch_record, letterbox_normalize, letterbox_normalize_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -169,3 +171,125 @@ def test_dcnv3_rejects_what_the_kernel_does_not_take(cuda):
         dcnv3_sampling(x, offset.cpu(), mask, 3, 1, 1, 1, 1, 8, 1.0)
     with pytest.raises(TypeError, match="float32"):
         dcnv3_sampling(x.half(), offset, mask, 3, 1, 1, 1, 1, 8, 1.0)
+
+
+def frames(seed, b, h, w):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8))
+
+
+LETTERBOX_CASES = {  # name: ((B, H, W), S, fill, scaleup)
+    "1080p_exact_3to1": ((1, 1080, 1920), 640, 114.0, True),
+    "720p_exact_2to1": ((1, 720, 1280), 640, 114.0, True),
+    "odd_333x1137": ((1, 333, 1137), 320, 114.0, True),  # row stride 3411 bytes
+    "portrait_odd_left": ((1, 1137, 333), 320, 114.0, True),  # left 113
+    "s102": ((1, 40, 30), 102, 114.0, True),  # S % 4 != 0: scalar stores
+    "frame_1x1": ((1, 1, 1), 64, 114.0, True),
+    "frame_2x3": ((1, 2, 3), 64, 114.0, True),
+    "upscale_8x": ((1, 80, 80), 640, 114.0, True),
+    "no_scaleup_inside_a_block": ((1, 3, 7), 640, 114.0, False),
+    "no_scaleup_480p_bs3": ((3, 480, 640), 640, 114.0, False),
+    "fill0": ((1, 100, 150), 160, 0.0, True),
+    "fill128": ((1, 100, 150), 160, 128.0, True),
+    "fill255": ((1, 100, 150), 160, 255.0, True),
+    "batch5": ((5, 360, 480), 320, 114.0, True),
+    "4k": ((1, 2160, 3840), 640, 114.0, True),
+    "8k_wide": ((1, 2160, 7680), 640, 114.0, True),
+}
+
+
+def letterbox_with(both, x, s, fill=114.0, scaleup=True):
+    """The letterbox of x through the public wrapper, or, where the wrapper
+    takes the other variant of the kernel (`both`: read both taps of every row
+    and column without a branch), through that variant."""
+    rec = launch_record(*x.shape[1:3], s, fill, scaleup, x.device)
+    if rec.params.both == both:
+        return letterbox_normalize(x, s, fill, scaleup)
+    params = LaunchParams.from_buffer_copy(rec.params)
+    params.both = both
+    out = torch.empty((x.shape[0], 3, s, s), device=x.device)
+    _launch(x, out, params)
+    return out
+
+
+@pytest.mark.parametrize("both", [0, 1])
+@pytest.mark.parametrize("name", sorted(LETTERBOX_CASES))
+def test_letterbox_kernel_matches_plain(cuda, name, both):
+    (b, h, w), s, fill, scaleup = LETTERBOX_CASES[name]
+    x = frames(len(name), b, h, w).to(cuda)
+    want = letterbox_normalize_reference(x, s, fill, scaleup)
+    before = letterbox_normalize.launches
+    got = letterbox_with(both, x, s, fill, scaleup)
+    torch.cuda.synchronize()
+    public = launch_record(h, w, s, fill, scaleup, x.device).params.both == both
+    assert letterbox_normalize.launches == before + public
+    assert got.shape == want.shape == (b, 3, s, s) and got.is_contiguous()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("both", [0, 1])
+def test_letterbox_over_a_sweep_of_sizes(cuda, both):
+    """Frames of 1 to 239 rows and as many or twice as many columns, onto
+    canvases that are and are not multiples of 4: the taps, the pads and the
+    content box's edges of each."""
+    for h, w in ((h, w) for h in range(1, 241, 7) for w in (h, 2 * h + 1, max(h // 2, 1))):
+        x = frames(h * w, 1, h, w).to(cuda)
+        for s in (96, 102):
+            got = letterbox_with(both, x, s)
+            assert (got - letterbox_normalize_reference(x, s)).abs().max().item() <= 1e-5, \
+                (h, w, s)
+
+
+def test_letterbox_on_a_side_stream(cuda):
+    x = frames(1, 2, 720, 1280).to(cuda)
+    want = letterbox_normalize_reference(x, 640)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        got = letterbox_normalize(x, 640)
+    stream.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_letterbox_replays_in_a_cuda_graph(cuda, b):
+    """After one warm-up call a call captures into a CUDA graph; a replay on
+    a new frame copied into the static input equals an eager call."""
+    static = frames(2, b, 1080, 1920).to(cuda)
+    letterbox_normalize(static, 640)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = letterbox_normalize(static, 640)
+    new = frames(3, b, 1080, 1920).to(cuda)
+    static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, letterbox_normalize(new, 640))
+    assert (out - letterbox_normalize_reference(new, 640)).abs().max().item() <= 1e-5
+
+
+def test_letterbox_graph_replays_after_many_other_geometries(cuda):
+    """The launch record a graph captured stays alive while 65 other
+    geometries are built and their calls allocate and free memory."""
+    static = frames(5, 1, 720, 1280).to(cuda)
+    letterbox_normalize(static, 640)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = letterbox_normalize(static, 640)
+    for k in range(65):
+        letterbox_normalize(frames(k, 1, 16 + k, 24).to(cuda), 64)
+    new = frames(6, 1, 720, 1280).to(cuda)
+    static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (out - letterbox_normalize_reference(new, 640)).abs().max().item() <= 1e-5
+
+
+def test_letterbox_rejects_what_the_kernel_does_not_take(cuda):
+    x = frames(4, 1, 48, 64).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        letterbox_normalize(x.transpose(1, 2), 64)
+    with pytest.raises(TypeError, match="uint8"):
+        letterbox_normalize(x.float(), 64)

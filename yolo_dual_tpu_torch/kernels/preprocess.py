@@ -9,7 +9,7 @@ on a CPU tensor. Output is NCHW float32 (B, 3, S, S) in [0, 1].
 from __future__ import annotations
 
 import ctypes
-import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,12 +43,6 @@ def axis_taps(n_in: int, n_out: int):
     taps = np.stack([np.clip(x0, 0, n_in - 1), np.clip(x0 + 1, 0, n_in - 1)], 1).astype(np.int32)
     weights = np.stack([1 - w, w], 1).astype(np.float32)
     return taps, weights
-
-
-@functools.lru_cache(maxsize=64)
-def _device_taps(n_in: int, n_out: int, device: torch.device):
-    taps, weights = axis_taps(n_in, n_out)
-    return torch.from_numpy(taps).to(device), torch.from_numpy(weights).to(device)
 
 
 def _content_box(h: int, w: int, s: int, scaleup: bool):
@@ -93,6 +87,76 @@ def letterbox_normalize_reference(images: torch.Tensor, out_size: int = 640,
     return out / 255.0
 
 
+ROWS, COLS = 4, 2  # csrc/letterbox.cu's blocks of 32 x ROWS threads, COLS output columns
+# a thread: chosen from a grid measured on the card (kernels/bench_letterbox.py plans; PERF.md)
+
+
+class LaunchParams(ctypes.Structure):
+    """One geometry's launch: csrc/letterbox.cu's LetterboxLaunch, built once
+    and passed by pointer. `both`: read both taps of every row and column
+    without a branch, for a geometry with no tap of weight 0."""
+    _fields_ = [("tables", ctypes.c_void_p),
+                *((name, ctypes.c_int) for name in (
+                    "H", "W", "S", "nh", "nw", "top", "left", "both", "rows", "cols")),
+                ("fill", ctypes.c_float)]
+
+
+class LaunchRecord(NamedTuple):
+    tables: torch.Tensor  # int32 (nh + nw, 4) on the frames' device: row taps, column taps
+    geometry: tuple       # (h, w, s, nh, nw, top, left)
+    fill: float           # fill / 255 in float32, the plain version's pad value
+    params: LaunchParams  # holds tables.data_ptr(): the record keeps the tables alive
+
+
+def letterbox_tables(h: int, w: int, s: int, scaleup: bool):
+    """The kernel's tap tables: (rows (nh, 4) int32, columns (nw, 4) int32). A
+    row is (tap 0, tap 1, weight 0, weight 1), the weights as float32 bits; a
+    column the same with its taps as byte offsets in a frame row. The taps and
+    weights are `axis_taps`'s, but a second tap of weight 0 repeats the first:
+    the kernel does not read it."""
+    _, nh, nw, _, _ = _content_box(h, w, s, scaleup)
+    if nh < 1 or nw < 1:
+        raise ValueError(f"letterbox_normalize: a {h}x{w} frame leaves no content on a "
+                         f"{s}x{s} canvas")
+    out = []
+    for n_in, n_out in ((h, nh), (w, nw)):
+        taps, weights = axis_taps(n_in, n_out)
+        taps = np.where(weights > 0, taps, taps[:, :1])
+        out.append(np.concatenate([taps, weights.view(np.int32)], 1))
+    rows, cols = out
+    cols[:, :2] *= 3
+    return rows, cols
+
+
+def letterbox_launch_record(h: int, w: int, s: int, fill: float, scaleup: bool,
+                            device) -> LaunchRecord:
+    """The tap tables of one geometry, on `device`, and its launch: the
+    "both taps" variant where no tap has weight 0."""
+    _, nh, nw, top, left = _content_box(h, w, s, scaleup)
+    rows, cols = letterbox_tables(h, w, s, scaleup)
+    tables = torch.from_numpy(np.concatenate([rows, cols])).to(device)
+    both = bool((rows[:, 3] != 0).all() and (cols[:, 3] != 0).all())
+    fill = float(np.float32(fill) / np.float32(255.0))
+    return LaunchRecord(tables, (h, w, s, nh, nw, top, left), fill,
+                        LaunchParams(tables.data_ptr(), h, w, s, nh, nw, top, left, both, ROWS,
+                                     COLS, fill))
+
+
+# (h, w, s, fill, scaleup, device index) -> LaunchRecord. Never evicted: a CUDA graph
+# captured with a record's launch reads its tables at every replay. A record is a few KB.
+_RECORDS: dict = {}
+
+
+def launch_record(h: int, w: int, s: int, fill: float, scaleup: bool,
+                  device: torch.device) -> LaunchRecord:
+    """The cached launch record of a geometry, built at its first call."""
+    key = (h, w, s, fill, scaleup, device.index)
+    rec = _RECORDS.get(key)
+    if rec is None:
+        rec = _RECORDS[key] = letterbox_launch_record(h, w, s, fill, scaleup, device)
+    return rec
+
+
 def letterbox_normalize(images: torch.Tensor, out_size: int = 640, fill: float = 114.0,
                         scaleup: bool = True) -> torch.Tensor:
     """uint8 (B, H, W, 3) -> float32 (B, 3, S, S) in [0, 1], aspect-preserving,
@@ -101,6 +165,8 @@ def letterbox_normalize(images: torch.Tensor, out_size: int = 640, fill: float =
 
     On a CUDA tensor this launches csrc/letterbox.cu and counts the launch in
     `letterbox_normalize.launches`; on a CPU tensor it runs the plain version.
+    After the first call of a geometry a call makes no host synchronisation
+    and no host-to-device copy, so it can be captured in a CUDA graph.
     """
     if images.device.type == "cpu":
         return letterbox_normalize_reference(images, out_size, fill, scaleup)
@@ -110,35 +176,46 @@ def letterbox_normalize(images: torch.Tensor, out_size: int = 640, fill: float =
     if not images.is_contiguous():
         raise ValueError("letterbox_normalize expects a contiguous (B, H, W, 3) tensor")
     b, h, w, _ = images.shape
-    s = out_size
-    _, nh, nw, top, left = _content_box(h, w, s, scaleup)
-    ytap, yw = _device_taps(h, nh, images.device)
-    xtap, xw = _device_taps(w, nw, images.device)
-    out = torch.empty((b, 3, s, s), dtype=torch.float32, device=images.device)
-    lib = _library()
-    with torch.cuda.device(images.device):
-        rc = lib.letterbox_normalize_launch(
-            images.data_ptr(), out.data_ptr(), b, h, w, s,
-            ytap.data_ptr(), yw.data_ptr(), nh, top, xtap.data_ptr(), xw.data_ptr(), nw, left,
-            float(fill), torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"letterbox_normalize kernel launch failed: "
-                           f"{lib.letterbox_error_string(rc).decode()}")
-    letterbox_normalize.launches += 1
+    dev = images.device
+    rec = _RECORDS.get((h, w, out_size, fill, scaleup, dev.index)) or \
+        launch_record(h, w, out_size, fill, scaleup, dev)
+    out = torch.empty((b, 3, out_size, out_size), dtype=torch.float32, device=dev)
+    if b:
+        _launch(images, out, rec.params)
+        letterbox_normalize.launches += 1
     return out
 
 
 letterbox_normalize.launches = 0
 
 
-def _library() -> ctypes.CDLL:
+def _launch(images: torch.Tensor, out: torch.Tensor, params: LaunchParams):
+    """Launch csrc/letterbox.cu on the current stream of the frames' device."""
+    launch, error_string = _BOUND or _bind()
+    args = (images.data_ptr(), out.data_ptr(), images.shape[0], params)
+    if images.device.index == torch.cuda.current_device():
+        rc = launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(images.device):
+            rc = launch(*args, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"letterbox_normalize kernel launch failed: "
+                           f"{error_string(rc).decode()}")
+
+
+_BOUND: list = []  # (launch, error string), bound once
+
+
+def _bind():
+    """Build and load csrc/letterbox.cu at first use and bind its two
+    functions; later calls find them in `_BOUND` without the build's locks."""
     from yolo_dual_tpu_torch.kernels.build import load_library
     lib = load_library("letterbox")
-    if lib.letterbox_normalize_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.letterbox_normalize_launch.argtypes = [p, p, i, i, i, i, p, p, i, i, p, p, i, i,
-                                                   ctypes.c_float, p]
-        lib.letterbox_normalize_launch.restype = ctypes.c_int
-        lib.letterbox_error_string.argtypes = [ctypes.c_int]
-        lib.letterbox_error_string.restype = ctypes.c_char_p
-    return lib
+    launch, error_string = lib.letterbox_normalize_launch, lib.letterbox_error_string
+    p = ctypes.c_void_p
+    launch.argtypes = [p, p, ctypes.c_int, ctypes.POINTER(LaunchParams), p]
+    launch.restype = ctypes.c_int
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+    _BOUND[:] = launch, error_string
+    return _BOUND
