@@ -42,6 +42,16 @@ which raises on failure:
    run and the shares printed;
 6. timing, for each model: the streaming predictor's per-frame pre/infer/post
    ms, and the batched forward + nms_from_raw at bs 32, 640 px in img/s;
+6b. validation (eval_path): yolov5s-seg as in 4, primed as the JAX
+   dryrun primes it (solid masks), labels a val set of 64 seeded 480x640
+   `.npy` frames with up to 8 of its own boxes a frame (4-vertex polygons);
+   `segment.val.run` evaluates it at bs 32, --device-preprocess, conf 0.001,
+   iou 0.6: the K1 count set to 0 just before reads 2 launches (one a batch),
+   mAP50 of boxes and of masks exceed 0.05; a second run is timed (speed
+   line, img/s, peak memory); one batch's forward, multi-label nms_from_raw
+   (with its ranking and peak memory) and matching are timed; 8 frames at bs 8 through
+   evaluate_segment on the card and on the CPU (TF32 off) agree within 0.01
+   on each of the 8 metrics;
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -66,7 +76,8 @@ which raises on failure:
    timed path, as a profiler session can slow the host's later launches; then
    K2's and K3's device times on the inputs of the trained model's six DCNv3
    calls (bs 16, its offsets after phase 7) under window margins of 1 and 2
-   px, each beside its window-escape share;
+   px, each beside its window-escape share; K1's device time on phase 6b's
+   eval batch;
 10. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 
@@ -106,6 +117,8 @@ DCN_OFFSET_GAIN = 0.2  # ... and weights N(0, gain^2 / fan_in); see draw_dcnv3_h
 TRAIN_BS, TRAIN_IMGSZ, TRAIN_MICRO_STEPS, TRAIN_MAX_BOXES = 16, 640, 8, 8
 ACCUMULATE = max(round(64 / TRAIN_BS), 1)  # nominal batch 64 (segment/train.py --nbs)
 EPOCHS, STEPS_PER_EPOCH = 100, 7393  # the CLI's default epochs; COCO train2017 at bs 16
+EVAL_FRAMES, EVAL_BS, EVAL_SHAPE, EVAL_MAX_BOXES = 64, 32, (480, 640), 8
+EVAL_CHECK_FRAMES = 8  # card against CPU, at bs 8
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -515,12 +528,12 @@ def trained_inputs_phase(calls):
     torch.cuda.empty_cache()
 
 
-def make_frames(n: int, seed: int = 0):
-    """n seeded uint8 RGB frames cycling 1080p, 720p, 480p: smooth structure
-    plus noise, made on the host as a camera or decoder would deliver them."""
+def make_frames(n: int, seed: int = 0, sizes=tuple(MAIN_SHAPES.values())):
+    """n seeded uint8 RGB frames cycling `sizes` (1080p, 720p, 480p): smooth
+    structure plus noise, made on the host as a camera or decoder would
+    deliver them."""
     rng = np.random.default_rng(seed)
     frames = []
-    sizes = list(MAIN_SHAPES.values())
     for i in range(n):
         h, w = sizes[i % len(sizes)]
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -750,6 +763,187 @@ def model_path(cfg: str, frames, card: str) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+
+
+def prime_for_eval(model):
+    """The JAX dryrun's priming (__graft_entry__.py:183-193): +3 on the
+    objectness, +1 on the class and +2 on the coefficient biases of the detect
+    convs, +2 on the proto cv3 BatchNorm bias, so the masks are solid and a
+    random network's self-labels give box and mask TPs."""
+    head = model.model[-1]
+    with torch.no_grad():
+        for conv in head.m:
+            b = conv.bias.view(head.na, -1)
+            b[:, 4] += 3.0
+            b[:, 5:5 + head.nc] += 1.0
+            b[:, 5 + head.nc:] += 2.0
+        head.proto.cv3.bn.bias += 2.0
+    return model
+
+
+def write_val_set(root: Path, model, frames) -> Path:
+    """A val set in the CLI's layout: root/images/*.npy frames, root/labels/*.txt
+    with up to EVAL_MAX_BOXES of the model's own boxes a frame (conf 1e-4,
+    wider and taller than 2 px), each written as a 4-vertex polygon."""
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_geometry, letterbox_normalize
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    h0, w0 = frames[0].shape[:2]
+    r, (left, top) = letterbox_geometry(h0, w0, 640, scaleup=False)
+    head = model.model[-1]
+    with torch.no_grad():
+        for i in range(0, len(frames), EVAL_BS):
+            x = letterbox_normalize(torch.from_numpy(np.stack(frames[i:i + EVAL_BS])).cuda(), 640,
+                                    scaleup=False)
+            levels, _ = model.eval()(x, decode=False)
+            out, nv = nms_from_raw(levels, head.anchors, head.strides, conf_thres=1e-4,
+                                   iou_thres=0.6, max_det=50, nm=head.nm)
+            for j, (o, n) in enumerate(zip(out.cpu().numpy(), nv.tolist())):
+                d = o[:n]
+                d = d[((d[:, 2] - d[:, 0]) > 2) & ((d[:, 3] - d[:, 1]) > 2)][:EVAL_MAX_BOXES]
+                lines = []
+                for row in d:
+                    x1, x2 = np.clip((row[[0, 2]] - left) / r, 0, w0) / w0
+                    y1, y2 = np.clip((row[[1, 3]] - top) / r, 0, h0) / h0
+                    pts = [x1, y1, x2, y1, x2, y2, x1, y2]
+                    lines.append(f"{int(row[5])} " + " ".join(f"{v:.6f}" for v in pts))
+                np.save(root / "images" / f"{i + j:05d}.npy", frames[i + j])
+                (root / "labels" / f"{i + j:05d}.txt").write_text("\n".join(lines))
+    return root
+
+
+def eval_path(card: str):
+    """Phase 6b: the validation slice. yolov5s-seg, nc 80, 640 px, full width
+    and depth, seeded random weights, BatchNorm calibrated, primed as the JAX
+    dryrun primes it; a val set of EVAL_FRAMES seeded 480x640 frames labelled
+    with the primed model's own boxes. segment.val.run evaluates it at bs 32
+    through the letterbox kernel (--device-preprocess, conf 0.001, iou 0.6):
+    the K1 counter set to 0 just before reads one launch a batch, and mAP50 of
+    boxes and of masks exceed 0.05; a second run is timed. Then the parts of
+    one batch's inference+NMS stage (forward, multi-label nms_from_raw with its
+    peak memory and its ranking, matching and masks), and EVAL_CHECK_FRAMES
+    frames at bs 8 through evaluate_segment on the card and on the CPU (TF32
+    off): the 8 metrics agree within 0.01. Returns (launches, K1's eval batch
+    for phase 9)."""
+    import shutil
+    import tempfile
+
+    from yolo_dual_tpu_torch.data.dataset import YoloDataset
+    from yolo_dual_tpu_torch.data.loader import Loader
+    from yolo_dual_tpu_torch.engine.validator import PRE_NMS_TOPK, batch_matches, evaluate_segment
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    from yolo_dual_tpu_torch.segment import val
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    frames = make_frames(EVAL_FRAMES, seed=5, sizes=(EVAL_SHAPE,))
+    model = SegmentationModel("yolov5s-seg.json", device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    prime_for_eval(calibrate_bn(model, frames[:3]))
+    build = Path(__file__).resolve().parent / "build"  # gitignored, inside the checkout
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_val_", dir=build))
+    try:
+        root = write_val_set(tmp / "val", model, frames)
+        weights = tmp / "yolov5s-seg-primed.pt"
+        torch.save(model.state_dict(), weights)
+        kw = dict(data=str(root), weights=str(weights), cfg="yolov5s-seg.json",
+                  batch_size=EVAL_BS, imgsz=640, conf_thres=0.001, iou_thres=0.6, device="cuda",
+                  device_preprocess=True)
+        letterbox_normalize.launches = 0
+        mean, _, times = val.run(**kw)
+        launches = {"letterbox_normalize": letterbox_normalize.launches}
+        n_batches = -(-EVAL_FRAMES // EVAL_BS)
+        if launches["letterbox_normalize"] != n_batches:
+            raise AssertionError(f"eval: {launches} letterbox launches for {n_batches} batches")
+        if not (mean[2] > 0.05 and mean[6] > 0.05):
+            raise AssertionError(f"eval: mAP50(B) {mean[2]}, mAP50(M) {mean[6]}: degenerate")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mean2, _, times2 = val.run(**kw)
+        wall = time.perf_counter() - t0
+        names = ("P(B)", "R(B)", "mAP50(B)", "mAP50-95(B)", "P(M)", "R(M)", "mAP50(M)",
+                 "mAP50-95(M)")
+        result = {"card": card, "frames": EVAL_FRAMES, "bs": EVAL_BS, "launches": launches,
+                  "metrics": dict(zip(names, map(float, mean))),
+                  "speed_ms_per_image": dict(zip(("pre", "inference+nms", "post"), times2)),
+                  "img_per_s_timed_stages": 1e3 / sum(times2),
+                  "img_per_s_run": EVAL_FRAMES / wall, "run_s": wall,
+                  "peak_memory_bytes_run": torch.cuda.max_memory_allocated(),
+                  "second_run_same_metrics": bool(np.allclose(mean, mean2, atol=0, rtol=0))}
+
+        # the inference+NMS stage of one eval batch, part by part: the forward, the
+        # multi-label NMS (with its peak memory and its ranking of the scores: a
+        # stable sort, and torch.topk, which fixes no order among ties, as yardstick),
+        # the matching
+        model.fuse()
+        head = model.model[-1]
+        x = letterbox_normalize(torch.from_numpy(np.stack(frames[:EVAL_BS])).cuda(), 640,
+                                scaleup=False)
+        sample = YoloDataset(str(root / "images"), imgsz=640)
+        gt = {k: torch.from_numpy(np.stack([sample[i][k] for i in range(EVAL_BS)])).cuda()
+              for k in ("targets", "tmask", "masks")}
+        with torch.inference_mode():
+            levels, protos = model(x, decode=False)
+
+            def nms():
+                return nms_from_raw(levels, head.anchors, head.strides, conf_thres=0.001,
+                                    iou_thres=0.6, multi_label=True, max_det=300, nm=head.nm,
+                                    pre_nms_topk=PRE_NMS_TOPK)
+            out, n_valid = nms()
+            result["stage_bs32_ms"] = {
+                "forward": cuda_ms(lambda: model(x, decode=False), 10),
+                "nms_multi_label": cuda_ms(nms, 10),
+                "matching_and_masks": cuda_ms(lambda: batch_matches(
+                    out, n_valid, protos, gt["targets"], gt["tmask"], gt["masks"], 640, 640,
+                    head.nm), 10)}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            nms()
+            peak = torch.cuda.max_memory_allocated() - base
+            flat = torch.rand(EVAL_BS, sum(p[0, ..., 0].numel() for p in levels) * head.nc,
+                              device="cuda")
+            result["nms_multi_label_bs32"] = {
+                "peak_extra_bytes": peak, "kept_per_image": n_valid.tolist(),
+                "scores": list(flat.shape),
+                "stable_sort_ms": cuda_ms(lambda: flat.sort(dim=1, descending=True,
+                                                           stable=True), 10),
+                "torch_topk_ms": cuda_ms(lambda: flat.topk(PRE_NMS_TOPK, dim=1), 10)}
+            del flat, levels, protos, out, gt
+        print("eval " + json.dumps(result), flush=True)
+
+        # card against CPU, TF32 off, on the first frames at bs 8
+        torch.backends.cudnn.allow_tf32 = False
+        sub = tmp / "val8"
+        for d in ("images", "labels"):
+            (sub / d).mkdir(parents=True)
+            for f in sorted((root / d).iterdir())[:EVAL_CHECK_FRAMES]:
+                shutil.copy(f, sub / d / f.name)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            m = SegmentationModel("yolov5s-seg.json", device=dev)
+            m.load_state_dict(torch.load(weights, map_location=dev, weights_only=True))
+            loader = Loader(YoloDataset(str(sub / "images"), imgsz=640), batch_size=8)
+            got[dev] = np.asarray(evaluate_segment(m, loader, 80, conf_thres=0.001,
+                                                   iou_thres=0.6, device=dev)[0], np.float64)
+        diff = np.abs(got["cuda"] - got["cpu"])
+        print(f"eval card vs cpu ({EVAL_CHECK_FRAMES} frames, bs 8, tf32 off): card "
+              f"{got['cuda'].round(5).tolist()} cpu {got['cpu'].round(5).tolist()} "
+              f"max abs diff {diff.max():.3g}", flush=True)
+        if not diff.max() <= 0.01:
+            raise AssertionError(f"eval card vs CPU: metrics differ by {diff.max()} > 0.01")
+        torch.backends.cudnn.allow_tf32 = True
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    batch = torch.from_numpy(np.stack(frames[:EVAL_BS])).cuda()
+    del model
+    torch.cuda.empty_cache()
+    return launches, batch
 
 
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
@@ -1018,6 +1212,8 @@ def main(argv=None) -> int:
     # 4-6. each model's prediction path; 7. the training path; 8. training, card vs CPU
     frames = make_frames(N_FRAMES)
     by_path = {cfg.removesuffix(".json"): model_path(cfg, frames, card) for cfg in MODELS}
+    # 6b. the validation slice: segment.val at bs 32 through K1
+    by_path["eval yolov5s-seg"], eval_batch = eval_path(card)
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile = train_path(card)
     train_card_vs_cpu()
 
@@ -1025,6 +1221,12 @@ def main(argv=None) -> int:
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
     # the later sessions of the process missed or doubled kernel records
     device_phase(lres, dres, bres)
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    eval_k1 = profiled_kernel_ms(lambda: letterbox_normalize(eval_batch, 640, scaleup=False),
+                                 "letterbox", 20)
+    print(f"device letterbox on the eval batch {list(eval_batch.shape)} (scaleup=False): "
+          f"{eval_k1} ms a launch", flush=True)
+    del eval_batch
     trained_inputs_phase(trained)
     del trained
     print("train profile " + json.dumps(train_profile()), flush=True)
@@ -1037,8 +1239,9 @@ def main(argv=None) -> int:
 
     def wmean(res, weights, key):
         return float(sum(res[n][key] * k for n, k in weights.items()) / sum(weights.values()))
-    lcalls = {n: [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)] for i in range(N_FRAMES)].count(n)
-              for n in MAIN_SHAPES}
+    lcalls = {n: len(MODELS) * [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)]
+                                for i in range(N_FRAMES)].count(n) for n in MAIN_SHAPES}
+    lcalls["val_480p_bs32_no_scaleup"] = by_path["eval yolov5s-seg"]["letterbox_normalize"]
     # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training)
     dcalls = {f"{b}x{h}x{w}x{c}": n * reps for (h, w, c), n in DCN_PATH_SHAPES.items()
               for b, reps in ((1, N_FRAMES), (TRAIN_BS, TRAIN_MICRO_STEPS))}

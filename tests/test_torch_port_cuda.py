@@ -293,3 +293,120 @@ def test_letterbox_rejects_what_the_kernel_does_not_take(cuda):
         letterbox_normalize(x.transpose(1, 2), 64)
     with pytest.raises(TypeError, match="uint8"):
         letterbox_normalize(x.float(), 64)
+
+
+# -- the evaluation slice on the card ------------------------------------------
+
+SMALL_SEG = dict(  # tests/test_eval_dp.py's TINY_SEG: 64 px, nc 3, nm 4
+    nc=3, depth_multiple=1.0, width_multiple=1.0,
+    anchors=[[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119]],
+    backbone=[[-1, 1, "Conv", [8, 6, 2, 2]], [-1, 1, "Conv", [16, 3, 2]], [-1, 1, "C3", [16]],
+              [-1, 1, "Conv", [24, 3, 2]], [-1, 1, "Conv", [32, 3, 2]]],
+    head=[[[3, 4], 1, "Segment", ["nc", "anchors", 4, 8]]],
+)
+
+
+def small_eval_model():
+    """SMALL_SEG on the CPU with seeded BatchNorm statistics (so scores
+    spread) and the JAX dryrun's priming (+3 objectness, +1 class, +2
+    coefficient biases, +2 on the proto cv3 BN bias: solid masks)."""
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    gen = torch.Generator().manual_seed(3)
+    model = SegmentationModel(SMALL_SEG, device="cpu", generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0, 0.2, generator=gen)
+                m.running_mean.normal_(0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+        head = model.model[-1]
+        for conv in head.m:
+            b = conv.bias.view(head.na, -1)
+            b[:, 4] += 3.0
+            b[:, 5:5 + head.nc] += 1.0
+            b[:, 5 + head.nc:] += 2.0
+        head.proto.cv3.bn.bias += 2.0
+    return model.eval()
+
+
+def self_labelled_raw_batches(model, n_batches=3, bs=4, h=48, w=64, s=64):
+    """image_raw batches whose gt (boxes wider and taller than 2 px, up to 4
+    an image, with their masks as overlap planes) is the model's own."""
+    from yolo_dual_tpu_torch.ops.mask_ops import process_mask
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    rng = np.random.default_rng(0)
+    head = model.model[-1]
+    batches = []
+    for _ in range(n_batches):
+        frames_ = rng.integers(0, 256, (bs, h, w, 3), dtype=np.uint8)
+        with torch.no_grad():
+            levels, protos = model(letterbox_normalize(torch.from_numpy(frames_), s,
+                                                       scaleup=False), decode=False)
+            out, nv = nms_from_raw(levels, head.anchors, head.strides, conf_thres=1e-4,
+                                   iou_thres=0.6, max_det=50, nm=head.nm)
+        targets = np.zeros((bs, 6, 5), np.float32)
+        tmask = np.zeros((bs, 6), bool)
+        masks = np.zeros((bs, s // 4, s // 4), np.float32)
+        for b in range(bs):
+            d = out[b, :int(nv[b])]
+            d = d[((d[:, 2] - d[:, 0]) > 2) & ((d[:, 3] - d[:, 1]) > 2)][:4]
+            pm = process_mask(protos[b], d[:, 6:], d[:, :4], (s, s)).numpy()
+            for j, dd in enumerate(d.numpy()):
+                x1, y1, x2, y2 = np.clip(dd[:4], 0, s) / s
+                targets[b, j] = [dd[5], (x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]
+                tmask[b, j] = True
+                masks[b][pm[j]] = j + 1
+        batches.append({"image_raw": frames_, "targets": targets, "tmask": tmask,
+                        "masks": masks, "n_valid": np.int32(bs)})
+    return batches
+
+
+class _Loader(list):
+    dataset = type("DS", (), {"imgsz": 64, "im_files": None})()
+
+
+def test_evaluate_segment_launches_k1_per_batch_and_equals_cpu(cuda):
+    """The validator's image_raw route letterboxes each batch with one K1
+    launch, and its 8 metrics and per-class maps equal the CPU run's (TF32
+    off: in TF32 the protos move by ~1e-3 and flip mask pixels at 0.5)."""
+    import copy
+
+    from yolo_dual_tpu_torch.engine.validator import evaluate_segment
+    model = small_eval_model()
+    loader = _Loader(self_labelled_raw_batches(model))
+    want, want_maps, _ = evaluate_segment(copy.deepcopy(model), loader, 3, nm=4, device="cpu")
+    letterbox_normalize.launches = 0
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got, got_maps, _ = evaluate_segment(model, loader, 3, nm=4, device="cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert letterbox_normalize.launches == len(loader) == 3
+    assert want[2] > 0.05 and want[6] > 0.05, want
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got_maps, want_maps, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("multi_label", [False, True])
+def test_nms_from_raw_on_tied_scores_equals_cpu(cuda, multi_label):
+    """Half the cells at objectness and class-0 logit 30: ~3,150 candidates
+    tie at conf 1.0, and the card keeps the CPU's rows (lower index first)."""
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    anchors = ((10, 13, 16, 30, 33, 23), (30, 61, 62, 45, 59, 119), (116, 90, 156, 198, 373, 326))
+    rng = np.random.default_rng(0)
+    raw = []
+    for s in (8, 16, 32):
+        r = rng.normal(0, 1, (2, 3, 320 // s, 320 // s, 117)).astype(np.float32)
+        hot = rng.uniform(size=r.shape[:4]) < 0.5
+        r[..., 4][hot] = 30
+        r[..., 5][hot] = 30
+        raw.append(torch.from_numpy(r))
+    kw = dict(conf_thres=0.25, iou_thres=0.45, max_det=300, nm=32, pre_nms_topk=1024,
+              multi_label=multi_label)
+    want, want_n = nms_from_raw(raw, anchors, (8, 16, 32), **kw)
+    got, got_n = nms_from_raw([r.to(cuda) for r in raw], anchors, (8, 16, 32), **kw)
+    assert got_n.tolist() == want_n.tolist() == [300, 300]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)

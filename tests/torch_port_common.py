@@ -64,3 +64,47 @@ CORE_CASES = {  # name: (b, h, w, g, gc, k, stride, pad, dilation, offset_scale,
     "dilation2_k5": (1, 9, 9, 2, 2, 5, 1, 4, 2, 1.0, 1.5),
     "far_outside": (1, 6, 7, 2, 3, 3, 1, 1, 1, 1.0, 8.0),
 }
+
+
+# The TINY_SEG net of tests/test_eval_dp.py: 64 px, nc 3, nm 4.
+TINY_SEG = dict(
+    nc=3, depth_multiple=1.0, width_multiple=1.0,
+    anchors=[[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119]],
+    backbone=[
+        [-1, 1, "Conv", [8, 6, 2, 2]],
+        [-1, 1, "Conv", [16, 3, 2]],
+        [-1, 1, "C3", [16]],
+        [-1, 1, "Conv", [24, 3, 2]],
+        [-1, 1, "Conv", [32, 3, 2]],
+    ],
+    head=[[[3, 4], 1, "Segment", ["nc", "anchors", 4, 8]]],
+)
+IMGSZ, TINY_NC, TINY_NM = 64, 3, 4
+
+
+def primed_tiny(seed=11):
+    """The JAX TINY_SEG model and its seeded variables, primed as the JAX
+    dryrun primes them (__graft_entry__.py:183-193) so masks are solid and
+    both metric halves are non-zero: +3 objectness, +1 class and +2
+    coefficient biases on the detect convs, +2 on the proto cv3 BN bias."""
+    from yolo_dual_tpu.models.model import SegmentationModel
+    jm = SegmentationModel(TINY_SEG)
+    v = random_variables(lambda k, x: jm.module.init(k, x, train=False),
+                         (1, IMGSZ, IMGSZ, 3), seed=seed)
+    hp = v["params"][f"model_{jm.spec.layers[-1].i}"]
+    for li in range(len(TINY_SEG["anchors"])):
+        b = hp["detect"][f"m_{li}"]["bias"].reshape(3, -1)
+        b[:, 4] += 3.0
+        b[:, 5:5 + TINY_NC] += 1.0
+        b[:, 5 + TINY_NC:] += 2.0
+    hp["proto"]["cv3"]["bn"]["bias"] += 2.0
+    return jm, v
+
+
+def port_model(v):
+    """The port's TINY_SEG on the CPU with the JAX variables `v`."""
+    from yolo_dual_tpu_torch.io.weights import state_dict_from_flax
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    model = SegmentationModel(TINY_SEG, device="cpu")
+    model.load_state_dict(state_dict_from_flax(v), strict=True)
+    return model

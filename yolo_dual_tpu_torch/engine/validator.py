@@ -1,0 +1,171 @@
+"""Instance-segmentation evaluation: box + mask mAP (port of
+yolo_dual_tpu/engine/validator.py:evaluate_segment; reference
+segment/val.py:128-400).
+
+Per batch on the device: the letterbox kernel on raw frames
+(kernels/preprocess.py, `image_raw` batches), the forward, the multi-label
+decode + NMS off the raw head maps (ops/nms.py), and the whole TP matching,
+batched over images: box IoU against the gt, the proto masks, mask IoU, and
+`match_predictions_device` for both. The host only slices the padded results
+and runs the AP curves (metrics/).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from yolo_dual_tpu_torch.data.loader import normalize_image
+from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+from yolo_dual_tpu_torch.metrics import Metrics, ap_per_class_box_and_mask, match_predictions_device
+from yolo_dual_tpu_torch.ops.boxes import box_iou, clip_boxes, scale_boxes, xywh2xyxy
+from yolo_dual_tpu_torch.ops.mask_ops import mask_iou, process_mask
+from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+from yolo_dual_tpu_torch.utils.general import LOGGER, Profile, select_device
+
+PRE_NMS_TOPK = 4096  # candidates (box, class) ranked before NMS, as the JAX validator
+
+
+def batch_matches(out, n_valid, protos, targets, tmask, gmasks, h: int, w: int, nm: int):
+    """TP matrices (bs, D, 10) of boxes and of masks for one batch of NMS
+    output against its gt (JAX evaluate_segment's per_image, batched)."""
+    bs, D = out.shape[:2]
+    M = targets.shape[1]
+    gain = torch.tensor([w, h, w, h], dtype=torch.float32, device=out.device)
+    gt_boxes = xywh2xyxy(targets[..., 1:5] * gain)
+    gt_cls = targets[..., 0]
+    det_valid = torch.arange(D, device=out.device) < n_valid[:, None]
+    pair_ok = tmask[:, :, None] & det_valid[:, None, :]                      # (bs, M, D)
+    # the reference matches CLIPPED boxes (scale_boxes -> clip_boxes, segment/val.py:300)
+    iou_b = torch.where(pair_ok, box_iou(gt_boxes, clip_boxes(out[..., :4], (h, w))), 0.0)
+    correct_b = match_predictions_device(out[..., 5], gt_cls, iou_b)
+    mh, mw = gmasks.shape[-2:]
+    if gmasks.ndim == 4:        # non-overlap: (bs, M, mh, mw) instance masks
+        gt_m = gmasks.float()
+    else:                       # overlap-encoded plane (bs, mh, mw)
+        gt_m = (gmasks[:, None] == torch.arange(1, M + 1, device=out.device)[:, None, None]
+                ).float()
+    pm = torch.stack([process_mask(protos[i], out[i, :, 6:6 + nm], out[i, :, :4], (h, w),
+                                   upsample=False, binarize=False) for i in range(bs)])
+    pm = (pm > 0.5).float()
+    if pm.shape[-2:] != (mh, mw):
+        pm = F.interpolate(pm, size=(mh, mw), mode="nearest-exact")
+    iou_m = mask_iou(gt_m.reshape(bs, M, -1), pm.reshape(bs, D, -1))
+    correct_m = match_predictions_device(out[..., 5], gt_cls, torch.where(pair_ok, iou_m, 0.0))
+    return correct_b, correct_m
+
+
+def _txt_rows(boxes: torch.Tensor, cls, conf, shape_hw, shape0, save_conf: bool):
+    """Label rows `cls x y w h [conf]`, boxes in the letterboxed frame
+    rescaled to the original image, normalised (reference save_one_txt)."""
+    h0, w0 = shape0
+    b = scale_boxes(shape_hw, boxes, shape0).numpy()
+    xywhn = np.stack([(b[:, 0] + b[:, 2]) / 2 / w0, (b[:, 1] + b[:, 3]) / 2 / h0,
+                      (b[:, 2] - b[:, 0]) / w0, (b[:, 3] - b[:, 1]) / h0], 1)
+    lines = []
+    for k in range(len(b)):
+        row = [int(cls[k]), *xywhn[k]]
+        if save_conf:
+            row.append(float(conf[k]))
+        lines.append(" ".join(f"{v:g}" for v in row))
+    return lines
+
+
+def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thres: float = 0.6,
+                     max_det: int = 300, nm: int = 32, names=None, plots: bool = False,
+                     save_dir: str = ".", use_soft_nms: bool = False, augment: bool = False,
+                     save_json: bool = False, fuse: bool = True, save_txt: bool = False,
+                     save_conf: bool = False, save_hybrid: bool = False, mesh=None,
+                     device="cuda"):
+    """Returns ((mp, mr, map50, map) of boxes + the same of masks, per-class
+    maps (boxes' plus masks'), times_ms (pre, inference+NMS, post per image)).
+
+    model: a SegmentationModel; it is moved to `device`, put in eval mode and,
+    with fuse=True, conv+BN-folded in place. loader: any iterable of batches in
+    the JAX loader's format: `image` uint8 (bs, h, w, 3) letterboxed frames,
+    or `image_raw` uint8 raw frames, which the letterbox kernel fits to
+    `loader.dataset.imgsz` on the card (scaleup=False, fill 114); `targets`
+    (bs, M, 5) [cls, xywh normalised], `tmask` (bs, M), `masks` overlap planes
+    (bs, mh, mw) or instance masks (bs, M, mh, mw), optional `n_valid`; with
+    save_txt also `index` and `shape0`, and `loader.dataset.im_files`.
+    """
+    for name, on, item in (("plots", plots, "utils/plots, ROADMAP A item 7"),
+                           ("use_soft_nms", use_soft_nms, "soft_nms_padded, ROADMAP A item 6"),
+                           ("augment", augment, "TTA, ROADMAP A item 6"),
+                           ("save_json", save_json, "COCO JSON + COCOeval, ROADMAP A item 6"),
+                           ("mesh", mesh is not None, "data-parallel eval, ROADMAP A item 7")):
+        if on:
+            raise NotImplementedError(f"evaluate_segment({name}=...) is not ported yet ({item})")
+    dev = select_device(device)
+    model = model.to(dev).eval()
+    if fuse:
+        model.fuse()
+    head = model.model[-1]
+    anchors, strides = head.anchors, head.strides
+    im_files = getattr(getattr(loader, "dataset", None), "im_files", None)
+
+    stats = []
+    dt = [Profile(device=dev), Profile(device=dev), Profile(device=dev)]
+    seen = 0
+    for batch in loader:
+        with dt[0]:
+            if "image_raw" in batch:
+                raw = torch.as_tensor(batch["image_raw"]).to(dev).contiguous()
+                image = letterbox_normalize(raw, loader.dataset.imgsz, scaleup=False)
+            else:
+                image = normalize_image(torch.as_tensor(batch["image"]).to(dev)
+                                        .permute(0, 3, 1, 2)).contiguous()
+            targets, tmask, gmasks = (torch.as_tensor(batch[k]).to(dev)
+                                      for k in ("targets", "tmask", "masks"))
+        h, w = image.shape[2:]
+        with dt[1], torch.inference_mode():
+            levels, protos = model(image, decode=False)
+            out, n_valid = nms_from_raw(levels, anchors, strides, conf_thres=conf_thres,
+                                        iou_thres=iou_thres, multi_label=True, max_det=max_det,
+                                        nm=nm, pre_nms_topk=PRE_NMS_TOPK)
+            cb, cm = batch_matches(out, n_valid, protos, targets, tmask.bool(), gmasks, h, w, nm)
+        bsz = int(batch.get("n_valid", image.shape[0]))
+        with dt[2]:
+            out_h, nv, cb, cm = out.cpu(), n_valid.cpu().numpy(), cb.cpu().numpy(), cm.cpu().numpy()
+            for si in range(bsz):
+                seen += 1
+                n = int(nv[si])
+                dets = out_h[si, :n]
+                t = np.asarray(batch["targets"][si])
+                tm = np.asarray(batch["tmask"][si]).astype(bool)
+                stats.append((cb[si, :n], cm[si, :n], dets[:, 4].numpy(), dets[:, 5].numpy(),
+                              t[tm][:, 0]))
+                if save_txt and im_files is not None and "index" in batch:
+                    path = Path(im_files[int(batch["index"][si])])
+                    shape0 = tuple(int(v) for v in batch["shape0"][si])
+                    lines = _txt_rows(dets[:, :4], dets[:, 5], dets[:, 4], (h, w), shape0,
+                                      save_conf) if n else []
+                    if save_hybrid and tm.any():
+                        # gt rows at conf 1.0 (the reference's autolabelling artifact)
+                        g = xywh2xyxy(torch.from_numpy(t[tm][:, 1:5])
+                                      * torch.tensor([w, h, w, h], dtype=torch.float32))
+                        lines += _txt_rows(g, t[tm][:, 0], np.ones(len(g)), (h, w), shape0,
+                                           save_conf)
+                    lbl_dir = Path(save_dir) / "labels"
+                    lbl_dir.mkdir(parents=True, exist_ok=True)
+                    (lbl_dir / f"{path.stem}.txt").write_text(
+                        "\n".join(lines) + ("\n" if lines else ""))
+
+    if not stats:
+        return (0.0,) * 8, np.zeros(nc), (0.0, 0.0, 0.0)
+    tp_b, tp_m, conf, pred_cls, target_cls = (np.concatenate(x) for x in zip(*stats))
+    metrics = Metrics()
+    if tp_b.any() or len(conf):
+        metrics.update(ap_per_class_box_and_mask(
+            tp_b, tp_m, conf, pred_cls, target_cls, save_dir=save_dir,
+            names=names or {i: str(i) for i in range(nc)}))
+    mean = metrics.mean_results()
+    t = tuple(x.t / max(seen, 1) * 1e3 for x in dt)
+    LOGGER.info(("%22s" + "%11s" * 8) % ("Class", "P(B)", "R(B)", "mAP50(B)", "mAP50-95(B)",
+                                         "P(M)", "R(M)", "mAP50(M)", "mAP50-95(M)"))
+    LOGGER.info(("%22s" + "%11.3g" * 8) % ("all", *mean))
+    LOGGER.info(f"Speed: {t[0]:.1f}ms pre, {t[1]:.1f}ms inference+NMS, {t[2]:.1f}ms post per image")
+    return mean, metrics.get_maps(nc), t

@@ -57,3 +57,18 @@ def scale_image(im1_shape, masks: torch.Tensor, im0_shape, ratio_pad=None) -> to
     masks = masks[:, top:bottom, left:right].float()
     return F.interpolate(masks[None], size=tuple(im0_shape[:2]), mode="bilinear",
                          align_corners=False)[0]
+
+
+def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise IoU of flattened binary masks: (..., N, hw) x (..., M, hw) ->
+    (..., N, M) (reference utils/segment/general.py:98-110)."""
+    inter = (mask1 @ mask2.transpose(-1, -2)).clamp(min=0)
+    union = mask1.sum(-1)[..., :, None] + mask2.sum(-1)[..., None, :] - inter
+    return inter / (union + eps)
+
+
+def masks_iou(mask1: torch.Tensor, mask2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU of aligned masks (n, hw) (reference utils/segment/general.py:113-121)."""
+    inter = (mask1 * mask2).sum(-1).clamp(min=0)
+    union = mask1.sum(-1) + mask2.sum(-1) - inter
+    return inter / (union + eps)

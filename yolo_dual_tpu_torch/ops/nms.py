@@ -1,10 +1,13 @@
-"""Batched fixed-shape NMS (port of the serving branch of yolo_dual_tpu/ops/nms.py;
-reference utils/general.py:886-1001).
+"""Batched fixed-shape NMS (port of yolo_dual_tpu/ops/nms.py:nms_from_raw, its
+serving and multi-label branches; reference utils/general.py:886-1001).
 
 torchvision is not a dependency, so the greedy NMS is the package's own: the
 matrix fixpoint of `nms_padded_cluster`, batched. It resolves the greedy order
 on the ≤ pre_nms_topk candidates with one host synchronization per fixpoint
 sweep (the depth of the longest suppression chain), not one per selection.
+Candidates are ranked as `lax.top_k` ranks them: by score, equal scores in
+ascending index order, indices running over levels, then y, x, anchor (and
+class, multi-label), as the JAX package flattens them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from yolo_dual_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 
 MAX_WH = 7680  # class-offset multiplier, same constant as the reference
+IOU_CHUNK = 1 << 25  # elements of a float IoU block: (images, n, n) built a few images at a time
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
@@ -24,19 +28,28 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
 
     boxes: (bs, N, 4) xyxy (already class-offset for batched NMS); scores:
     (bs, N), candidates with score <= 0 are invalid. Returns keep indices
-    (bs, max_det) int64, -1 padded, in descending score order.
+    (bs, max_det) int64, -1 padded, in descending score order, equal scores
+    in ascending index order.
 
     A box j is kept iff no kept box of higher score has IoU > iou_thres with it
     (strictly greater, as torchvision). Iterating keep ← valid ∧ ¬∃i (keep[i] ∧
     A[i, j]) over score order reaches that unique fixpoint in at most
-    chain-depth sweeps (Cluster-NMS, Zheng et al. 2020).
+    chain-depth sweeps (Cluster-NMS, Zheng et al. 2020). The (bs, N, N)
+    suppression matrix is boolean; its float IoUs are built IOU_CHUNK
+    elements at a time.
     """
     bs, n = scores.shape
     order = torch.argsort(scores, dim=1, descending=True, stable=True)
     b = boxes.gather(1, order[..., None].expand(bs, n, 4))
     valid = scores.gather(1, order) > 0
     upper = torch.ones(n, n, dtype=torch.bool, device=scores.device).triu(1)
-    sup = (box_iou(b, b) > iou_thres) & upper & valid[:, :, None]   # kept i suppresses j
+    sup = torch.empty(bs, n, n, dtype=torch.bool, device=scores.device)   # kept i suppresses j
+    step = max(1, IOU_CHUNK // (n * n))
+    for i in range(0, bs, step):
+        bi = b[i:i + step]
+        torch.gt(box_iou(bi, bi), iou_thres, out=sup[i:i + step])
+    sup &= upper
+    sup &= valid[:, :, None]
     keep = valid
     for _ in range(n):
         new = valid & ~(sup & keep[:, :, None]).any(1)
@@ -52,15 +65,16 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
 
 
 def nms_from_raw(raw: Sequence[torch.Tensor], anchors, strides, conf_thres: float = 0.25,
-                 iou_thres: float = 0.45, agnostic: bool = False, max_det: int = 300,
-                 nm: int = 0, pre_nms_topk: int = 1024,
+                 iou_thres: float = 0.45, multi_label: bool = False, agnostic: bool = False,
+                 max_det: int = 300, nm: int = 0, pre_nms_topk: int = 1024,
                  classes_mask: Optional[torch.Tensor] = None):
-    """Fused decode + NMS straight off the raw head maps, serving branch
-    (one label per box; JAX nms_from_raw with multi_label=False).
+    """Fused decode + NMS straight off the raw head maps (JAX nms_from_raw).
 
-    Confidences are reduced per level off the raw logits, the top
-    `pre_nms_topk` candidates are taken, and only those rows are gathered and
-    decoded. The mask coefficients are scaled by the objectness, as the
+    Serving branch (multi_label=False or one class): confidences are reduced
+    per level off the raw logits, one label per box. Multi-label branch (the
+    validator's): every (candidate, class) score sigmoid(obj) * sigmoid(cls)
+    in float32 above conf_thres competes. Either way the top `pre_nms_topk`
+    scores are taken, and only those rows are gathered and decoded. The mask coefficients are scaled by the objectness, as the
     reference NMS does (utils/general.py:949).
 
     raw: list of (bs, na, ny, nx, 5+nc+nm) per level (heads.py layout).
@@ -72,6 +86,7 @@ def nms_from_raw(raw: Sequence[torch.Tensor], anchors, strides, conf_thres: floa
     if nc < 1:
         raise ValueError(f"raw head maps have {no} channels but nm={nm} implies {nc} classes; "
                          "pass the model's nm")
+    multi = multi_label and nc > 1
     bs = raw[0].shape[0]
     device = raw[0].device
     conf_ls = []
@@ -80,12 +95,20 @@ def nms_from_raw(raw: Sequence[torch.Tensor], anchors, strides, conf_thres: floa
         cls = p[..., 5:5 + nc]
         if classes_mask is not None:
             cls = cls.masked_fill(~classes_mask, -1e4)
-        c = cls.amax(-1).float().sigmoid() * obj
-        conf_ls.append(torch.where((c > conf_thres) & (obj > conf_thres), c, 0.0).reshape(bs, -1))
-    conf = torch.cat(conf_ls, 1)                                            # (bs, N), "ayx" order
+        if multi:
+            c = cls.float().sigmoid() * obj[..., None]
+            c = torch.where(c > conf_thres, c, 0.0)
+        else:
+            c = cls.amax(-1).float().sigmoid() * obj
+            c = torch.where((c > conf_thres) & (obj > conf_thres), c, 0.0)
+        conf_ls.append(c.movedim(1, 3).reshape(bs, -1))                    # y, x, anchor(, class)
+    conf = torch.cat(conf_ls, 1)
     k = min(pre_nms_topk, conf.shape[1])
-    scores, cand = conf.topk(k, dim=1)
+    # lax.top_k's order: torch.topk fixes none among equal scores, which saturated
+    # logits (1.0) and the zeros below conf_thres make common
+    scores, idx = (t[:, :k] for t in conf.sort(dim=1, descending=True, stable=True))
     scores = torch.where(scores > conf_thres, scores, 0.0)
+    cand = idx // nc if multi else idx
 
     rows = torch.zeros(bs, k, no, device=device)
     box = torch.zeros(bs, k, 4, device=device)
@@ -96,7 +119,7 @@ def nms_from_raw(raw: Sequence[torch.Tensor], anchors, strides, conf_thres: floa
         nl = na * ny * nx
         in_level = ((cand >= off) & (cand < off + nl))[..., None]
         il = (cand - off).clamp(0, nl - 1)
-        a, yx = il // (ny * nx), il % (ny * nx)
+        a, yx = il % na, il // na
         q = p.permute(0, 1, 4, 2, 3).reshape(bs, na, no, ny * nx)         # the conv output layout
         rl = q[bidx, a, :, yx].float()                                      # (bs, k, no)
         g = torch.stack([(yx % nx).float(), (yx // nx).float()], -1) - 0.5
@@ -106,10 +129,13 @@ def nms_from_raw(raw: Sequence[torch.Tensor], anchors, strides, conf_thres: floa
         rows = torch.where(in_level, rl, rows)
         box = torch.where(in_level, xywh2xyxy(torch.cat([xy, wh], -1)), box)
         off += nl
-    cls_sel = rows[..., 5:5 + nc]
-    if classes_mask is not None:
-        cls_sel = cls_sel.masked_fill(~classes_mask, -1e4)
-    cj = cls_sel.argmax(-1).float()
+    if multi:
+        cj = (idx % nc).float()
+    else:
+        cls_sel = rows[..., 5:5 + nc]
+        if classes_mask is not None:
+            cls_sel = cls_sel.masked_fill(~classes_mask, -1e4)
+        cj = cls_sel.argmax(-1).float()
     mask = rows[..., 5 + nc:] * rows[..., 4:5].sigmoid()
 
     nms_box = box if agnostic else box + (cj * MAX_WH)[..., None]

@@ -1,0 +1,116 @@
+"""Instance-segmentation validation CLI, box + mask mAP50-95 (port of
+segment/val.py).
+
+Usage:
+    python -m yolo_dual_tpu_torch.segment.val --data DIR --device-preprocess
+    python -m yolo_dual_tpu_torch.segment.val --data data.json --weights best.pt --device-preprocess
+
+`--data` is a directory holding `images/` (RGB uint8 `.npy` frames of one
+shape) and `labels/` (the reference's txt labels), whose classes are the
+model config's; or a JSON file with the data yaml's keys `path`, `val`, `nc`
+and `names`. Without --weights the model has random weights drawn from a
+generator seeded with 0. Frames are letterboxed on the card by the letterbox
+kernel (--device-preprocess), the only preprocessing path ported so far.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import torch
+
+from yolo_dual_tpu_torch.data.dataset import YoloDataset
+from yolo_dual_tpu_torch.data.loader import Loader
+from yolo_dual_tpu_torch.engine.validator import evaluate_segment
+from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.models.model import SegmentationModel
+from yolo_dual_tpu_torch.utils.general import (LOGGER, check_img_size, increment_path,
+                                               select_device)
+
+
+def load_data(data) -> dict:
+    """{"val": path of the frames, "nc": int or None, "names": dict or None}
+    from a dataset directory or a JSON data file."""
+    p = Path(data)
+    if p.is_dir():
+        return {"val": str(p / "images" if (p / "images").is_dir() else p), "nc": None,
+                "names": None}
+    if p.suffix != ".json":
+        raise ValueError(f"--data {data}: expected a dataset directory or a .json data file "
+                         "(YAML needs PyYAML, which the package does not use)")
+    d = json.loads(p.read_text())
+    root = Path(d["path"]) if d.get("path") else p.parent
+    names = d.get("names")
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    nc = d.get("nc", len(names) if names else None)
+    return {"val": str(root / d["val"]), "nc": nc, "names": names}
+
+
+def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=640,
+        conf_thres=0.001, iou_thres=0.6, max_det=300, single_cls=False, mask_ratio=4,
+        save_txt=False, save_conf=False, save_hybrid=False, project="runs/val-seg", name="exp",
+        exist_ok=False, fuse=True, device="cuda", device_preprocess=False, augment=False,
+        save_json=False, plots=False, soft_nms=False, data_parallel=False):
+    """Evaluate `weights` (or the seeded random model) on `data`. Returns
+    evaluate_segment's (8 metrics, per-class maps, (pre, inference+NMS, post) ms)."""
+    dev = select_device(device)
+    d = load_data(data)
+    imgsz = check_img_size(imgsz, 32)
+    nc = 1 if single_cls else d["nc"]
+    model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
+    if weights:
+        model.load_state_dict(load_state_dict_file(weights), strict=True)
+    save_dir = str(increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)) \
+        if save_txt else "."
+    ds = YoloDataset(d["val"], imgsz=imgsz, mask_ratio=mask_ratio, overlap=True,
+                     single_cls=single_cls, device_preprocess=device_preprocess)
+    mean, maps, t = evaluate_segment(
+        model, Loader(ds, batch_size=batch_size), model.nc, conf_thres=conf_thres,
+        iou_thres=iou_thres, max_det=max_det, nm=model.model[-1].nm, names=d["names"],
+        plots=plots, save_dir=save_dir, use_soft_nms=soft_nms, augment=augment,
+        save_json=save_json, fuse=fuse, save_txt=save_txt, save_conf=save_conf,
+        save_hybrid=save_hybrid, mesh=True if data_parallel else None, device=dev)
+    if save_txt:
+        LOGGER.info(f"labels saved to {Path(save_dir) / 'labels'}")
+    return mean, maps, t
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--data", type=str, default="data",
+                   help="dataset directory (images/*.npy, labels/*.txt) or .json data file")
+    p.add_argument("--weights", type=str, default="", help="reference-style .pt state_dict")
+    p.add_argument("--cfg", type=str, default="yolov5s-seg.json")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--imgsz", "--img", "--img-size", type=int, default=640)
+    p.add_argument("--conf-thres", type=float, default=0.001)
+    p.add_argument("--iou-thres", type=float, default=0.6)
+    p.add_argument("--max-det", type=int, default=300)
+    p.add_argument("--mask-ratio", type=int, default=4)
+    p.add_argument("--single-cls", action="store_true")
+    p.add_argument("--save-txt", action="store_true", help="save results to labels/*.txt")
+    p.add_argument("--save-conf", action="store_true", help="include confidence in txt rows")
+    p.add_argument("--save-hybrid", action="store_true",
+                   help="also write gt rows at conf 1.0 (autolabelling artifact)")
+    p.add_argument("--project", default="runs/val-seg")
+    p.add_argument("--name", default="exp")
+    p.add_argument("--exist-ok", action="store_true")
+    p.add_argument("--no-fuse", dest="fuse", action="store_false",
+                   help="disable conv+BN inference folding")
+    p.add_argument("--device", default="cuda", help="cuda or cpu")
+    p.add_argument("--device-preprocess", action="store_true",
+                   help="letterbox + normalize raw frames on the card (uniform-shape datasets)")
+    # JAX CLI flags not ported yet: each raises, naming its ROADMAP item
+    p.add_argument("--augment", action="store_true", help="TTA (not ported yet)")
+    p.add_argument("--save-json", action="store_true", help="COCO JSON (not ported yet)")
+    p.add_argument("--plots", action="store_true", help="curves (not ported yet)")
+    p.add_argument("--soft-nms", action="store_true", help="soft-NMS (not ported yet)")
+    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    return p.parse_args(argv)
+
+
+if __name__ == "__main__":
+    run(**vars(parse_opt()))
