@@ -78,7 +78,25 @@ which raises on failure:
    calls (bs 16, its offsets after phase 7) under window margins of 1 and 2
    px, each beside its window-escape share; K1's device time on phase 6b's
    eval batch;
-10. a JSON line of every kernel with its launches on the main paths, then the
+10. the train CLI (phase 10, `cli_train_path`): a seeded dataset written
+   under build/phase10 (train: 32 x 480x640, 16 x 720x1280, 16 x 360x480
+   `.npy` frames, so load_image shrinks and enlarges; val: 32 x 480x640; 1-8
+   hexagon polygons a frame over bright boxes, 80 classes);
+   `python -m yolo_dual_tpu_torch.segment.train` in-process with
+   yolov5s-seg-dcnv3.json, hyp.scratch-low.json, 640 px, bs 16, device
+   augmentation: 2 epochs in float32 (results.csv 2 rows of finite losses,
+   last.pt and best.pt load strict; the counts set to 0 just before read 6
+   K2 launches a training and a val forward and 6 K3 a micro-step: 72 and
+   48), a bare --resume to 3 epochs (epochs 0, 1, 2), 1 epoch in bf16
+   (finite, its first micro-step's loss within 5e-3 of float32's on the
+   same batch and more than 10x as far from it as a float32 rerun's); the
+   second epoch's img/s, every val pass and checkpoint write as the CLI
+   logs them; one
+   bs-16 batch built in this thread and timed by part, its tiles' H2D copy
+   pinned and pageable, and mosaic_warp_hsv on it card against CPU (1e-4)
+   and timed (CUDA events); after phase 9 one more resumed epoch under
+   torch.profiler: the card's busy share of the epoch;
+11. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 
 `--device-times ROOT` runs phase 1, phase 3's K1 cases (checked, and timed
@@ -94,6 +112,7 @@ import argparse
 import concurrent.futures
 import copy
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -884,7 +903,7 @@ def eval_path(card: str):
         head = model.model[-1]
         x = letterbox_normalize(torch.from_numpy(np.stack(frames[:EVAL_BS])).cuda(), 640,
                                 scaleup=False)
-        sample = YoloDataset(str(root / "images"), imgsz=640)
+        sample = YoloDataset(str(root / "images"), imgsz=640, device_preprocess=True)
         gt = {k: torch.from_numpy(np.stack([sample[i][k] for i in range(EVAL_BS)])).cuda()
               for k in ("targets", "tmask", "masks")}
         with torch.inference_mode():
@@ -928,7 +947,8 @@ def eval_path(card: str):
         for dev in ("cuda", "cpu"):
             m = SegmentationModel("yolov5s-seg.json", device=dev)
             m.load_state_dict(torch.load(weights, map_location=dev, weights_only=True))
-            loader = Loader(YoloDataset(str(sub / "images"), imgsz=640), batch_size=8)
+            loader = Loader(YoloDataset(str(sub / "images"), imgsz=640, device_preprocess=True),
+                            batch_size=8)
             got[dev] = np.asarray(evaluate_segment(m, loader, 80, conf_thres=0.001,
                                                    iou_thres=0.6, device=dev)[0], np.float64)
         diff = np.abs(got["cuda"] - got["cpu"])
@@ -1082,7 +1102,7 @@ def train_path(card: str):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True  # as the timed micro-steps ran
         return profile_steps(trainer, state, batches[:ACCUMULATE], whole)
-    return launches, calls, profile
+    return launches, calls, profile, whole
 
 
 def profile_steps(trainer, state, batches, step_ms: float) -> dict:
@@ -1161,6 +1181,287 @@ def train_card_vs_cpu():
         raise AssertionError(f"train card vs CPU: {out}")
 
 
+# Phase 10: the train CLI on a dataset on disk. Frames per split: (h, w) -> count
+CLI_SETS = {"train": {(480, 640): 32, (720, 1280): 16, (360, 480): 16}, "val": {(480, 640): 32}}
+CLI_EPOCHS, CLI_MAX_POLYGONS = 2, 8
+# the first micro-step's loss, bf16 autocast against float32: at most 5e-3
+# relative (measured 4.8e-4), and more than 10x what a float32 rerun moves it
+CLI_BF16_LOSS_RTOL, CLI_BF16_OVER_RERUN = 5e-3, 10
+MOSAIC_TOL = 1e-4  # mosaic_warp_hsv card against CPU, after /255
+
+
+def write_train_set(root: Path) -> Path:
+    """CLI_SETS as `.npy` frames under root/images/{train,val} with txt labels
+    under root/labels/{train,val}: seeded noise frames, 1..CLI_MAX_POLYGONS
+    hexagons a frame of 80 classes (normalised polygon rows), each over a
+    bright box so an object has pixels of its own."""
+    rng = np.random.default_rng(10)
+    for split, shapes in CLI_SETS.items():
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for (h, w), n in shapes.items():
+            for j in range(n):
+                im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                lines = []
+                for _ in range(int(rng.integers(1, CLI_MAX_POLYGONS + 1))):
+                    c, r = rng.uniform(0.15, 0.85, 2), rng.uniform(0.03, 0.15)
+                    ang = np.sort(rng.uniform(0, 2 * np.pi, 6))
+                    pts = np.clip(np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], 1), 0, 1)
+                    (x0, y0), (x1, y1) = ((pts.min(0) * [w, h]).astype(int),
+                                          (pts.max(0) * [w, h]).astype(int))
+                    im[y0:y1, x0:x1] = rng.integers(160, 256, 3)
+                    lines.append(" ".join([str(rng.integers(0, 80))]
+                                          + [f"{v:.6f}" for v in pts.reshape(-1)]))
+                np.save(root / "images" / split / f"{h}x{w}_{j:03d}.npy", im)
+                (root / "labels" / split / f"{h}x{w}_{j:03d}.txt").write_text("\n".join(lines))
+    return root
+
+
+class CliProbe(logging.Handler):
+    """Runs the train CLI in-process and reads what it reports: each epoch's
+    train, val and save seconds from the `epoch_times` of its log records, and,
+    through one wrapper around Trainer.train_step, the loss items of the run's
+    first micro-step."""
+
+    def __init__(self):
+        super().__init__()
+        from yolo_dual_tpu_torch.segment import train as cli
+        from yolo_dual_tpu_torch.train.trainer import Trainer
+        from yolo_dual_tpu_torch.utils.general import LOGGER
+        self.cli, self.logger, self.step = cli, LOGGER, Trainer.train_step
+        self.epochs, self.first_items = [], None
+        probe = self
+
+        def train_step(trainer, state, batch):
+            state, metrics = probe.step(trainer, state, batch)
+            if probe.first_items is None:
+                probe.first_items = [float(v) for v in metrics["items"].tolist()]
+            return state, metrics
+        Trainer.train_step = train_step
+        LOGGER.addHandler(self)
+
+    def emit(self, record):
+        if hasattr(record, "epoch_times"):
+            self.epochs.append(record.epoch_times)
+
+    def run(self, args):
+        self.epochs, self.first_items = [], None
+        self.cli.main(args)
+        return self.epochs, self.first_items
+
+    def close(self):
+        from yolo_dual_tpu_torch.train.trainer import Trainer
+        Trainer.train_step = self.step
+        self.logger.removeHandler(self)
+        super().close()
+
+
+def cli_launches(fn):
+    """Run fn with the kernels' counts set to 0 just before; the counts after."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    torch.cuda.synchronize()
+    letterbox_normalize.launches = dcnv3_sampling.launches = dcnv3_sampling_backward.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"letterbox_normalize": letterbox_normalize.launches,
+                 "dcnv3_sampling": dcnv3_sampling.launches,
+                 "dcnv3_sampling_backward": dcnv3_sampling_backward.launches}
+
+
+def cli_results(run: Path) -> np.ndarray:
+    rows = (run / "results.csv").read_text().strip().splitlines()[1:]
+    return np.array([[float(v) for v in r.split(",")] for r in rows])
+
+
+def loader_batch_phase(root: Path, card: str) -> dict:
+    """One bs-16 training batch built in this thread, timed by part (tile
+    loads and resizes, polygon rasterising, the rest: mosaic geometry, label
+    warps, padding); its tiles' H2D copy, pinned and pageable; and
+    mosaic_warp_hsv on it, card against CPU and timed."""
+    from yolo_dual_tpu_torch.data import dataset as dsmod
+    from yolo_dual_tpu_torch.kernels.augment import mosaic_warp_hsv
+    from yolo_dual_tpu_torch.segment.train import to_device
+    from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
+    hyp = load_config(find_cfg("hyp.scratch-low.json"))
+    loader, ds = dsmod.create_dataloader(str(root / "images" / "train"), TRAIN_IMGSZ, TRAIN_BS,
+                                         hyp=hyp, augment=True, shuffle=True,
+                                         mask_downsample_ratio=4, overlap_mask=True, seed=0,
+                                         device_aug=True)
+    spent = {"load_image": 0.0, "polygons2masks_overlap": 0.0}
+
+    def timed(owner, name):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t
+        setattr(owner, name, wrapper)
+        return owner, name, fn
+    saved = [timed(dsmod.YoloDataset, "load_image"), timed(dsmod, "polygons2masks_overlap")]
+    try:
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in loader._indices()[:TRAIN_BS]]
+        batch = {k: np.stack([x[k] for x in samples]) for k in samples[0]}
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    keys = ("aug_tiles", "aug_dst", "aug_off", "aug_invm", "aug_hsv", "aug_flips")
+
+    def h2d(pin):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x = to_device(batch["aug_tiles"], torch.device("cuda"), pin)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, x
+    pinned = [h2d(True)[0] for _ in range(3)]
+    pageable = [h2d(False)[0] for _ in range(3)]
+    args = [torch.from_numpy(batch[k]).cuda() for k in keys]
+    card_out = mosaic_warp_hsv(*args, out_size=TRAIN_IMGSZ)
+    warp_ms = cuda_ms(lambda: mosaic_warp_hsv(*args, out_size=TRAIN_IMGSZ), 10)
+    t = time.perf_counter()
+    cpu_out = mosaic_warp_hsv(*(torch.from_numpy(batch[k]) for k in keys), out_size=TRAIN_IMGSZ)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    err = (card_out.cpu() - cpu_out).abs()
+    n_poly = int(batch["tmask"].sum())
+    out = {"card": card, "bs": TRAIN_BS, "imgsz": TRAIN_IMGSZ, "host_batch_ms": host_ms,
+           "of_it_load_image_ms": spent["load_image"] * 1e3,
+           "of_it_rasterise_ms": spent["polygons2masks_overlap"] * 1e3,
+           "instances_in_batch": n_poly, "tiles_mb": batch["aug_tiles"].nbytes / 1e6,
+           "tiles_h2d_pinned_ms": pinned, "tiles_h2d_pageable_ms": pageable,
+           "mosaic_warp_hsv_ms": warp_ms, "mosaic_warp_hsv_cpu_ms": cpu_ms,
+           "mosaic_card_vs_cpu_max_abs_err": err.max().item(),
+           "mosaic_share_above_1e-6": (err > 1e-6).float().mean().item()}
+    print("train data " + json.dumps(out), flush=True)
+    if out["mosaic_card_vs_cpu_max_abs_err"] > MOSAIC_TOL:
+        raise AssertionError(f"mosaic_warp_hsv card against CPU: {out['mosaic_card_vs_cpu_max_abs_err']} "
+                             f"> {MOSAIC_TOL}")
+    return out
+
+
+def cli_train_path(card: str, micro_step_ms: float):
+    """Phase 10: the train CLI, yolov5s-seg-dcnv3 at 640 px, bs 16, on a
+    dataset written under build/: 2 epochs in float32 (launches counted),
+    a resumed third, a bf16 epoch, the loader's batch and mosaic_warp_hsv
+    checked and timed. Returns the 2-epoch run's launches and a function that
+    profiles one more resumed epoch."""
+    import shutil
+    from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    root = Path(__file__).resolve().parent / "build" / "phase10"
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    write_train_set(root)
+    write_s = time.perf_counter() - t
+    project = root / "runs"
+    common = ["--cfg", "yolov5s-seg-dcnv3.json", "--data", str(root), "--hyp",
+              "hyp.scratch-low.json", "--imgsz", str(TRAIN_IMGSZ), "--batch-size", str(TRAIN_BS),
+              "--project", str(project), "--noplots", "--device", "cuda"]
+    n_train, n_val = (sum(CLI_SETS[k].values()) for k in ("train", "val"))
+    steps, val_batches = -(-n_train // TRAIN_BS), -(-n_val // TRAIN_BS)
+    n_dcn = sum(DCN_PATH_SHAPES.values())
+
+    def want(epochs):
+        return {"letterbox_normalize": 0, "dcnv3_sampling": n_dcn * epochs * (steps + val_batches),
+                "dcnv3_sampling_backward": n_dcn * epochs * steps}
+    probe = CliProbe()
+    try:
+        t = time.perf_counter()
+        (epochs, items32), launches = cli_launches(lambda: probe.run(
+            common + ["--epochs", str(CLI_EPOCHS), "--dtype", "f32", "--name", "f32"]))
+        run_s = time.perf_counter() - t
+        res = cli_results(project / "f32")
+        for f in ("last.pt", "best.pt"):
+            SegmentationModel("yolov5s-seg-dcnv3.json", device="cpu").load_state_dict(
+                load_state_dict_file(project / "f32" / f), strict=True)
+        (_, _), resume_launches = cli_launches(lambda: probe.run(
+            ["--project", str(project), "--name", "f32", "--resume", "--epochs",
+             str(CLI_EPOCHS + 1)]))
+        resumed = cli_results(project / "f32")
+        (_, items16), bf16_launches = cli_launches(lambda: probe.run(
+            common + ["--epochs", "1", "--dtype", "bf16", "--name", "bf16"]))
+        bf16 = cli_results(project / "bf16")
+        # a name outside the f32* runs that a bare --resume of "f32" chooses from
+        _, items32_rerun = probe.run(common + ["--epochs", "1", "--dtype", "f32",
+                                               "--name", "rerun"])
+    finally:
+        probe.close()
+    train_s = epochs[-1]["train_s"]  # the second epoch: warm
+
+    def loss_rel(items):
+        return abs(sum(items) - sum(items32)) / abs(sum(items32))
+    rel, rerun_rel = loss_rel(items16), loss_rel(items32_rerun)
+    out = {"card": card, "model": "yolov5s-seg-dcnv3", "bs": TRAIN_BS, "imgsz": TRAIN_IMGSZ,
+           "frames": {"train": n_train, "val": n_val}, "write_dataset_s": write_s,
+           "run_s_2_epochs": run_s, "launches": launches, "resume_launches": resume_launches,
+           "bf16_launches": bf16_launches,
+           "epoch_train_s": train_s, "epoch_img_per_s": n_train / train_s,
+           "epoch_s_with_val_and_checkpoints": [e["train_s"] + e["val_s"] + e["save_s"]
+                                                for e in epochs],
+           "val_pass_ms": [e["val_s"] * 1e3 for e in epochs],
+           "checkpoint_writes_ms": [e["save_s"] * 1e3 for e in epochs],
+           "checkpoint_mb": {f: (project / "f32" / f).stat().st_size / 1e6
+                             for f in ("last.pt", "best.pt")},
+           "micro_step_ms_phase7": micro_step_ms,
+           "micro_steps_s_per_epoch_at_phase7_rate": steps * micro_step_ms / 1e3,
+           "results_f32": res.tolist(), "results_after_resume": resumed.tolist(),
+           "results_bf16": bf16.tolist(), "first_micro_step_items_f32": items32,
+           "first_micro_step_items_f32_rerun": items32_rerun,
+           "first_micro_step_items_bf16": items16, "bf16_vs_f32_loss_rel": rel,
+           "f32_rerun_vs_f32_loss_rel": rerun_rel, "bf16_tolerance": CLI_BF16_LOSS_RTOL,
+           "bf16_over_rerun_at_least": CLI_BF16_OVER_RERUN}
+    print("train cli " + json.dumps(out), flush=True)
+    problems = []
+    if res.shape[0] != CLI_EPOCHS or not np.isfinite(res[:, 1:5]).all():
+        problems.append(f"results.csv of the f32 run: {res.tolist()}")
+    if resumed[:, 0].tolist() != list(range(CLI_EPOCHS + 1)) or not np.isfinite(resumed).all():
+        problems.append(f"results.csv after --resume: {resumed[:, 0].tolist()}")
+    if bf16.shape[0] != 1 or not np.isfinite(bf16[:, 1:5]).all() or rel > CLI_BF16_LOSS_RTOL:
+        problems.append(f"bf16 epoch: {bf16.tolist()}, loss against f32 {rel}")
+    if not rel > CLI_BF16_OVER_RERUN * rerun_rel or not rel > 0:
+        problems.append(f"bf16 epoch: its first loss moved {rel} from float32's, a float32 "
+                        f"rerun {rerun_rel}: the forward did not run in bfloat16")
+    for got, w in ((launches, want(CLI_EPOCHS)), (resume_launches, want(1)),
+                   (bf16_launches, want(1))):
+        if got != w:
+            problems.append(f"launches {got}, expected {w}")
+    if problems:
+        raise AssertionError("train cli: " + "; ".join(problems))
+    loader_batch_phase(root, card)
+
+    def profile():
+        """One more resumed epoch under torch.profiler: the card's busy share
+        of the epoch's wall clock (the host loader, the steps, the val pass
+        and the checkpoint writes)."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        from yolo_dual_tpu_torch.segment import train as cli
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cli.main(["--project", str(project), "--name", "f32", "--resume", "--epochs",
+                      str(CLI_EPOCHS + 2)])
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        epochs_run = cli_results(project / "f32")[:, 0].tolist()
+        shutil.rmtree(root, ignore_errors=True)
+        if epochs_run != list(range(CLI_EPOCHS + 2)):
+            raise AssertionError(f"the profiled --resume ran the f32 run to epochs {epochs_run}")
+        return {"card": card, "epoch_wall_ms_profiled": wall_ms,
+                "device_ms": device_ms if device_ms else "not measured",
+                "busy_share": device_ms / wall_ms if device_ms else "not measured",
+                "idle_share": 1 - device_ms / wall_ms if device_ms else "not measured"}
+    return launches, profile
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device-times", metavar="ROOT", nargs="?",
@@ -1214,8 +1515,10 @@ def main(argv=None) -> int:
     by_path = {cfg.removesuffix(".json"): model_path(cfg, frames, card) for cfg in MODELS}
     # 6b. the validation slice: segment.val at bs 32 through K1
     by_path["eval yolov5s-seg"], eval_batch = eval_path(card)
-    by_path["train yolov5s-seg-dcnv3"], trained, train_profile = train_path(card)
+    by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
+    # 10. the train CLI on a dataset on disk
+    by_path["train CLI yolov5s-seg-dcnv3"], cli_profile = cli_train_path(card, step_ms)
 
     # 9. the kernels' own device times, on seeded and on the trained model's DCNv3 inputs;
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
@@ -1231,8 +1534,10 @@ def main(argv=None) -> int:
     del trained
     print("train profile " + json.dumps(train_profile()), flush=True)
     del train_profile
+    print("train cli epoch profile " + json.dumps(cli_profile()), flush=True)
+    del cli_profile
 
-    # 10. kernels line: times are means over the launches of the main paths, each
+    # 11. kernels line: times are means over the launches of the main paths, each
     # launch weighted by the shape it ran at
     def total(kernel):
         return sum(p.get(kernel, 0) for p in by_path.values())
@@ -1242,10 +1547,15 @@ def main(argv=None) -> int:
     lcalls = {n: len(MODELS) * [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)]
                                 for i in range(N_FRAMES)].count(n) for n in MAIN_SHAPES}
     lcalls["val_480p_bs32_no_scaleup"] = by_path["eval yolov5s-seg"]["letterbox_normalize"]
-    # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training)
+    # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training), and the
+    # CLI's forwards at bs 16 (its micro-steps and val batches); K3: the micro-steps
+    n_dcn = sum(DCN_PATH_SHAPES.values())
+    cli_fwd = by_path["train CLI yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn
+    cli_bwd = by_path["train CLI yolov5s-seg-dcnv3"]["dcnv3_sampling_backward"] // n_dcn
     dcalls = {f"{b}x{h}x{w}x{c}": n * reps for (h, w, c), n in DCN_PATH_SHAPES.items()
-              for b, reps in ((1, N_FRAMES), (TRAIN_BS, TRAIN_MICRO_STEPS))}
-    bcalls = {f"{TRAIN_BS}x{h}x{w}x{c}": n * TRAIN_MICRO_STEPS for (h, w, c), n in DCN_PATH_SHAPES.items()}
+              for b, reps in ((1, N_FRAMES), (TRAIN_BS, TRAIN_MICRO_STEPS + cli_fwd))}
+    bcalls = {f"{TRAIN_BS}x{h}x{w}x{c}": n * (TRAIN_MICRO_STEPS + cli_bwd)
+              for (h, w, c), n in DCN_PATH_SHAPES.items()}
     rows = (("letterbox_normalize", "letterbox.cu", "preprocess.py:91", lres, lcalls),
             ("dcnv3_sampling", "dcnv3.cu", "dcn_sampling.py:252", dres, dcalls),
             ("dcnv3_sampling_backward", "dcnv3_bwd.cu", "dcn_sampling.py:437", bres, bcalls))

@@ -410,3 +410,54 @@ def test_nms_from_raw_on_tied_scores_equals_cpu(cuda, multi_label):
     got, got_n = nms_from_raw([r.to(cuda) for r in raw], anchors, (8, 16, 32), **kw)
     assert got_n.tolist() == want_n.tolist() == [300, 300]
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)
+
+
+def test_dcnv3_under_autocast_samples_in_float32(cuda):
+    """Under torch.autocast (the train CLI's --dtype bf16) DCNv3's projections
+    are bfloat16: the module hands the sampling float32 copies, so K2 and K3
+    launch on float32 (never reinterpreted bytes) and the gradients reach
+    the bfloat16 projections. Against the float32 module: 5e-2 of the
+    output's largest magnitude (bfloat16's 8 bits through two projections)."""
+    from yolo_dual_tpu_torch.nn.dcn import DCNv3
+    torch.manual_seed(0)
+    m = DCNv3(64, group=4).to(cuda)
+    with torch.no_grad():
+        m.offset.weight.normal_(0, 0.05)
+        m.offset.bias.normal_(0, 1.0)
+    x = torch.randn(2, 20, 20, 64, device=cuda)
+    before = (dcnv3_sampling.launches, dcnv3_sampling_backward.launches)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = m(x)
+    assert out.dtype == torch.bfloat16
+    out.float().square().sum().backward()
+    assert (dcnv3_sampling.launches, dcnv3_sampling_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in m.parameters())
+    with torch.no_grad():
+        want = m(x)
+    assert (out.float() - want).abs().max() <= 5e-2 * want.abs().max()
+
+
+def test_mosaic_warp_hsv_on_the_card_equals_cpu(cuda):
+    """The device augmentation's torch ops on the card against the same ops
+    on the CPU, 1e-4 after /255 (chip_smoke.py phase 10's tolerance)."""
+    import random
+    from yolo_dual_tpu_torch.data.augment import sample_perspective_matrix
+    from yolo_dual_tpu_torch.kernels.augment import mosaic_warp_hsv
+    rng = np.random.default_rng(0)
+    B, s = 3, 128
+    tiles = rng.integers(0, 256, (B, 4, s, s, 3), dtype=np.uint8)
+    xc, yc = s, s
+    dst = np.tile(np.array([[0, 0, xc, yc], [xc, 0, 2 * s, yc], [0, yc, xc, 2 * s],
+                            [xc, yc, 2 * s, 2 * s]], np.float32), (B, 1, 1))
+    off = np.tile(np.array([[0, 0], [-xc, 0], [0, -yc], [-xc, -yc]], np.float32), (B, 1, 1))
+    inv = np.stack([np.linalg.inv(sample_perspective_matrix(
+        (2 * s, 2 * s), degrees=10, translate=0.1, scale=0.5, shear=5, perspective=1e-3,
+        border=(-s // 2, -s // 2), rng=random.Random(b))[0]) for b in range(B)]).astype(np.float32)
+    gains = (rng.uniform(-1, 1, (B, 3)) * [0.015, 0.7, 0.4] + 1).astype(np.float32)
+    flips = np.array([[0, 0], [1, 0], [1, 1]], bool)
+    args = [torch.from_numpy(a) for a in (tiles, dst, off, inv, gains, flips)]
+    want = mosaic_warp_hsv(*args, out_size=s)
+    got = mosaic_warp_hsv(*(a.to(cuda) for a in args), out_size=s)
+    assert got.device.type == "cuda"
+    assert (got.cpu() - want).abs().max().item() <= 1e-4

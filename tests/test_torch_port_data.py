@@ -162,14 +162,19 @@ def test_loader_shuffles_as_jax(tmp_path):
 
 
 def test_dataset_refuses_what_is_not_ported(tmp_path):
+    """Training takes the device augmentation only: the host pixel path
+    (--no-device-aug) and hyps that need it (mixup, copy_paste) raise."""
     write_dataset(tmp_path)
-    for kw in (dict(augment=True), dict(device_preprocess=False)):
+    hyp = dict(mosaic=1.0)
+    for kw in (dict(augment=True, hyp=hyp), dict(augment=True, hyp=dict(hyp, mixup=0.1),
+                                                 device_aug=True),
+               dict(augment=True, hyp=dict(hyp, copy_paste=0.1), device_aug=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
             YoloDataset(str(tmp_path / "port" / "images"), **kw)
     other = np.zeros((50, 60, 3), np.uint8)
     np.save(tmp_path / "port" / "images" / "odd.npy", other)
     with pytest.raises(ValueError, match="uniform raw image shape"):
-        YoloDataset(str(tmp_path / "port" / "images"))
+        YoloDataset(str(tmp_path / "port" / "images"), device_preprocess=True)
 
 
 def test_val_cli_matches_jax(tmp_path):

@@ -108,3 +108,38 @@ def port_model(v):
     model = SegmentationModel(TINY_SEG, device="cpu")
     model.load_state_dict(state_dict_from_flax(v), strict=True)
     return model
+
+
+# Frame shapes of the training sets: long sides of 64 (r = 1 at IMGSZ), 128
+# (r = 0.5, an integer shrink), 120 (r < 1, non-integer) and 30 (r > 1).
+TRAIN_SHAPES = ((48, 64), (96, 128), (90, 120), (40, 30))
+
+
+def write_yolo_split(root, split, n, shapes, seed, nc=TINY_NC):
+    """n seeded frames of `shapes` (cycled) under root/{jax,port}/images/split,
+    PNG for the JAX package and `.npy` of the same RGB pixels for the port,
+    with the same polygon labels under each labels/split: 1-4 hexagons a
+    frame of `nc` classes, each over a bright box so the model can find it;
+    frame 2 has no label file, frame 5 an empty one. Returns root."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    for side in ("jax", "port"):
+        (root / side / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / side / "labels" / split).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        lines = []
+        for _ in range(0 if i == 5 else rng.integers(1, 5)):
+            c, r = rng.uniform(0.2, 0.8, 2), rng.uniform(0.08, 0.3)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 6))
+            pts = np.clip(np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], 1), 0, 1)
+            (x0, y0), (x1, y1) = (pts.min(0) * [w, h]).astype(int), (pts.max(0) * [w, h]).astype(int)
+            im[y0:y1, x0:x1] = rng.integers(180, 256, 3)
+            lines.append(" ".join([str(rng.integers(0, nc))] + [f"{v:.6f}" for v in pts.reshape(-1)]))
+        cv2.imwrite(str(root / "jax" / "images" / split / f"im{i}.png"), im[..., ::-1])
+        np.save(root / "port" / "images" / split / f"im{i}.npy", im)
+        if i != 2:
+            for side in ("jax", "port"):
+                (root / side / "labels" / split / f"im{i}.txt").write_text("\n".join(lines))
+    return root

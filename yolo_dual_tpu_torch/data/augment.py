@@ -1,17 +1,28 @@
-"""Polygon -> mask rasterisation (port of the mask half of
-yolo_dual_tpu/data/augment.py; reference utils/segment/dataloaders.py:274-331),
-plus the label geometry helpers the val dataset uses.
+"""Host-side geometry of the data pipeline (port of yolo_dual_tpu/data/augment.py;
+reference utils/augmentations.py, utils/segment/augmentations.py and
+utils/segment/dataloaders.py:274-331): label and polygon transforms, the
+mosaic's perspective warp as a matrix (its pixels are warped on the device,
+kernels/augment.py), the host letterbox, and polygon -> mask rasterisation.
 
-The JAX package rasterises with cv2.fillPoly and downsamples with cv2.resize
-(INTER_LINEAR). The card's machine has no OpenCV, so both are written here in
-numpy: `fill_poly` follows OpenCV's 8-connected edge drawing and scanline
-fill of a polygon with integer vertices, and `resize_linear_u8` OpenCV's
-fixed-point bilinear resize of a uint8 plane. They are exact on axis-aligned
-rectangles with integer vertices; on other polygons a few edge pixels may
-differ (tests/test_torch_port_data.py holds the share).
+The JAX package uses OpenCV for fillPoly, resize and getRotationMatrix2D. The
+card's machine has no OpenCV, so they are written here in numpy: `fill_poly`
+follows OpenCV's 8-connected edge drawing and scanline fill of a polygon with
+integer vertices, `resize_linear_u8` OpenCV's fixed-point INTER_LINEAR
+resize of a uint8 plane or frame, `resize_area_u8` its INTER_AREA. The
+rasteriser is exact on axis-aligned rectangles with integer vertices, and on
+other polygons a few edge pixels may differ; INTER_LINEAR is exact;
+INTER_AREA may be off by one at non-integer ratios (ROADMAP.md §C, held by
+tests/test_torch_port_data.py and tests/test_torch_port_train_data.py).
+
+The pixel augmentations of the host path (random_perspective's warp,
+augment_hsv, mixup, copy_paste, cutout, Albumentations) are not ported: the
+training dataset takes the device-augmentation path only (data/dataset.py).
 """
 
 from __future__ import annotations
+
+import math
+import random
 
 import numpy as np
 
@@ -59,6 +70,100 @@ def xyxy2xywhn_np(x: np.ndarray, w: float = 640, h: float = 640,
     return y
 
 
+def segment2box(segment: np.ndarray, width: float, height: float):
+    """A polygon's xyxy box over its points inside [0, width] x [0, height]
+    (zeros when none is; reference utils/general.py:801)."""
+    x, y = segment[:, 0], segment[:, 1]
+    inside = (x >= 0) & (y >= 0) & (x <= width) & (y <= height)
+    x, y = x[inside], y[inside]
+    return np.array([x.min(), y.min(), x.max(), y.max()]) if any(x) else np.zeros(4)
+
+
+def resample_segments(segments, n: int = 1000):
+    """Each polygon closed and resampled to n points (reference
+    utils/general.py:816-827)."""
+    out = []
+    for s in segments:
+        s = np.concatenate((s, s[0:1, :]), axis=0)
+        x = np.linspace(0, len(s) - 1, n)
+        xp = np.arange(len(s))
+        out.append(np.concatenate([np.interp(x, xp, s[:, i]) for i in range(2)]).reshape(2, -1).T)
+    return out
+
+
+def get_rotation_matrix_2d(angle: float, center, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D: the 2x3 rotation by `angle` degrees
+    (counter-clockwise) about `center`, scaled by `scale`."""
+    a = angle * math.pi / 180
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def sample_perspective_matrix(shape_hw, degrees=10, translate=0.1, scale=0.1, shear=10,
+                              perspective=0.0, border=(0, 0), rng=None):
+    """The reference's centre / perspective / rotation+scale / shear /
+    translation warp T @ S @ R @ P @ C, drawn from `rng` in its order: two
+    perspective, angle, scale, two shear, two translation draws (reference
+    utils/segment/augmentations.py:28-52). Returns (M, scale, (width,
+    height)); the labels are warped on the host, the pixels on the device
+    (kernels/augment.py)."""
+    rng = rng or random
+    height = shape_hw[0] + border[0] * 2
+    width = shape_hw[1] + border[1] * 2
+    C = np.eye(3)
+    C[0, 2] = -shape_hw[1] / 2
+    C[1, 2] = -shape_hw[0] / 2
+    P = np.eye(3)
+    P[2, 0] = rng.uniform(-perspective, perspective)
+    P[2, 1] = rng.uniform(-perspective, perspective)
+    R = np.eye(3)
+    a = rng.uniform(-degrees, degrees)
+    s = rng.uniform(1 - scale, 1 + scale)
+    R[:2] = get_rotation_matrix_2d(a, (0, 0), s)
+    S = np.eye(3)
+    S[0, 1] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    T = np.eye(3)
+    T[0, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * width
+    T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * height
+    return T @ S @ R @ P @ C, s, (width, height)
+
+
+def box_candidates(box1, box2, wh_thr=2, ar_thr=100, area_thr=0.1, eps=1e-16):
+    """Keep warped boxes wider and taller than wh_thr px, of aspect below
+    ar_thr, that keep more than area_thr of their area (reference
+    utils/augmentations.py:240)."""
+    w1, h1 = box1[2] - box1[0], box1[3] - box1[1]
+    w2, h2 = box2[2] - box2[0], box2[3] - box2[1]
+    ar = np.maximum(w2 / (h2 + eps), h2 / (w2 + eps))
+    return (w2 > wh_thr) & (h2 > wh_thr) & (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr)
+
+
+def apply_perspective_to_labels(M, s, perspective, targets, segments, width, height):
+    """Warp boxes and polygons (resampled to 1000 points) by M, box each
+    polygon inside the canvas and drop degenerate candidates (reference
+    utils/segment/augmentations.py:60-88)."""
+    n = len(targets)
+    new_segments = []
+    if n:
+        new = np.zeros((n, 4))
+        segments = resample_segments(segments)
+        for i, segment in enumerate(segments):
+            xy = np.ones((len(segment), 3))
+            xy[:, :2] = segment
+            xy = xy @ M.T
+            xy = xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]
+            new[i] = segment2box(xy, width, height)
+            new_segments.append(xy)
+        i = box_candidates(box1=targets[:, 1:5].T * s, box2=new.T, area_thr=0.01)
+        targets = targets[i]
+        targets[:, 1:5] = new[i]
+        new_segments = [new_segments[j] for j, keep in enumerate(i) if keep]
+    return targets, new_segments
+
+
 def _clip_line(w: int, h: int, p0, p1):
     """Cohen-Sutherland clip of the segment p0-p1 to [0, w-1] x [0, h-1], in
     integers as OpenCV's clipLine does; None when it misses the image."""
@@ -95,31 +200,28 @@ def _clip_line(w: int, h: int, p0, p1):
     return (x1, y1), (x2, y2)
 
 
-def _draw_line(mask: np.ndarray, p0, p1, color: int):
-    """OpenCV's 8-connected line (LineIterator, left to right), clipped."""
-    h, w = mask.shape
-    clipped = _clip_line(w, h, p0, p1)
-    if clipped is None:
-        return
-    (x1, y1), (x2, y2) = clipped
-    if x2 < x1:
-        x1, y1, x2, y2 = x2, y2, x1, y1
-    dx, dy = x2 - x1, y2 - y1
-    sy = -1 if dy < 0 else 1
-    dy = abs(dy)
-    major, minor = (dy, dx) if dy > dx else (dx, dy)
-    i = np.arange(major + 1)
+def _draw_lines(mask: np.ndarray, p0: np.ndarray, p1: np.ndarray, color: int):
+    """OpenCV's 8-connected lines (LineIterator, left to right) for many edges
+    at once: p0, p1 (n, 2) integer endpoints, every one inside the plane
+    (fill_poly clips the others first)."""
+    swap = p1[:, 0] < p0[:, 0]
+    a = np.where(swap[:, None], p1, p0)
+    b = np.where(swap[:, None], p0, p1)
+    dx, dy = b[:, 0] - a[:, 0], b[:, 1] - a[:, 1]
+    sy = np.where(dy < 0, -1, 1)
+    dy = np.abs(dy)
+    steep = dy > dx
+    major, minor = np.where(steep, dy, dx), np.where(steep, dx, dy)
+    n = major + 1
+    e = np.repeat(np.arange(len(n)), n)                         # edge of each point
+    i = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)     # its step along the edge
     # Bresenham: the minor coordinate steps where err = major - 2 minor (i + 1)
     # + 2 major (steps so far) goes negative
-    steps = np.zeros(major + 1, np.int64)
-    if major:
-        steps[1:] = np.maximum(0, (2 * minor * np.arange(1, major + 1) - major
-                                   + 2 * major - 1) // (2 * major))
-    if dy > dx:
-        xs, ys = x1 + steps, y1 + sy * i
-    else:
-        xs, ys = x1 + i, y1 + sy * steps
-    mask[ys, xs] = color
+    M, m = major[e], minor[e]
+    steps = np.maximum(0, (2 * m * i + M - 1) // np.maximum(2 * M, 1))
+    st = steep[e]
+    mask[np.where(st, a[e, 1] + sy[e] * i, a[e, 1] + sy[e] * steps),
+         np.where(st, a[e, 0] + steps, a[e, 0] + i)] = color
 
 
 def fill_poly(mask: np.ndarray, pts: np.ndarray, color: int = 1) -> np.ndarray:
@@ -129,36 +231,39 @@ def fill_poly(mask: np.ndarray, pts: np.ndarray, color: int = 1) -> np.ndarray:
     covering rows [y_top, y_bottom)."""
     h, w = mask.shape
     pts = np.asarray(pts, np.int64).reshape(-1, 2)
-    n = len(pts)
-    edges = []  # (y0, y1, x at y0 in fixed point, dx per row)
-    for i in range(n):
-        p0, p1 = pts[i - 1], pts[i]
-        t0, t1 = (int(p0[0]), int(p0[1])), (int(p1[0]), int(p1[1]))
-        _draw_line(mask, t0, t1, color)
-        if t0[1] == t1[1]:
-            continue
-        (x0c, y0c), (x1c, y1c) = t0, t1
-        if not (0 <= min(t0[0], t1[0]) and max(t0[0], t1[0]) < w
-                and 0 <= min(t0[1], t1[1]) and max(t0[1], t1[1]) < h):
-            c = _clip_line(w, h, t0, t1)  # an edge leaving the plane runs along its clipped part
-            if c is not None and c[0][1] != c[1][1]:
-                (x0c, y0c), (x1c, y1c) = c
-        x0c, x1c = x0c << XY_SHIFT, x1c << XY_SHIFT
-        num, den = x1c - x0c, y1c - y0c
-        dxf = abs(num) // abs(den) * (1 if (num >= 0) == (den > 0) else -1)  # C division
-        if t0[1] < t1[1]:
-            edges.append((t0[1], t1[1], x0c + (t0[1] - y0c) * dxf, dxf))
-        else:
-            edges.append((t1[1], t0[1], x1c + (t1[1] - y1c) * dxf, dxf))
-    if len(edges) < 2:
+    p0, p1 = np.roll(pts, 1, axis=0), pts                       # edge i runs pts[i-1] -> pts[i]
+    inside = ((np.minimum(p0, p1) >= 0).all(1) & (np.maximum(p0[:, 0], p1[:, 0]) < w)
+              & (np.maximum(p0[:, 1], p1[:, 1]) < h))
+    c0, c1 = p0.copy(), p1.copy()  # each edge clipped to the plane
+    drawn = inside.copy()
+    for i in np.flatnonzero(~inside):
+        c = _clip_line(w, h, (int(p0[i, 0]), int(p0[i, 1])), (int(p1[i, 0]), int(p1[i, 1])))
+        if c is not None:
+            c0[i], c1[i] = c
+            drawn[i] = True
+    _draw_lines(mask, c0[drawn], c1[drawn], color)
+    # an edge leaving the plane runs the scanlines along its clipped part, unless
+    # that part is missing or flat
+    whole = ~drawn | (c0[:, 1] == c1[:, 1])
+    c0[whole], c1[whole] = p0[whole], p1[whole]
+    keep = p0[:, 1] != p1[:, 1]
+    p0, p1, c0, c1 = p0[keep], p1[keep], c0[keep], c1[keep]
+    num = (c1[:, 0] - c0[:, 0]) << XY_SHIFT
+    den = c1[:, 1] - c0[:, 1]
+    dxf = np.abs(num) // np.abs(den) * np.where((num >= 0) == (den > 0), 1, -1)  # C division
+    down = p0[:, 1] < p1[:, 1]
+    top = np.where(down, p0[:, 1], p1[:, 1])
+    x_top = np.where(down, (c0[:, 0] << XY_SHIFT) + (p0[:, 1] - c0[:, 1]) * dxf,
+                     (c1[:, 0] << XY_SHIFT) + (p1[:, 1] - c1[:, 1]) * dxf)
+    if len(top) < 2:
         return mask
-    e = np.array(edges, np.int64)
-    rows = np.concatenate([np.arange(max(a, 0), min(b, h)) for a, b in e[:, :2]])
+    lo, hi = np.maximum(top, 0), np.minimum(np.where(down, p1[:, 1], p0[:, 1]), h)
+    cnt = np.maximum(hi - lo, 0)                                # rows an edge crosses
+    first = np.repeat(np.arange(len(cnt)), cnt)
+    rows = lo[first] + np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
     if not len(rows):
         return mask
-    first = np.concatenate([np.full(max(0, min(b, h) - max(a, 0)), i) for i, (a, b) in
-                            enumerate(e[:, :2])])
-    xs = e[first, 2] + (rows - e[first, 0]) * e[first, 3]                 # crossings, fixed point
+    xs = x_top[first] + (rows - top[first]) * dxf[first]                 # crossings, fixed point
     order = np.lexsort((xs, rows))
     rows, xs = rows[order], xs[order]
     # crossings pair up row by row (each row has an even count), left then right;
@@ -176,34 +281,110 @@ def fill_poly(mask: np.ndarray, pts: np.ndarray, color: int = 1) -> np.ndarray:
     return mask
 
 
-def _linear_taps(n_in: int, n_out: int):
+def _linear_taps(n_in: int, n_out: int, clamp: bool = True):
     """OpenCV's INTER_LINEAR source taps and fixed-point weights along one
-    axis: the source coordinate in float32, each weight rounded on its own."""
+    axis: the source coordinate in float32, each weight rounded on its own.
+    Past the edges OpenCV clamps the columns' coordinate (clamp=True: one tap
+    of weight 1) but only the rows' indices, keeping both rounded weights."""
     f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
     x0 = np.floor(f).astype(np.int64)
     fx = f - x0.astype(np.float32)
-    fx[(x0 < 0) | (x0 >= n_in - 1)] = 0
+    if clamp:
+        fx[(x0 < 0) | (x0 >= n_in - 1)] = 0
+        x0 = np.clip(x0, 0, n_in - 1)
+    x1 = np.clip(x0 + 1, 0, n_in - 1)
     x0 = np.clip(x0, 0, n_in - 1)
     one = np.float32(1 << COEF_BITS)
     w0 = np.rint((np.float32(1) - fx) * one).astype(np.int32)
     w1 = np.rint(fx * one).astype(np.int32)
-    return x0, np.minimum(x0 + 1, n_in - 1), w0, w1
+    return x0, x1, w0, w1
 
 
 def resize_linear_u8(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """cv2.resize(img, (nw, nh)) of a 2-D uint8 plane with INTER_LINEAR:
-    horizontal then vertical fixed-point passes, rounded as OpenCV rounds."""
-    h, w = img.shape
+    """cv2.resize(img, (nw, nh)) of a uint8 plane (h, w) or frame (h, w, c)
+    with INTER_LINEAR, up or down: horizontal then vertical fixed-point passes,
+    rounded as OpenCV rounds."""
+    h, w = img.shape[:2]
     if (h, w) == (nh, nw):
         return img.copy()
     c0, c1, cw0, cw1 = _linear_taps(w, nw)
-    r0, r1, rw0, rw1 = _linear_taps(h, nh)
+    r0, r1, rw0, rw1 = _linear_taps(h, nh, clamp=False)
+    if img.ndim == 3:
+        cw0, cw1 = cw0[:, None], cw1[:, None]
+    vshape = (nh,) + (1,) * (img.ndim - 1)
 
-    def horizontal(rows):                                        # (nh, nw), scaled by 2^11
+    def horizontal(rows):                                        # (nh, nw[, c]), scaled by 2^11
         return rows[:, c0].astype(np.int32) * cw0 + rows[:, c1].astype(np.int32) * cw1
     s0, s1 = horizontal(img[r0]) >> 4, horizontal(img[r1]) >> 4
-    out = (((rw0[:, None] * s0) >> 16) + ((rw1[:, None] * s1) >> 16) + 2) >> 2
+    out = (((rw0.reshape(vshape) * s0) >> 16) + ((rw1.reshape(vshape) * s1) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of OpenCV's INTER_AREA along one axis
+    (computeResizeAreaTab): each output cell averages the source cells it
+    covers, partial cells by the covered fraction."""
+    scale = n_in / n_out
+    wt = np.zeros((n_out, n_in))
+    for dx in range(n_out):
+        fsx1, fsx2 = dx * scale, dx * scale + scale
+        cell = min(scale, n_in - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, n_in - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            wt[dx, sx1 - 1] = np.float32((sx1 - fsx1) / cell)
+        wt[dx, sx1:sx2] = np.float32(1 / cell)
+        if fsx2 - sx2 > 1e-3:
+            wt[dx, sx2] = np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    return wt
+
+
+def resize_area_u8(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """cv2.resize(img, (nw, nh), interpolation=cv2.INTER_AREA) of a uint8
+    plane or frame, for shrinking (OpenCV takes INTER_LINEAR to enlarge).
+    Integer ratios average whole blocks (resizeAreaFast: a 2x2 block rounded
+    half up, larger blocks to even); others are the weighted sums of
+    `_area_weights`, in float64 here and float32 in OpenCV, so an output that
+    falls within float32 rounding of a half may round the other way
+    (ROADMAP.md §C)."""
+    h, w = img.shape[:2]
+    if (h, w) == (nh, nw):
+        return img.copy()
+    if nh > h or nw > w:
+        return resize_linear_u8(img, nh, nw)
+    sy, sx = h / nh, w / nw
+    if sy == int(sy) and sx == int(sx):
+        ky, kx = int(sy), int(sx)
+        blocks = img[:nh * ky, :nw * kx].reshape(nh, ky, nw, kx, *img.shape[2:]).astype(np.int64)
+        total = blocks.sum((1, 3))
+        if ky == kx == 2:
+            return ((total + 2) >> 2).astype(np.uint8)
+        return np.rint(total.astype(np.float32) * np.float32(1 / (ky * kx))).astype(np.uint8)
+    out = np.einsum("yh,hw...->yw...", _area_weights(h, nh), img.astype(np.float64))
+    out = np.einsum("xw,yw...->yx...", _area_weights(w, nw), out)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def letterbox(im: np.ndarray, new_shape=640, scaleup: bool = True, color: int = 114):
+    """Aspect-preserving resize (INTER_LINEAR) and centred constant pad to
+    new_shape (an int or (h, w)), as JAX's letterbox with auto=False
+    (reference utils/augmentations.py:111-141; cv2.resize + copyMakeBorder
+    there). Returns (image, (rw, rh), (dw, dh))."""
+    shape = im.shape[:2]
+    if isinstance(new_shape, int):
+        new_shape = (new_shape, new_shape)
+    r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
+    if not scaleup:
+        r = min(r, 1.0)
+    new_unpad = int(round(shape[1] * r)), int(round(shape[0] * r))
+    dw, dh = (new_shape[1] - new_unpad[0]) / 2, (new_shape[0] - new_unpad[1]) / 2
+    if shape[::-1] != new_unpad:
+        im = resize_linear_u8(im, new_unpad[1], new_unpad[0])
+    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+    out = np.full((new_shape[0], new_shape[1], *im.shape[2:]), color, im.dtype)
+    out[top:top + im.shape[0], left:left + im.shape[1]] = im
+    return out, (r, r), (dw, dh)
 
 
 def polygon2mask(img_size, polygons, color: int = 1, downsample_ratio: int = 1) -> np.ndarray:

@@ -1,32 +1,55 @@
-"""YOLO-format instance-segmentation dataset, validation side (port of
-yolo_dual_tpu/data/dataset.py with device_preprocess=True; reference
-utils/dataloaders.py:431-918, utils/segment/dataloaders.py:82-331).
+"""YOLO-format instance-segmentation dataset (port of
+yolo_dual_tpu/data/dataset.py; reference utils/dataloaders.py:431-918,
+utils/segment/dataloaders.py:82-331).
 
 Frames are RGB uint8 (h, w, 3) `.npy` arrays under an `images/` directory,
 labels the reference's txt files under the parallel `labels/` directory
 (class, then a normalised box xywh or a normalised polygon x1 y1 x2 y2 ...).
-Every frame must have one shape: each sample carries the raw frame
-(`image_raw`) for the letterbox kernel on the card, and its labels and
-masks mapped through the same letterbox geometry on the host. Samples are
-emitted at a fixed shape: `max_labels`-padded targets with a validity mask
-and an overlap-encoded (or per-instance) mask plane at imgsz / mask_ratio.
+The labels are checked once and cached beside the labels directory
+(`labels.cache`, rebuilt when the files' hash or the cache's version
+changes). Samples come at a fixed shape: `max_labels`-padded targets with a
+validity mask and an overlap-encoded (or per-instance) mask plane at
+imgsz / mask_ratio. Three paths, as in JAX:
 
-Not ported yet (ROADMAP A item 2): the label cache, decoded image files, the
-host letterbox path (device_preprocess=False), rect buckets, mosaic and the
-host augmentations.
+- training (augment=True, device_aug=True): a 4-frame mosaic whose pixels are
+  composed, warped, HSV-jittered and flipped on the device
+  (kernels/augment.py:mosaic_warp_hsv). The sample carries the four resized
+  frames zero-padded to imgsz (`aug_tiles`) and the geometry (`aug_dst`,
+  `aug_off`, `aug_invm`, `aug_hsv`, `aug_flips`); its labels and masks are
+  already warped on the host by the same matrix. Every random draw comes
+  from `self.rng`, in JAX's order, so one seed gives JAX's samples.
+- validation with the letterbox kernel (device_preprocess=True): the raw
+  frame (`image_raw`; every frame of one shape) and its labels mapped through
+  the same letterbox geometry.
+- validation with the host letterbox (device_preprocess=False): each frame
+  resized so its long side is imgsz (INTER_AREA to shrink, INTER_LINEAR to
+  enlarge, numpy copies of OpenCV's) and padded to imgsz x imgsz (`image`).
+
+Not ported (ROADMAP A item 2): the host pixel augmentation (random_perspective's
+warp, augment_hsv, mixup, copy_paste, cutout, albumentations) and so
+augment=True without device_aug, or with a hyp that needs it (mosaic < 1,
+mixup, copy_paste or cutout > 0); rect buckets; the disk image cache.
 """
 
 from __future__ import annotations
 
+import hashlib
+import math
 import os
+import random
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 from yolo_dual_tpu_torch.data.augment import (
+    apply_perspective_to_labels,
+    letterbox,
     polygons2masks,
     polygons2masks_overlap,
+    resize_area_u8,
+    resize_linear_u8,
+    sample_perspective_matrix,
     xyn2xy,
     xywhn2xyxy_np,
     xyxy2xywhn_np,
@@ -35,12 +58,21 @@ from yolo_dual_tpu_torch.kernels.preprocess import letterbox_geometry
 from yolo_dual_tpu_torch.utils.general import LOGGER
 
 IMG_FORMATS = ("npy",)
+CACHE_VERSION = "torch-npy-1"  # the port's own tag: the JAX package's caches are rebuilt, not read
 
 
 def img2label_paths(img_paths):
     """images/... .npy -> labels/... .txt (reference utils/dataloaders.py:425)."""
     sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
     return [sb.join(x.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt" for x in img_paths]
+
+
+def get_hash(paths):
+    """Hash of the files' total size and their paths (JAX dataset.py:59)."""
+    size = sum(os.path.getsize(p) for p in paths if os.path.exists(p))
+    h = hashlib.sha256(str(size).encode())
+    h.update("".join(paths).encode())
+    return h.hexdigest()
 
 
 def verify_image_label(im_file: str, lb_file: str):
@@ -92,55 +124,62 @@ def verify_image_label(im_file: str, lb_file: str):
 
 
 class YoloDataset:
-    """Map-style validation dataset yielding fixed-shape samples.
+    """Map-style dataset yielding fixed-shape samples.
 
-    sample dict: image_raw uint8 (h0, w0, 3) RGB, targets (M, 5) float32
-    [cls, xywh normalised to the letterboxed imgsz frame], tmask (M,) bool,
-    masks (imgsz/r, imgsz/r) float32 overlap-encoded (or (M, imgsz/r,
-    imgsz/r) per instance with overlap=False), shape0 (h0, w0), ratio_pad
-    (left, top) and index.
+    sample dict: targets (M, 5) float32 [cls, xywh normalised to the imgsz
+    frame], tmask (M,) bool, masks (imgsz/r, imgsz/r) float32 overlap-encoded
+    (or (M, imgsz/r, imgsz/r) per instance with overlap=False), shape0, ratio_pad
+    and index; and the pixels: `aug_*` (training), `image_raw`
+    (device_preprocess) or `image` uint8 (imgsz, imgsz, 3) (host letterbox).
     """
 
-    def __init__(self, path, imgsz: int = 640, augment: bool = False, mask_ratio: int = 4,
-                 overlap: bool = True, max_labels: int = 120, prefix: str = "",
-                 single_cls: bool = False, device_preprocess: bool = True):
-        if augment or not device_preprocess:
-            raise NotImplementedError(
-                "YoloDataset: only the validation path (augment=False, device_preprocess=True) "
-                "is ported; mosaic, host augmentation and the host letterbox come with "
-                "ROADMAP A item 2")
+    def __init__(self, path, imgsz: int = 640, augment: bool = False, hyp: Optional[dict] = None,
+                 mask_ratio: int = 4, overlap: bool = True, max_labels: int = 120,
+                 prefix: str = "", single_cls: bool = False, cache_images=False,
+                 rect: bool = False, device_aug: bool = False, device_preprocess: bool = False):
         self.imgsz = imgsz
+        self.augment = augment
+        self.hyp = dict(hyp or {})
         self.mask_ratio = mask_ratio
         self.overlap = overlap
         self.max_labels = max_labels
         self.single_cls = single_cls
+        self.mosaic = self.augment and self.hyp.get("mosaic", 0) > 0
+        self.mosaic_border = [-imgsz // 2, -imgsz // 2]
+        self.device_aug = bool(device_aug) and augment
+        h = self.hyp
+        if augment and (not self.device_aug or h.get("mosaic", 0) < 1.0 or h.get("mixup", 0) > 0
+                        or h.get("copy_paste", 0) > 0 or h.get("cutout", 0) > 0):
+            raise NotImplementedError(
+                f"{prefix}YoloDataset(augment=True) takes the device augmentation path only "
+                "(device_aug=True, hyp mosaic=1.0 and no mixup/copy_paste/cutout); the host pixel "
+                "augmentation is not ported yet (ROADMAP A item 2)")
+        if rect and not augment:
+            raise NotImplementedError("YoloDataset(rect=True): aspect buckets are not ported yet "
+                                      "(ROADMAP A item 2)")
+        if cache_images == "disk":
+            raise NotImplementedError("YoloDataset(cache_images='disk') is not ported yet "
+                                      "(ROADMAP A item 2); the frames are .npy already")
+        self.rng = random.Random(0)
+        self.cache_ram = cache_images is True or cache_images == "ram"
+
         self.im_files = self._discover(path, prefix)
-        self.labels, self.segments, shapes = [], [], []
-        nf = nm = ne = nc = 0
-        keep = []
-        for im_f, lb_f in zip(self.im_files, img2label_paths(self.im_files)):
-            ok, lb, seg, shape, msg = verify_image_label(im_f, lb_f)
-            if not ok:
-                nc += 1
-                LOGGER.warning(msg)
-                continue
-            nf += int(os.path.isfile(lb_f))
-            nm += int(not os.path.isfile(lb_f))
-            ne += int(len(lb) == 0)
-            self.labels.append(lb)
-            self.segments.append(seg)
-            shapes.append(shape)
-            keep.append(im_f)
-        LOGGER.info(f"{prefix}labels: {nf} found, {nm} missing, {ne} empty, {nc} corrupt")
-        self.im_files = keep
-        self.label_files = img2label_paths(keep)
-        self.shapes = np.array(shapes)
+        self.label_files = img2label_paths(self.im_files)
+        cache = self._load_or_build_cache(prefix)
+        self.labels = cache["labels"]
+        self.segments = cache["segments"]
+        self.shapes = cache["shapes"]
         self.n = len(self.im_files)
-        uniq = {tuple(s) for s in self.shapes.astype(int).tolist()}
-        if len(uniq) > 1:
-            raise ValueError(
-                f"device_preprocess needs one uniform raw image shape, got {sorted(uniq)[:5]}"
-                f"{'...' if len(uniq) > 5 else ''}")
+        self.indices = list(range(self.n))
+        self.ims = [None] * self.n  # RAM image cache slots
+
+        self.device_preprocess = bool(device_preprocess) and not augment
+        if self.device_preprocess and len(self.shapes):
+            uniq = {tuple(s) for s in self.shapes.astype(int).tolist()}
+            if len(uniq) > 1:
+                raise ValueError(
+                    f"device_preprocess needs one uniform raw image shape, got {sorted(uniq)[:5]}"
+                    f"{'...' if len(uniq) > 5 else ''}; use the host letterbox path")
 
     @staticmethod
     def _discover(path, prefix="") -> List[str]:
@@ -161,22 +200,166 @@ class YoloDataset:
             raise FileNotFoundError(f"{prefix}no .npy frames found in {path}")
         return im_files
 
+    def _load_or_build_cache(self, prefix=""):
+        """The checked labels, segments and shapes of every frame, from
+        `labels.cache` when its version and hash match, else built and saved
+        (JAX dataset.py:225-264)."""
+        cache_path = Path(self.label_files[0]).parent.with_suffix(".cache")
+        h = get_hash(self.label_files + self.im_files)
+        if cache_path.is_file():
+            try:
+                cache = np.load(cache_path, allow_pickle=True).item()
+                if cache.get("version") == CACHE_VERSION and cache.get("hash") == h:
+                    nf, nm, ne, nc = cache["results"]
+                    LOGGER.info(f"{prefix}cached labels: {nf} found, {nm} missing, {ne} empty, "
+                                f"{nc} corrupt")
+                    self.im_files = cache["im_files"]
+                    self.label_files = img2label_paths(self.im_files)
+                    return cache
+            except Exception:
+                pass
+        labels, segments, shapes, keep = [], [], [], []
+        nf = nm = ne = nc = 0
+        for im_f, lb_f in zip(self.im_files, self.label_files):
+            ok, lb, seg, shape, msg = verify_image_label(im_f, lb_f)
+            if not ok:
+                nc += 1
+                LOGGER.warning(msg)
+                continue
+            nf += int(os.path.isfile(lb_f))
+            nm += int(not os.path.isfile(lb_f))
+            ne += int(len(lb) == 0)
+            labels.append(lb)
+            segments.append(seg)
+            shapes.append(shape)
+            keep.append(im_f)
+        self.im_files = keep
+        self.label_files = img2label_paths(keep)
+        cache = {"labels": labels, "segments": segments, "shapes": np.array(shapes),
+                 "im_files": keep, "hash": h, "version": CACHE_VERSION,
+                 "results": (nf, nm, ne, nc)}
+        try:
+            np.save(str(cache_path.with_suffix("")), cache)
+            cache_path.with_suffix(".npy").replace(cache_path)
+        except OSError as e:
+            LOGGER.warning(f"{prefix}label cache not saved to {cache_path}: {e}")
+        LOGGER.info(f"{prefix}labels: {nf} found, {nm} missing, {ne} empty, {nc} corrupt")
+        return cache
+
     def __len__(self):
         return self.n
 
-    def __getitem__(self, index):
-        raw = np.load(self.im_files[index])
-        h0, w0 = raw.shape[:2]
+    # -- image IO -----------------------------------------------------------
+    def load_image(self, i):
+        """Frame i resized so its long side is imgsz (JAX dataset.py:270-290):
+        INTER_LINEAR when augmenting or enlarging, else INTER_AREA. Returns
+        (frame, (h0, w0), (h, w)). With cache_images='ram' the read frames
+        are kept in memory."""
+        im = self.ims[i] if self.cache_ram else None
+        if im is None:
+            im = np.load(self.im_files[i])
+            if self.cache_ram:
+                self.ims[i] = im
+        h0, w0 = im.shape[:2]
+        r = self.imgsz / max(h0, w0)
+        if r != 1:
+            resize = resize_linear_u8 if (self.augment or r > 1) else resize_area_u8
+            im = resize(im, math.ceil(h0 * r), math.ceil(w0 * r))
+        return im, (h0, w0), im.shape[:2]
+
+    # -- mosaic -------------------------------------------------------------
+    def load_mosaic(self, index):
+        """4-frame mosaic for the device (JAX load_mosaic(compose=False),
+        dataset.py:293-365; reference utils/dataloaders.py:653-700): the
+        frames go out as tiles with their placement on the 2s x 2s canvas, a
+        perspective warp is drawn, and the labels are warped here by it.
+        Returns ((tiles, dst, off, inv_m), labels, segments)."""
         s = self.imgsz
-        r, (left, top) = letterbox_geometry(h0, w0, s, scaleup=False)
-        labels = self.labels[index].copy()
-        segments = [se.copy() for se in self.segments[index]]
-        if labels.size:
-            labels[:, 1:] = xywhn2xyxy_np(labels[:, 1:], r * w0, r * h0, left, top)
-            segments = [xyn2xy(se, r * w0, r * h0, left, top) for se in segments]
+        yc, xc = (int(self.rng.uniform(-x, 2 * s + x)) for x in self.mosaic_border)
+        indices = [index] + self.rng.choices(self.indices, k=3)
+        self.rng.shuffle(indices)
+        labels4, segments4 = [], []
+        tiles = np.zeros((4, s, s, 3), np.uint8)
+        dst = np.zeros((4, 4), np.float32)
+        off = np.zeros((4, 2), np.float32)
+        for i, idx in enumerate(indices):
+            img, _, (h, w) = self.load_image(idx)
+            if i == 0:
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+            elif i == 1:
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+                x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+            elif i == 2:
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+            else:
+                x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+            tiles[i, :h, :w] = img
+            dst[i] = (x1a, y1a, x2a, y2a)
+            off[i] = (x1b - x1a, y1b - y1a)
+            padw, padh = x1a - x1b, y1a - y1b
+            labels = self.labels[idx].copy()
+            segments = [se.copy() for se in self.segments[idx]]
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy_np(labels[:, 1:], w, h, padw, padh)
+                segments = [xyn2xy(se, w, h, padw, padh) for se in segments]
+            labels4.append(labels)
+            segments4.extend(segments)
+        labels4 = np.concatenate(labels4, 0)
+        for x in (labels4[:, 1:], *segments4):
+            np.clip(x, 0, 2 * s, out=x)
+        hyp = self.hyp
+        persp = hyp.get("perspective", 0.0)
+        M, sc, (width, height) = sample_perspective_matrix(
+            (s * 2, s * 2), degrees=hyp.get("degrees", 0.0),
+            translate=hyp.get("translate", 0.1), scale=hyp.get("scale", 0.5),
+            shear=hyp.get("shear", 0.0), perspective=persp,
+            border=self.mosaic_border, rng=self.rng)
+        labels4, segments4 = apply_perspective_to_labels(
+            M, sc, persp, labels4, segments4, width, height)
+        inv_m = np.linalg.inv(M).astype(np.float32)
+        return (tiles, dst, off, inv_m), labels4, segments4
+
+    # -- fixed-shape sample assembly ----------------------------------------
+    def __getitem__(self, index):
+        hyp = self.hyp
+        use_mosaic = self.mosaic and self.rng.random() < hyp.get("mosaic", 0.0)
+        ratio_pad = None
+        # JAX reads the (h, w) shape reversed here; the training path keeps it so
+        shape0 = tuple(self.shapes[index][::-1]) if len(self.shapes) else (self.imgsz, self.imgsz)
+        dev_geo = img = raw = None
+        if use_mosaic:
+            dev_geo, labels, segments = self.load_mosaic(index)
+            # the host path's mixup coin: keeps the stream aligned with it (JAX :379)
+            self.rng.random()
+        elif self.device_preprocess:
+            raw = np.load(self.im_files[index])
+            h0, w0 = raw.shape[:2]
+            shape0 = (h0, w0)
+            r, (left, top) = letterbox_geometry(h0, w0, self.imgsz, scaleup=False)
+            ratio_pad = ((r, r), (left, top))
+            labels = self.labels[index].copy()
+            segments = [se.copy() for se in self.segments[index]]
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy_np(labels[:, 1:], r * w0, r * h0, left, top)
+                segments = [xyn2xy(se, r * w0, r * h0, left, top) for se in segments]
+        else:
+            img, (h0, w0), (h, w) = self.load_image(index)
+            shape0 = (h0, w0)
+            img, ratio, pad = letterbox(img, self.imgsz, scaleup=self.augment)
+            ratio_pad = ((h / h0, w / w0), pad)
+            labels = self.labels[index].copy()
+            segments = [se.copy() for se in self.segments[index]]
+            if labels.size:
+                labels[:, 1:] = xywhn2xyxy_np(labels[:, 1:], ratio[0] * w, ratio[1] * h,
+                                              pad[0], pad[1])
+                segments = [xyn2xy(se, ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+                            for se in segments]
 
         nl = len(labels)
-        h = w = s
+        h, w = (self.imgsz, self.imgsz) if img is None else img.shape[:2]
         if nl:
             if self.overlap:
                 masks, sorted_idx = polygons2masks_overlap((h, w), segments,
@@ -187,7 +370,29 @@ class YoloDataset:
                                        downsample_ratio=self.mask_ratio)
             labels[:, 1:5] = xyxy2xywhn_np(labels[:, 1:5], w=w, h=h, clip=True, eps=1e-3)
         else:
-            masks = np.zeros((h // self.mask_ratio, w // self.mask_ratio), np.uint8)
+            mshape = (h // self.mask_ratio, w // self.mask_ratio)
+            # a training sample without labels gets M empty instance planes where JAX
+            # gives one plane its Loader cannot stack with the others (ROADMAP.md §C)
+            masks = np.zeros((0, *mshape) if self.augment and not self.overlap else mshape,
+                             np.uint8)
+
+        hsv_gains = np.ones(3, np.float32)
+        flips = np.zeros(2, bool)
+        if self.augment:
+            # augment_hsv's gain draw; the gains are applied on the device
+            hsv_gains = (np.array([self.rng.uniform(-1, 1) for _ in range(3)])
+                         * [hyp.get("hsv_h", 0), hyp.get("hsv_s", 0), hyp.get("hsv_v", 0)]
+                         + 1).astype(np.float32)
+            if self.rng.random() < hyp.get("flipud", 0.0):
+                flips[0] = True
+                if nl:
+                    labels[:, 2] = 1 - labels[:, 2]
+                masks = np.flipud(masks).copy()
+            if self.rng.random() < hyp.get("fliplr", 0.0):
+                flips[1] = True
+                if nl:
+                    labels[:, 1] = 1 - labels[:, 1]
+                masks = np.fliplr(masks).copy()
         if self.single_cls and nl:
             labels[:, 0] = 0
 
@@ -201,9 +406,17 @@ class YoloDataset:
             targets[:kept] = labels[:kept]
             tmask[:kept] = True
         out = {"targets": targets, "tmask": tmask,
-               "shape0": np.array((h0, w0), np.int32),
-               "ratio_pad": np.array((left, top), np.float32),
-               "index": np.int32(index), "image_raw": raw}
+               "shape0": np.array(shape0, np.int32),
+               "ratio_pad": np.array(ratio_pad[1] if ratio_pad else (0, 0), np.float32),
+               "index": np.int32(index)}
+        if dev_geo is not None:
+            tiles, dst, off, inv_m = dev_geo
+            out.update(aug_tiles=tiles, aug_dst=dst, aug_off=off, aug_invm=inv_m,
+                       aug_hsv=hsv_gains, aug_flips=flips)
+        elif raw is not None:
+            out["image_raw"] = raw
+        else:
+            out["image"] = img
         if not self.overlap and masks.ndim == 3:
             inst = np.zeros((M, h // self.mask_ratio, w // self.mask_ratio), np.float32)
             inst[:kept] = masks[:kept]
@@ -211,3 +424,23 @@ class YoloDataset:
         else:
             out["masks"] = masks.astype(np.float32)
         return out
+
+
+def create_dataloader(path, imgsz, batch_size, single_cls=False, hyp=None,
+                      augment=False, rect=False, prefix="", shuffle=False,
+                      mask_downsample_ratio=1, overlap_mask=False, seed=0, cache_images=False,
+                      device_aug=False, device_preprocess=False):
+    """(Loader, dataset) as JAX's create_dataloader builds them
+    (data/dataset.py:560; reference utils/segment/dataloaders.py:23-78): the
+    dataset's rng seeded with `seed`, the loader shuffling with seed + epoch.
+    rect with augment is ignored (the mosaic is square), as there."""
+    from yolo_dual_tpu_torch.data.loader import Loader
+    if rect and augment:
+        LOGGER.info("rect=True with augment: mosaic pipeline is square; rect ignored")
+        rect = False
+    ds = YoloDataset(path, imgsz=imgsz, augment=augment, hyp=hyp,
+                     mask_ratio=mask_downsample_ratio or 1, overlap=overlap_mask,
+                     single_cls=single_cls, prefix=prefix, cache_images=cache_images,
+                     rect=rect, device_aug=device_aug, device_preprocess=device_preprocess)
+    ds.rng.seed(seed)
+    return Loader(ds, batch_size=batch_size, shuffle=shuffle, seed=seed), ds

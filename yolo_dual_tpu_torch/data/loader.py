@@ -2,8 +2,8 @@
 of yolo_dual_tpu/data/loader.py; reference utils/dataloaders.py:103-186).
 
 One process reads the whole dataset: the JAX loader's per-host sharding has
-no counterpart here. The quad `collate` and `sample_weights` resampling come
-with the train CLI (ROADMAP A item 3).
+no counterpart here. The quad `collate` and `sample_weights` resampling
+(--image-weights) are not ported (ROADMAP A item 3).
 """
 
 from __future__ import annotations

@@ -79,7 +79,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
                      save_dir: str = ".", use_soft_nms: bool = False, augment: bool = False,
                      save_json: bool = False, fuse: bool = True, save_txt: bool = False,
                      save_conf: bool = False, save_hybrid: bool = False, mesh=None,
-                     device="cuda"):
+                     device="cuda", amp_dtype=None):
     """Returns ((mp, mr, map50, map) of boxes + the same of masks, per-class
     maps (boxes' plus masks'), times_ms (pre, inference+NMS, post per image)).
 
@@ -91,6 +91,8 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     (bs, M, 5) [cls, xywh normalised], `tmask` (bs, M), `masks` overlap planes
     (bs, mh, mw) or instance masks (bs, M, mh, mw), optional `n_valid`; with
     save_txt also `index` and `shape0`, and `loader.dataset.im_files`.
+    amp_dtype (torch.bfloat16): the forward runs under torch.autocast, as the
+    train CLI's --dtype bf16 model; its outputs are converted to float32.
     """
     for name, on, item in (("plots", plots, "utils/plots, ROADMAP A item 7"),
                            ("use_soft_nms", use_soft_nms, "soft_nms_padded, ROADMAP A item 6"),
@@ -122,7 +124,11 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
                                       for k in ("targets", "tmask", "masks"))
         h, w = image.shape[2:]
         with dt[1], torch.inference_mode():
-            levels, protos = model(image, decode=False)
+            with torch.autocast(dev.type, dtype=amp_dtype or torch.float32,
+                                enabled=amp_dtype is not None):
+                levels, protos = model(image, decode=False)
+            if amp_dtype is not None:
+                levels, protos = [lv.float() for lv in levels], protos.float()
             out, n_valid = nms_from_raw(levels, anchors, strides, conf_thres=conf_thres,
                                         iou_thres=iou_thres, multi_label=True, max_det=max_det,
                                         nm=nm, pre_nms_topk=PRE_NMS_TOPK)

@@ -71,15 +71,17 @@ _DERIVED = ("anchors", "anchor_grid")
 
 def load_state_dict_file(path) -> dict:
     """Read a reference-style `.pt` state_dict (a plain dict of tensors, or one
-    under a "state_dict"/"model" key) with `torch.load(weights_only=True)`."""
+    under an "ema", "model" or "state_dict" key, the EMA's first as the
+    reference loads a checkpoint) with `torch.load(weights_only=True)`."""
     path = Path(path)
     if path.suffix != ".pt":
         raise ValueError(f"{path}: only .pt state_dicts are read; orbax checkpoints "
                          "are not supported by this package yet")
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("state_dict", "model"):
+    for key in ("ema", "model", "state_dict"):
         if isinstance(sd, dict) and isinstance(sd.get(key), dict):
             sd = sd[key]
+            break
     if not isinstance(sd, dict):
         raise ValueError(f"{path} does not hold a state_dict")
     return {k: v for k, v in sd.items() if k.rsplit(".", 1)[-1] not in _DERIVED}

@@ -15,6 +15,7 @@ the CPU.
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling
@@ -51,9 +52,14 @@ class DCNv3(nn.Module):
         mask = self.mask(x1)
         b, h, w, _ = mask.shape
         mask = mask.reshape(b, h, w, g, kk).float().softmax(-1).reshape(b, h, w, g * kk)
-        out = dcnv3_sampling(proj, offset, mask.to(proj.dtype).contiguous(), self.kernel_size,
-                             self.stride, self.pad, self.dilation, g, self.group_channels,
-                             self.offset_scale)
+        mask = mask.to(proj.dtype)
+        # the sampling runs in float32, as JAX's kernels compute
+        # (kernels/dcn_sampling.py:321-329): under autocast the bfloat16 projections are
+        # converted here, at the autograd Function's boundary, and their gradients back
+        proj, offset, mask = (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+                              for t in (proj, offset, mask))
+        out = dcnv3_sampling(proj, offset, mask.contiguous(), self.kernel_size, self.stride,
+                             self.pad, self.dilation, g, self.group_channels, self.offset_scale)
         return self.output_proj(out)
 
 

@@ -1,0 +1,315 @@
+"""Instance-segmentation training CLI (port of segment/train.py).
+
+    python -m yolo_dual_tpu_torch.segment.train --cfg yolov5s-seg-dcnv3.json --data DIR_OR_JSON \
+        --hyp hyp.scratch-low.json --epochs 100 --batch-size 16 --imgsz 640
+
+`--data` is a directory (`images/{train,val}/*.npy` with `labels/{train,val}/*.txt`,
+or one `images/` set used for both splits) or a JSON data file `{path, train,
+val, nc, names}` (utils/general.py:check_dataset). Each epoch: the mosaic
+samples of data/dataset.py, composed, warped, HSV-jittered and flipped on the
+device (kernels/augment.py:mosaic_warp_hsv), the train step
+(train/trainer.py), box + mask mAP of the EMA model on the val set
+(engine/validator.py:evaluate_segment, host letterbox), a row of
+`results.csv`, `last.pt` and, when the fitness is the best so far, `best.pt`
+(train/checkpoint.py); early stopping; `best.pt` stripped to its EMA weights
+at the end. The run's settings are saved as `opt.json` and `hyp.json`;
+`--resume` continues the newest run with a `last.pt` (or the given
+checkpoint) with them, flags typed on the command line winning.
+
+Without --weights the model has random weights drawn from a generator seeded
+with 0. The device defaults to cuda; pass --device cpu to run on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import csv
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from yolo_dual_tpu_torch.data.dataset import create_dataloader
+from yolo_dual_tpu_torch.engine.validator import evaluate_segment
+from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.kernels.augment import mosaic_warp_hsv
+from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
+from yolo_dual_tpu_torch.metrics.seg import fitness_seg
+from yolo_dual_tpu_torch.models.model import SegmentationModel
+from yolo_dual_tpu_torch.train.checkpoint import (load_checkpoint, load_weights, save_checkpoint,
+                                                  strip_optimizer)
+from yolo_dual_tpu_torch.train.ema import ModelEMA
+from yolo_dual_tpu_torch.train.optim import freeze_layers, smart_optimizer
+from yolo_dual_tpu_torch.train.trainer import EarlyStopping, Trainer
+from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size, find_cfg,
+                                               increment_path, init_seeds, json_save, load_config,
+                                               select_device)
+
+ROOT = Path(__file__).resolve().parents[2]
+CSV_HEADER = ["epoch", "box_loss", "seg_loss", "obj_loss", "cls_loss",
+              "mAP50_B", "mAP_B", "mAP50_M", "mAP_M", "fitness"]
+# opt keys a resumed run takes from the invocation, never from the run's opt.json
+_NOT_RESTORED = ("resume", "device", "workers", "project", "name", "exist_ok", "explicit")
+
+
+def _refuse_unported(opt):
+    for on, flag, item in (
+            (not opt.device_aug, "--no-device-aug (the host pixel augmentation)", 2),
+            (opt.image_weights, "--image-weights", 3),
+            (opt.evolve, "--evolve", 7),
+            (opt.data_parallel, "--data-parallel", 7),
+            (opt.remat, "--remat", 3),
+            (opt.cache == "disk", "--cache disk", 2),
+            (any(s not in ("none", "csv") for s in opt.loggers or ()), "--loggers", 7)):
+        if on:
+            raise NotImplementedError(f"segment.train {flag} is not ported yet "
+                                      f"(ROADMAP A item {item})")
+
+
+def _resume_dir(opt):
+    """(run directory, checkpoint) of --resume: the given checkpoint, or the
+    newest run under project/name* with a last.pt (JAX segment/train.py:62-79)."""
+    if isinstance(opt.resume, str) and Path(opt.resume).is_file():
+        ckpt = Path(opt.resume)
+        return ckpt.parent, ckpt
+    runs = sorted((p for p in Path(opt.project).glob(f"{opt.name}*") if (p / "last.pt").exists()),
+                  key=lambda p: (p / "last.pt").stat().st_mtime)
+    if not runs:
+        raise FileNotFoundError(f"--resume: no run with a last.pt under {opt.project}/{opt.name}*")
+    return runs[-1], runs[-1] / "last.pt"
+
+
+def train(opt):
+    """Train as JAX segment/train.py:train does; returns the best fitness."""
+    dev = select_device(opt.device)
+    init_seeds(opt.seed)
+    resume_ckpt = None
+    if opt.resume:
+        save_dir, resume_ckpt = _resume_dir(opt)
+        # the run's own settings come back; flags typed on this command line win
+        explicit = set(getattr(opt, "explicit", []) or [])
+        if (save_dir / "opt.json").exists():
+            for k, v in json.loads((save_dir / "opt.json").read_text()).items():
+                if k not in _NOT_RESTORED and k not in explicit and hasattr(opt, k):
+                    setattr(opt, k, v)
+        hyp_file = save_dir / "hyp.json"
+        hyp = json.loads(hyp_file.read_text()) if hyp_file.exists() and "hyp" not in explicit \
+            else load_config(find_cfg(opt.hyp))
+    else:
+        save_dir = increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok, mkdir=True)
+        hyp = load_config(find_cfg(opt.hyp))
+    _refuse_unported(opt)
+    data = check_dataset(opt.data)
+    json_save(save_dir / "hyp.json", hyp)
+    json_save(save_dir / "opt.json", vars(opt))
+    imgsz = check_img_size(opt.imgsz, 32)
+    amp_dtype = {"bf16": torch.bfloat16, "f32": None}[opt.dtype]
+
+    nc = 1 if opt.single_cls else data["nc"]
+    model = SegmentationModel(opt.cfg, nc=nc, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+    nc = model.nc
+    if opt.weights:
+        load_weights(model, load_state_dict_file(opt.weights))
+    names = data.get("names") or {i: str(i) for i in range(nc)}
+    if opt.label_smoothing:
+        hyp["label_smoothing"] = opt.label_smoothing
+
+    train_loader, dataset = create_dataloader(
+        data["train"], imgsz, opt.batch_size, hyp=hyp, augment=True, shuffle=True,
+        mask_downsample_ratio=opt.mask_ratio, overlap_mask=not opt.no_overlap, seed=opt.seed,
+        prefix="train: ", single_cls=opt.single_cls, rect=opt.rect, cache_images=opt.cache,
+        device_aug=opt.device_aug)
+    if not opt.noplots:
+        LOGGER.info("labels plot skipped: plots are not ported (ROADMAP A item 7)")
+    if opt.quad:
+        LOGGER.info("--quad: quad collate is detection-only (matches the reference's broken "
+                    "seg quad path); ignored for segment")
+    if opt.sync_bn:
+        LOGGER.info("--sync-bn: one process trains on the whole batch; nothing to synchronise")
+    val_loader, _ = create_dataloader(
+        data["val"], imgsz, opt.batch_size, hyp=hyp, augment=False,
+        mask_downsample_ratio=opt.mask_ratio, overlap_mask=not opt.no_overlap, prefix="val: ",
+        single_cls=opt.single_cls)
+
+    nb = len(train_loader)
+    accumulate = max(round(opt.nbs / opt.batch_size), 1)
+    head = model.model[-1]
+    nm = head.nm
+    loss_fn = ComputeSegmentLoss(head.anchors, head.strides, nc, nm, hyp,
+                                 overlap=not opt.no_overlap)
+    optimizer = smart_optimizer(model, opt.optimizer, hyp, epochs=opt.epochs, steps_per_epoch=nb,
+                                cos_lr=opt.cos_lr, accumulate=accumulate,
+                                total_batch_size=opt.batch_size)
+    if opt.freeze and (len(opt.freeze) > 1 or opt.freeze[0] > 0):
+        freeze_layers(optimizer, opt.freeze)
+    ema = ModelEMA(model, decay=hyp.get("ema_decay", 0.9999), tau=hyp.get("ema_tau", 2000.0))
+    trainer = Trainer(model, loss_fn, optimizer, ema, task="segment", amp_dtype=amp_dtype)
+    state = trainer.init_state()
+    start_epoch, best_fitness = 0, 0.0
+    if resume_ckpt is not None:
+        ckpt = load_checkpoint(resume_ckpt)
+        model.load_state_dict(ckpt["model"])
+        if ckpt.get("ema") is not None:
+            ema.load_state_dict({"model": ckpt["ema"], "updates": ckpt["updates"]})
+        if ckpt.get("optimizer") is not None:  # absent after --nosave-optimizer
+            optimizer.load_state_dict(ckpt["optimizer"])
+        if ckpt.get("data_rng") is not None:
+            dataset.rng.setstate(ckpt["data_rng"])
+        start_epoch = int(ckpt.get("epoch", -1)) + 1
+        best_fitness = float(ckpt.get("best_fitness", 0.0))
+        LOGGER.info(f"resumed from epoch {start_epoch} (best fitness {best_fitness:.4f})")
+    stopper = EarlyStopping(patience=opt.patience)
+    stopper.best_fitness = best_fitness
+
+    csv_path = save_dir / "results.csv"
+    if resume_ckpt is None or not csv_path.exists():
+        # header on fresh runs only: a resumed run appends
+        with open(csv_path, "w", newline="") as f:
+            csv.writer(f).writerow(CSV_HEADER)
+    LOGGER.info(f"Training {opt.cfg} on {data['train']} for {opt.epochs} epochs "
+                f"(batch {opt.batch_size}, imgsz {imgsz}, accumulate {accumulate}, {dev})...")
+    t0 = time.time()
+    mean = np.zeros(8)
+    pin = dev.type == "cuda"
+    for epoch in range(start_epoch, opt.epochs):
+        t_epoch = time.perf_counter()
+        final_epoch = epoch == opt.epochs - 1
+        train_loader.set_epoch(epoch)
+        mloss = torch.zeros(4, dtype=torch.float64, device=dev)
+        for i, batch in enumerate(train_loader):
+            image = mosaic_warp_hsv(*(to_device(batch[k], dev, pin) for k in (
+                "aug_tiles", "aug_dst", "aug_off", "aug_invm", "aug_hsv", "aug_flips")),
+                out_size=imgsz)
+            b = {"image": image, **{k: to_device(batch[k], dev, pin)
+                                    for k in ("targets", "tmask", "masks")}}
+            state, metrics = trainer.train_step(state, b)
+            mloss = (mloss * i + metrics["items"].double()) / (i + 1)
+        mloss = mloss.cpu().numpy()  # waits for the epoch's last step
+        t_val = time.perf_counter()
+        if not opt.noval or final_epoch:  # --noval: validate the final epoch only
+            mean, _, _ = evaluate_segment(copy.deepcopy(ema.ema), val_loader, nc, nm=nm,
+                                          names=names, device=dev, amp_dtype=amp_dtype)
+        fi = fitness_seg(np.asarray(mean))
+        t_save = time.perf_counter()
+        with open(csv_path, "a", newline="") as f:
+            csv.writer(f).writerow([epoch, *mloss, mean[2], mean[3], mean[6], mean[7], fi])
+        if not opt.nosave or final_epoch:  # --nosave: checkpoint the final epoch only
+            ckpt = {"model": model.state_dict(), "ema": ema.ema.state_dict(),
+                    "updates": ema.updates,
+                    "optimizer": None if opt.nosave_optimizer else optimizer.state_dict(),
+                    "epoch": epoch, "best_fitness": float(max(fi, best_fitness)),
+                    "data_rng": dataset.rng.getstate()}
+            save_checkpoint(save_dir / "last.pt", ckpt)
+            if fi >= best_fitness:
+                save_checkpoint(save_dir / "best.pt", ckpt)
+        # the epoch's wall clock by part: its batches (loading included), the val
+        # pass, results.csv and the checkpoints; on the record as `epoch_times` too
+        times = {"epoch": epoch, "train_s": t_val - t_epoch, "val_s": t_save - t_val,
+                 "save_s": time.perf_counter() - t_save}
+        LOGGER.info(f"epoch {epoch}: loss {mloss.round(4)} fitness {fi:.4f} "
+                    f"(train {times['train_s']:.1f}s, val {times['val_s']:.1f}s, "
+                    f"save {times['save_s']:.1f}s; "
+                    f"{(time.time() - t0) / (epoch + 1 - start_epoch):.1f}s/epoch)",
+                    extra={"epoch_times": times})
+        best_fitness = max(best_fitness, fi)
+        if stopper(epoch, fi):
+            break
+    if (save_dir / "best.pt").exists():
+        strip_optimizer(save_dir / "best.pt")
+    if not opt.noplots:
+        LOGGER.info("results plot skipped: plots are not ported (ROADMAP A item 7)")
+    LOGGER.info(f"Done in {(time.time() - t0) / 3600:.2f}h; results in {save_dir}")
+    return best_fitness
+
+
+def to_device(x, dev, pin: bool) -> torch.Tensor:
+    """A loader array on `dev`: through pinned memory to a CUDA device, so the
+    copy is one asynchronous DMA."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if pin:
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=pin)
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser(description="Instance-segmentation training (PyTorch port)")
+    p.add_argument("--weights", type=str, default="",
+                   help="initial weights: a .pt state_dict (reference-style names, e.g. the "
+                        "JAX package's export_torch_state_dict) or a checkpoint of this CLI")
+    p.add_argument("--resume", nargs="?", const=True, default="",
+                   help="resume the newest run with a last.pt (or the given checkpoint)")
+    p.add_argument("--cfg", type=str, default="yolov5n-seg.yaml", help="model config")
+    p.add_argument("--data", type=str, default="coco128-seg.yaml",
+                   help="dataset directory (images/*.npy, labels/*.txt) or .json data file")
+    p.add_argument("--hyp", type=str, default="hyp.scratch-low.yaml", help="hyperparameters")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--imgsz", "--img", "--img-size", type=int, default=640)
+    p.add_argument("--rect", action="store_true",
+                   help="accepted; the mosaic is square, so training ignores it")
+    p.add_argument("--cache", type=str, default=False, nargs="?", const="ram",
+                   help="image cache: ram (disk is not ported)")
+    p.add_argument("--quad", action="store_true", help="accepted and ignored for segment")
+    p.add_argument("--image-weights", action="store_true", help="not ported yet")
+    p.add_argument("--freeze", nargs="+", type=int, default=[0],
+                   help="freeze layers: single N = layers 0..N-1, list = those indices")
+    p.add_argument("--label-smoothing", type=float, default=0.0)
+    p.add_argument("--sync-bn", action="store_true", help="accepted; one process trains")
+    p.add_argument("--noval", action="store_true", help="validate final epoch only")
+    p.add_argument("--nosave", action="store_true", help="checkpoint final epoch only")
+    p.add_argument("--noplots", action="store_true", help="skip plots (not ported)")
+    p.add_argument("--optimizer", choices=["SGD", "Adam", "AdamW"], default="SGD")
+    p.add_argument("--cos-lr", action="store_true")
+    p.add_argument("--single-cls", action="store_true")
+    p.add_argument("--patience", type=int, default=100)
+    p.add_argument("--mask-ratio", type=int, default=4)
+    p.add_argument("--no-overlap", action="store_true")
+    p.add_argument("--project", default=str(ROOT / "runs" / "train-seg"))
+    p.add_argument("--name", default="exp")
+    p.add_argument("--exist-ok", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    p.add_argument("--nosave-optimizer", action="store_true")
+    p.add_argument("--evolve", type=int, default=0, help="not ported yet")
+    p.add_argument("--remat", action="store_true", help="not ported yet")
+    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16",
+                   help="compute dtype: bf16 runs the forward and loss under torch.autocast "
+                        "(parameters, BatchNorm statistics and the DCNv3 sampling stay float32)")
+    p.add_argument("--no-blocked-stem", action="store_true",
+                   help="accepted; a TPU layout choice of the same math: no change on the torch path")
+    p.add_argument("--loggers", nargs="*", default=[],
+                   help="extra sinks: none are ported (results.csv is always written)")
+    p.add_argument("--device", default="cuda", help="cuda or cpu")
+    p.add_argument("--workers", type=int, default=0,
+                   help="accepted for parity (one prefetch thread reads the samples)")
+    p.add_argument("--no-download", action="store_true",
+                   help="accepted: nothing is ever downloaded")
+    p.add_argument("--nbs", type=int, default=64,
+                   help="nominal batch size for gradient accumulation")
+    p.add_argument("--no-fused-bn-act", dest="fused_bn_act", action="store_false",
+                   help="accepted; a TPU VJP choice of the same math: no change on the torch path")
+    p.add_argument("--no-fused-bn", dest="fused_bn", action="store_false",
+                   help="accepted; a TPU VJP choice of the same math: no change on the torch path")
+    p.add_argument("--device-aug", dest="device_aug", action="store_true", default=True,
+                   help="mosaic composite + warp + HSV + flips on the device (the default)")
+    p.add_argument("--no-device-aug", dest="device_aug", action="store_false",
+                   help="the host pixel augmentation (not ported yet)")
+    args = p.parse_args(argv)
+    # the flags typed on the command line: on --resume the others come from the run's opt.json
+    tokens = {t.split("=", 1)[0] for t in (argv if argv is not None else sys.argv[1:])}
+    args.explicit = sorted(a.dest for a in p._actions
+                           if any(s in tokens for s in a.option_strings))
+    return args
+
+
+def main(argv=None):
+    return train(parse_opt(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -5,18 +5,19 @@ Usage:
     python -m yolo_dual_tpu_torch.segment.val --data DIR --device-preprocess
     python -m yolo_dual_tpu_torch.segment.val --data data.json --weights best.pt --device-preprocess
 
-`--data` is a directory holding `images/` (RGB uint8 `.npy` frames of one
-shape) and `labels/` (the reference's txt labels), whose classes are the
-model config's; or a JSON file with the data yaml's keys `path`, `val`, `nc`
-and `names`. Without --weights the model has random weights drawn from a
-generator seeded with 0. Frames are letterboxed on the card by the letterbox
-kernel (--device-preprocess), the only preprocessing path ported so far.
+`--data` is a directory holding `images/` (RGB uint8 `.npy` frames; with
+`images/val`, that split) and `labels/` (the reference's txt labels), whose
+classes are the model config's; or a JSON file with the data yaml's keys
+`path`, `val`, `nc` and `names` (utils/general.py:check_dataset). Without
+--weights the model has random weights drawn from a generator seeded with 0.
+With --device-preprocess the raw frames (all of one shape) are letterboxed on
+the card by the letterbox kernel; without it, on the host
+(data/dataset.py), as the train CLI's per-epoch validation does.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 from pathlib import Path
 
 import torch
@@ -26,27 +27,8 @@ from yolo_dual_tpu_torch.data.loader import Loader
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
 from yolo_dual_tpu_torch.io.weights import load_state_dict_file
 from yolo_dual_tpu_torch.models.model import SegmentationModel
-from yolo_dual_tpu_torch.utils.general import (LOGGER, check_img_size, increment_path,
-                                               select_device)
-
-
-def load_data(data) -> dict:
-    """{"val": path of the frames, "nc": int or None, "names": dict or None}
-    from a dataset directory or a JSON data file."""
-    p = Path(data)
-    if p.is_dir():
-        return {"val": str(p / "images" if (p / "images").is_dir() else p), "nc": None,
-                "names": None}
-    if p.suffix != ".json":
-        raise ValueError(f"--data {data}: expected a dataset directory or a .json data file "
-                         "(YAML needs PyYAML, which the package does not use)")
-    d = json.loads(p.read_text())
-    root = Path(d["path"]) if d.get("path") else p.parent
-    names = d.get("names")
-    if isinstance(names, list):
-        names = dict(enumerate(names))
-    nc = d.get("nc", len(names) if names else None)
-    return {"val": str(root / d["val"]), "nc": nc, "names": names}
+from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size,
+                                               increment_path, select_device)
 
 
 def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=640,
@@ -57,7 +39,7 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
     """Evaluate `weights` (or the seeded random model) on `data`. Returns
     evaluate_segment's (8 metrics, per-class maps, (pre, inference+NMS, post) ms)."""
     dev = select_device(device)
-    d = load_data(data)
+    d = check_dataset(data)
     imgsz = check_img_size(imgsz, 32)
     nc = 1 if single_cls else d["nc"]
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
@@ -102,7 +84,8 @@ def parse_opt(argv=None):
                    help="disable conv+BN inference folding")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     p.add_argument("--device-preprocess", action="store_true",
-                   help="letterbox + normalize raw frames on the card (uniform-shape datasets)")
+                   help="letterbox + normalize raw frames on the card (uniform-shape datasets); "
+                        "default: the host letterbox")
     # JAX CLI flags not ported yet: each raises, naming its ROADMAP item
     p.add_argument("--augment", action="store_true", help="TTA (not ported yet)")
     p.add_argument("--save-json", action="store_true", help="COCO JSON (not ported yet)")

@@ -35,3 +35,11 @@ class ModelEMA:
         torch._foreach_add_(self._float, [msd[k] for k in self._keys], alpha=float(np.float32(1) - d))
         for k, v in self._other.items():
             v.copy_(msd[k])
+
+    def state_dict(self) -> dict:
+        return {"model": self.ema.state_dict(), "updates": self.updates}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict):
+        self.ema.load_state_dict(sd["model"])
+        self.updates = int(sd["updates"])

@@ -102,9 +102,12 @@ class SmartOptimizer:
         if self.kind is None:
             raise NotImplementedError(f"Optimizer {name} not implemented")
         self.groups: Dict[str, list] = {"g0": [], "g1": [], "g2": []}
+        self.names: Dict[str, list] = {"g0": [], "g1": [], "g2": []}
         for n, p in named_params:
             if p.requires_grad:
                 self.groups[param_group_label(n)].append(p)
+                self.names[param_group_label(n)].append(n)
+        self.frozen: Dict[str, list] = {g: [False] * len(ps) for g, ps in self.groups.items()}
         self.decay = float(decay)
         self.accumulate = int(accumulate)
         self.lr01 = build_lr_schedule(hyp, epochs, steps_per_epoch, cos_lr, "g0", accumulate)
@@ -116,6 +119,25 @@ class SmartOptimizer:
         self.acc = zeros() if self.accumulate > 1 else None
         self.m1 = zeros() if self.kind in ("sgd", "adam") else None
         self.m2 = zeros() if self.kind in ("adam", "rms") else None
+
+    def state_dict(self) -> dict:
+        """The counters and every buffer: the accumulator and the moments."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                **{k: getattr(self, k) for k in ("acc", "m1", "m2")}}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict):
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        for k in ("acc", "m1", "m2"):
+            mine, theirs = getattr(self, k), sd.get(k)
+            if (mine is None) != (theirs is None):
+                raise ValueError(f"optimizer state {k!r}: expected {'none' if mine is None else 'one'}")
+            for g in mine or {}:
+                if len(mine[g]) != len(theirs[g]):
+                    raise ValueError(f"optimizer state {k!r}[{g}]: {len(theirs[g])} tensors, "
+                                     f"expected {len(mine[g])}")
+                for a, b in zip(mine[g], theirs[g]):
+                    a.copy_(b)
 
     def _grads(self, group: str):
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.groups[group]]
@@ -177,7 +199,12 @@ class SmartOptimizer:
             u = torch._foreach_div(grads, d)
             if wd:
                 torch._foreach_add_(u, params, alpha=wd)
-        torch._foreach_add_(params, u, alpha=-lr)
+        frozen = self.frozen[group]
+        if any(frozen):  # freeze_layers: the moments move on, the parameters do not
+            params = [p for p, f in zip(params, frozen) if not f]
+            u = [x for x, f in zip(u, frozen) if not f]
+        if params:
+            torch._foreach_add_(params, u, alpha=-lr)
 
 
 def smart_optimizer(model_or_params, name: str = "SGD", hyp: Optional[Dict] = None,
@@ -199,3 +226,22 @@ def smart_optimizer(model_or_params, name: str = "SGD", hyp: Optional[Dict] = No
                 f"{len(opt.groups['g0'])} weight(decay={decay:.5g}), {len(opt.groups['g1'])} "
                 f"weight(decay=0.0), {len(opt.groups['g2'])} bias; accumulate {accumulate}")
     return opt
+
+
+def freeze_layers(optimizer: SmartOptimizer, freeze) -> SmartOptimizer:
+    """Zero the updates of the frozen graph layers (JAX optim.py:261; reference
+    --freeze, segment/train.py:429-431): a single [N] freezes layers 0..N-1, a
+    longer list exactly those layer indices. Parameters `model.{i}.…` of a
+    frozen layer i keep their values; their gradients and optimizer moments
+    are still computed, and weight decay does not shrink them."""
+    frozen = set(freeze if len(freeze) > 1 else range(freeze[0]))
+    n = 0
+    for g, names in optimizer.names.items():
+        for j, name in enumerate(names):
+            parts = name.split(".")
+            if parts[0] == "model" and len(parts) > 1 and parts[1].isdigit() \
+                    and int(parts[1]) in frozen:
+                optimizer.frozen[g][j] = True
+                n += 1
+    LOGGER.info(f"freezing {sorted(frozen)} -> {n} frozen parameter tensors")
+    return optimizer

@@ -71,6 +71,7 @@ class Trainer:
     optimizer: SmartOptimizer
     ema: Optional[ModelEMA] = None
     task: str = "segment"            # detect | segment
+    amp_dtype: Optional[torch.dtype] = None  # torch.bfloat16: forward and loss under autocast
 
     def __post_init__(self):
         if self.task not in ("detect", "segment"):
@@ -81,13 +82,23 @@ class Trainer:
 
     def forward_loss(self, model: nn.Module, batch: Dict[str, Any]):
         """Train-mode forward of the normalised NCHW batch and the task loss:
-        (loss · bs, loss items)."""
-        b = _on(batch, next(model.parameters()).device)
+        (loss · bs, loss items). With `amp_dtype` both run under
+        torch.autocast (the JAX model's bf16 compute dtype: convolutions and
+        matmuls in bfloat16, parameters, BatchNorm statistics and the DCNv3
+        sampling in float32); the loss and its items then come back in float32."""
+        dev = next(model.parameters()).device
+        b = _on(batch, dev)
         x = normalize_image(b["image"]).permute(0, 3, 1, 2).contiguous()
-        out = model(x, decode=False)
-        if self.task == "segment":
-            return self.loss_fn(out, b["targets"], b["tmask"], b["masks"])
-        return self.loss_fn(out, b["targets"], b["tmask"])
+        with torch.autocast(dev.type, dtype=self.amp_dtype or torch.float32,
+                            enabled=self.amp_dtype is not None):
+            out = model(x, decode=False)
+            if self.task == "segment":
+                loss, items = self.loss_fn(out, b["targets"], b["tmask"], b["masks"])
+            else:
+                loss, items = self.loss_fn(out, b["targets"], b["tmask"])
+        if self.amp_dtype is not None:
+            loss, items = loss.float(), items.float()
+        return loss, items
 
     def apply_gradients(self, state: TrainState) -> bool:
         """The optimizer's micro-step on the parameters' gradients, then the EMA

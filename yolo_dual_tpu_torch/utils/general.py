@@ -1,8 +1,10 @@
-"""General utilities: logging, config loading, device selection, timers.
+"""General utilities: logging, config and dataset loading, seeding, device
+selection, timers.
 
-Port of the parts of yolo_dual_tpu/utils/general.py that the prediction slice
-uses (make_divisible, check_img_size, LOGGER, Profile, increment_path), plus a
-config loader that reads the package's JSON config copies without PyYAML.
+Port of the parts of yolo_dual_tpu/utils/general.py that the port uses
+(make_divisible, check_img_size, LOGGER, Profile, increment_path, init_seeds,
+check_dataset), plus a config loader that reads the package's JSON config
+copies without PyYAML; run settings are saved as JSON for the same reason.
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ import json
 import logging
 import math
 import os
+import random
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 FRAMEWORK_NAME = "yolo_dual_tpu_torch"
@@ -83,6 +87,59 @@ def find_cfg(name) -> Path:
         if c.exists():
             return c
     raise FileNotFoundError(f"config {name} not found (nor {' nor '.join(map(str, cands))})")
+
+
+def json_save(file, data: dict):
+    """Save a flat settings dict (opt, hyp) as JSON; paths become strings."""
+    Path(file).write_text(json.dumps({k: (str(v) if isinstance(v, Path) else v)
+                                      for k, v in data.items()}, indent=1))
+
+
+def init_seeds(seed: int = 0):
+    """Seed Python's, numpy's and torch's global generators (JAX
+    utils/general.py:74; the datasets and models draw from their own seeded
+    generators)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return seed
+
+
+def check_dataset(data) -> dict:
+    """Resolve a dataset: a directory, or a JSON (YAML with PyYAML) data file
+    with the data yaml's keys `path`, `train`, `val`, `nc`, `names` (JAX
+    utils/general.py:143, local only: a `download` hook is never run).
+
+    A directory holds `images/` (`.npy` frames) and `labels/` (txt labels),
+    split into `images/train` and `images/val` when both exist, else one set
+    for both splits; its classes are the model config's (nc None). Returns
+    {"train", "val", "nc", "names"} with the paths resolved; raises when the
+    val path is missing."""
+    p = Path(data)
+    if p.is_dir():
+        im = p / "images" if (p / "images").is_dir() else p
+        split = (im / "train").is_dir() and (im / "val").is_dir()
+        d = {"train": str(im / "train" if split else im), "val": str(im / "val" if split else im),
+             "nc": None, "names": None}
+    else:
+        d = dict(load_config(p))
+        for k in ("train", "val", "test"):
+            if d.get(k):
+                vals = d[k] if isinstance(d[k], list) else [d[k]]
+                root = Path(d["path"]) if d.get("path") else p.parent
+                resolved = [str(root / v) for v in vals]
+                d[k] = resolved if isinstance(d[k], list) else resolved[0]
+        if isinstance(d.get("names"), list):
+            d["names"] = dict(enumerate(d["names"]))
+        if d.get("names") is not None:
+            d["names"] = {int(k): v for k, v in d["names"].items()}
+        d.setdefault("nc", len(d["names"]) if d.get("names") else None)
+    val = d.get("val")
+    missing = [v for v in (val if isinstance(val, list) else [val]) if not v or not Path(v).exists()]
+    if missing:
+        raise FileNotFoundError(f"dataset {data}: val path not found: {missing} "
+                                "(nothing is downloaded)")
+    return d
 
 
 def select_device(device="cuda") -> torch.device:
