@@ -16,8 +16,9 @@ which raises on failure:
    (timed only) and the least time the card could take:
    - letterbox (K1) at the frames of LETTERBOX_CASES: the streamed 1080p, 720p
      and 480p frames, 32 x 720p, the validator's 32 x 480p with scaleup=False,
-     an upscale, a small frame padded instead, fill 128 (max abs error <= 1e-5;
-     library: F.interpolate + F.pad + /255);
+     an upscale, a small frame padded instead, fill 128, and the semantic
+     validator's 16 x 720x960 at fill 128 (max abs error <= 1e-5; library:
+     F.interpolate + F.pad + /255);
    - DCNv3 sampling (K2) at the three shapes of yolov5s-seg-dcnv3 at 640 px,
      batch 1, 16 and 32, with seeded offsets of a few px that reach past the
      border (max abs error <= 1e-5; library: the reference's F.grid_sample
@@ -52,6 +53,22 @@ which raises on failure:
    (with its ranking and peak memory) and matching are timed; 8 frames at bs 8 through
    evaluate_segment on the card and on the CPU (TF32 off) agree within 0.01
    on each of the 8 metrics;
+6c. the semantic flagship (semantic_path): resnet50.json (nc 12, 640 px,
+   float32, full width and depth, seeded random weights, BatchNorm calibrated
+   on 4 frames) on a seeded CamVid-style set of 48 720x960 `.npy` frames with
+   JSON masks (class 11 present) under build/: `semantic.val.run` at bs 16 on
+   the host route and on the device route (the K1 count set to 0 just before
+   reads 3, one a batch; 0 on the host route), the speed line and img/s of
+   each; semantic_preprocess on the card against its plain version (mask
+   exact, image 1e-5); 4 frames card against CPU, TF32 off (scores within
+   1e-3, argmax flips on at most 0.1% of the pixels, each within 1e-3 of a
+   tie in the CPU's scores, the confusion matrices apart by at most twice
+   the flips, mIoU within 1e-4, at least 4 classes predicted), and again
+   with TF32 on, which must break each of those four limits; `semantic.predict.run` on 8
+   frames at batch 1 (pre / infer / post ms a frame); the fused forward +
+   argmax at bs 32 in img/s; one device-route val batch part by part; after
+   phase 9 one more device-route val run under torch.profiler (the card's
+   busy share);
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -77,7 +94,7 @@ which raises on failure:
    K2's and K3's device times on the inputs of the trained model's six DCNv3
    calls (bs 16, its offsets after phase 7) under window margins of 1 and 2
    px, each beside its window-escape share; K1's device time on phase 6b's
-   eval batch;
+   eval batch (and, among the K1 cases, at the semantic validator's batch);
 10. the train CLI (phase 10, `cli_train_path`): a seeded dataset written
    under build/phase10 (train: 32 x 480x640, 16 x 720x1280, 16 x 360x480
    `.npy` frames, so load_image shrinks and enlarges; val: 32 x 480x640; 1-8
@@ -228,6 +245,7 @@ LETTERBOX_CASES = {  # name: ((B, H, W), out_size, fill, scaleup)
     "240p_upscale": ((1, 240, 320), 640, 114.0, True),
     "240p_no_scaleup": ((1, 240, 320), 640, 114.0, False),
     "720p_fill128": ((1, 720, 1280), 640, 128.0, True),  # semantic_preprocess's fill
+    "semantic_720x960_bs16_fill128": ((16, 720, 960), 640, 128.0, True),  # semantic val's
 }
 
 
@@ -577,23 +595,25 @@ def h2d_ms(frames) -> float:
     return total / len(frames) * 1e3
 
 
-def calibrate_bn(model, frames):
+def calibrate_bn(model, frames, fill: float = 114.0):
     """Set every BatchNorm's running statistics to those of `frames` (a
-    seeded calibration batch). With identity statistics a random network's
-    activations shrink layer by layer until every score ties with every other;
-    calibrated, the scores spread as a trained network's do, so NMS and the
-    card-against-CPU comparison have real work."""
+    seeded calibration batch, letterboxed at `fill`). With identity
+    statistics a random network's activations shrink layer by layer until
+    every score ties with every other; calibrated, the scores spread as a
+    trained network's do, so NMS, the argmax and the card-against-CPU
+    comparisons have real work."""
     from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
-    from yolo_dual_tpu_torch.nn.common import BN_MOMENTUM
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [bn.momentum for bn in bns]
     for bn in bns:
         bn.reset_running_stats()
         bn.momentum = None  # cumulative average: one batch gives its own statistics
-    x = torch.cat([letterbox_normalize(torch.from_numpy(f)[None].cuda(), 640) for f in frames])
+    x = torch.cat([letterbox_normalize(torch.from_numpy(f)[None].cuda(), 640, fill=fill)
+                   for f in frames])
     with torch.no_grad():
         model.train()(x)
-    for bn in bns:
-        bn.momentum = BN_MOMENTUM
+    for bn, m in zip(bns, momenta):
+        bn.momentum = m
     return model.eval()
 
 
@@ -964,6 +984,318 @@ def eval_path(card: str):
     del model
     torch.cuda.empty_cache()
     return launches, batch
+
+
+# Phase 6c: the semantic flagship. CamVid's frames (720x960) and classes (12).
+SEM_FRAMES, SEM_SHAPE, SEM_BS, SEM_NC = 48, (720, 960), 16, 12
+SEM_CHECK_FRAMES, SEM_PREDICT_FRAMES, SEM_INFER_BS = 4, 8, 32
+# card against CPU on SEM_CHECK_FRAMES frames, TF32 off: scores within SEM_SCORE_TOL,
+# argmax flips on at most SEM_FLIP_SHARE of the pixels, each a near tie of the CPU's
+# scores (top-two gap within SEM_NEAR_TIE), and mIoU within SEM_MIOU_TOL. Each limit
+# lies between the TF32-off reading and the TF32-on one, which must break every limit
+# (on an NVIDIA H100 80GB HBM3, 700 W: 3.15e-4 / 0.271, 2.04e-4 / 0.173, 1.18e-4 /
+# 0.286, 9.3e-7 / 6.8e-4; PERF.md)
+SEM_SCORE_TOL, SEM_FLIP_SHARE, SEM_NEAR_TIE, SEM_MIOU_TOL = 1e-3, 1e-3, 1e-3, 1e-4
+
+
+def camvid_like_mask(rng, h: int, w: int) -> np.ndarray:
+    """A seeded street-scene class map of CamVid's 12 classes: sky over
+    buildings over road, pavement at the sides, trees, poles, signs, fences,
+    cars, pedestrians and cyclists as boxes, and an unlabelled (11) box."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    horizon = h * rng.uniform(0.3, 0.45) + 30 * np.sin(xx / rng.uniform(60, 200))
+    ground = h * rng.uniform(0.6, 0.7)
+    mask = np.where(yy < horizon, 0, np.where(yy < ground, 1, 3)).astype(np.uint8)
+    side = w * rng.uniform(0.1, 0.25)
+    mask[(yy >= ground) & ((xx < side - (yy - ground)) | (xx > w - side + (yy - ground)))] = 4
+    for cls, n, (bh, bw) in ((5, 3, (0.3, 0.15)), (2, 3, (0.4, 0.01)), (6, 2, (0.05, 0.04)),
+                             (7, 2, (0.08, 0.3)), (8, 4, (0.15, 0.2)), (9, 3, (0.2, 0.04)),
+                             (10, 2, (0.15, 0.06)), (11, 1, (0.1, 0.1))):
+        for _ in range(n):
+            bh_, bw_ = int(h * bh * rng.uniform(0.5, 1.5)) + 2, int(w * bw * rng.uniform(0.5, 1.5)) + 2
+            y0, x0 = rng.integers(0, h - bh_), rng.integers(0, w - bw_)
+            mask[y0:y0 + bh_, x0:x0 + bw_] = cls
+    return mask
+
+
+def write_semantic_set(root: Path, n: int, seed: int):
+    """The JSON dataset layout (data/json_dataset.py): root/images/*.npy RGB
+    uint8 frames of SEM_SHAPE and root/json/*.json dense masks. Each frame is
+    its mask in the CamVid palette, shaded and with noise. Returns (images,
+    json) directories."""
+    from yolo_dual_tpu_torch.utils.plots import CAMVID_PALETTE
+    rng = np.random.default_rng(seed)
+    img_dir, json_dir = root / "images", root / "json"
+    img_dir.mkdir(parents=True)
+    json_dir.mkdir()
+    h, w = SEM_SHAPE
+    shade = 0.8 + 0.4 * np.linspace(0, 1, w, dtype=np.float32)[None, :, None]
+    for i in range(n):
+        mask = camvid_like_mask(rng, h, w)
+        frame = CAMVID_PALETTE[mask].astype(np.float32) * shade \
+            + rng.normal(0, 12, (h, w, 3)).astype(np.float32)
+        np.save(img_dir / f"{i:05d}.npy", np.clip(frame, 0, 255).astype(np.uint8))
+        (json_dir / f"{i:05d}.json").write_text(json.dumps(
+            {"filename": f"{i:05d}.png", "shape": [h, w], "dtype": "uint8", "class_names": [],
+             "mask_data": mask.reshape(-1).tolist()}, separators=(",", ":")))
+    return img_dir, json_dir
+
+
+def semantic_card_vs_cpu(model, frames, masks) -> dict:
+    """SEM_CHECK_FRAMES frames through semantic_preprocess and the fused model
+    on the CPU and on the card, the card's convolutions once in float32 (cuDNN
+    TF32 off) and once in TF32: scores, argmax flips (with the CPU's top-two
+    gap), confusion matrices and mIoU against the CPU's. The float32 reading
+    must lie within the limits and the TF32 one beyond each of them, so the
+    check tells float32 from TF32; the matrices differ by at most two counts a
+    flipped pixel (the masks agree). Leaves TF32 on, torch's default."""
+    from yolo_dual_tpu_torch.kernels.preprocess import semantic_preprocess
+    from yolo_dual_tpu_torch.metrics.seg import SegmentationConfusionMatrix
+    im, mk = torch.from_numpy(np.stack(frames)), torch.from_numpy(np.stack(masks))
+
+    def run(m, dev):
+        with torch.inference_mode():
+            x, gt = semantic_preprocess(im.to(dev), mk.to(dev), 640)
+            scores = m(x).float().cpu()
+        cm = SegmentationConfusionMatrix(SEM_NC, ignore_index=11)
+        cm.update(scores.argmax(1).numpy(), gt.cpu().numpy())
+        return scores, cm
+
+    cpu, cm_cpu = run(copy.deepcopy(model).to("cpu"), "cpu")
+    top2 = cpu.topk(2, dim=1).values
+    readings = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        card, cm_card = run(model, "cuda")
+        flips = card.argmax(1) != cpu.argmax(1)
+        gap = (top2[:, 0] - top2[:, 1])[flips]
+        miou = (float(cm_card.compute_iou()[0]), float(cm_cpu.compute_iou()[0]))
+        r = {"frames": len(frames), "pixels": flips.numel(), "flips": int(flips.sum()),
+             "flip_share": float(flips.float().mean()),
+             "largest_gap_of_a_flip": float(gap.max()) if len(gap) else 0.0,
+             "cm_l1": int(np.abs(cm_card.matrix - cm_cpu.matrix).sum()),
+             "miou_card_cpu": miou, "score_max_abs_diff": float((card - cpu).abs().max()),
+             "classes_predicted": sorted(set(card.argmax(1).unique().tolist()))}
+        r["within"] = {"score": r["score_max_abs_diff"] <= SEM_SCORE_TOL,
+                       "flip_share": r["flip_share"] <= SEM_FLIP_SHARE,
+                       "near_tie": r["largest_gap_of_a_flip"] <= SEM_NEAR_TIE,
+                       "miou": abs(miou[0] - miou[1]) <= SEM_MIOU_TOL}
+        readings["tf32_on" if tf32 else "tf32_off"] = r
+        print(f"semantic card vs cpu (tf32 {'on' if tf32 else 'off'}) " + json.dumps(r),
+              flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    off, on = readings["tf32_off"], readings["tf32_on"]
+    limits = (f"score {SEM_SCORE_TOL}, flip share {SEM_FLIP_SHARE}, near tie {SEM_NEAR_TIE}, "
+              f"mIoU {SEM_MIOU_TOL}")
+    if not (all(off["within"].values()) and off["cm_l1"] <= 2 * off["flips"]):
+        raise AssertionError(f"semantic card vs CPU beyond the limits ({limits}): {off}")
+    if any(on["within"].values()):
+        raise AssertionError(f"semantic card vs CPU: TF32 convolutions pass a limit "
+                             f"({limits}), which then does not tell float32 from TF32: {on}")
+    if len(off["classes_predicted"]) < 4:
+        raise AssertionError(f"semantic: the argmax holds {off['classes_predicted']}: degenerate")
+    return readings
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Mean host-clock ms per call of `fn`, synchronized before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def semantic_batch_parts(model, samples, weights) -> dict:
+    """One device-route val batch of semantic.val (bs SEM_BS), part by part:
+    the copy of the raw frames and masks to the card, semantic_preprocess,
+    the fused forward, the argmax and its copy back, the host confusion
+    matrix, the loss on the card; and the CLI's model build + weight load."""
+    from yolo_dual_tpu_torch.kernels.preprocess import semantic_preprocess
+    from yolo_dual_tpu_torch.losses.semantic import SemanticSegLoss
+    from yolo_dual_tpu_torch.metrics.seg import SegmentationConfusionMatrix
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    raw = np.stack([s["image_raw"] for s in samples[:SEM_BS]])
+    masks = np.stack([s["mask_raw"] for s in samples[:SEM_BS]])
+    loss_fn, cm = SemanticSegLoss(SEM_NC), SegmentationConfusionMatrix(SEM_NC, 11)
+    with torch.inference_mode():
+        im, mk = torch.from_numpy(raw).cuda(), torch.from_numpy(masks).cuda()
+        x, gt = semantic_preprocess(im, mk, 640)
+        out = model(x)
+        pred, gt_h = out.argmax(1).cpu().numpy(), gt.cpu().numpy()
+        parts = {"h2d_frames_and_masks": host_ms(lambda: (torch.from_numpy(raw).cuda(),
+                                                          torch.from_numpy(masks).cuda())),
+                 "semantic_preprocess": cuda_ms(lambda: semantic_preprocess(im, mk, 640), 10),
+                 "forward": cuda_ms(lambda: model(x), 5),
+                 "argmax_and_d2h": host_ms(lambda: out.argmax(1).cpu()),
+                 "confusion_matrix_host": host_ms(lambda: cm.update(pred, gt_h)),
+                 "loss": cuda_ms(lambda: loss_fn(out, gt), 5)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = SemanticSegModel("resnet50.json", device="cuda", generator=torch.Generator().manual_seed(0))
+    m.load_state_dict(torch.load(weights, map_location="cuda", weights_only=True), strict=True)
+    torch.cuda.synchronize()
+    parts["model_build_and_load_once"] = (time.perf_counter() - t0) * 1e3
+    del m
+    return parts
+
+
+def semantic_path(card: str):
+    """Phase 6c: the semantic flagship through its CLIs. resnet50.json (nc 12,
+    640 px, float32, full width and depth), seeded random weights, BatchNorm
+    calibrated on 4 of the set's frames letterboxed at fill 128; a seeded
+    CamVid-style set of SEM_FRAMES 720x960 `.npy` frames and JSON masks
+    (class 11 present) under build/. `semantic.val.run` at bs 16 on the host
+    route and on the device route (--device-preprocess): the K1 count set to
+    0 just before the device route reads one launch a batch. Then
+    semantic_preprocess on the card against its plain version on one batch,
+    SEM_CHECK_FRAMES frames card against CPU (semantic_card_vs_cpu),
+    `semantic.predict.run` on SEM_PREDICT_FRAMES frames at batch 1 (after 2
+    warm-up frames) with its pre / infer / post ms a frame, the fused
+    forward + argmax at bs 32 in img/s (bench.py:194's measurement), and one
+    device-route val batch part by part (semantic_batch_parts). Returns the
+    device route's launches and a function that profiles one more
+    device-route val run (after phase 9, as the training profiles) and then
+    removes the set."""
+    import shutil
+    import tempfile
+
+    from yolo_dual_tpu_torch.data.json_dataset import JSONSegmentDataset
+    from yolo_dual_tpu_torch.kernels.preprocess import (
+        letterbox_normalize, semantic_preprocess, semantic_preprocess_reference)
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    from yolo_dual_tpu_torch.semantic import predict, val
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    build = Path(__file__).resolve().parent / "build"  # gitignored, inside the checkout
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_semantic_", dir=build))
+    try:
+        t0 = time.perf_counter()
+        img_dir, json_dir = write_semantic_set(tmp / "camvid", SEM_FRAMES, seed=21)
+        ds = JSONSegmentDataset(img_dir, json_dir, 640, device_preprocess=True)
+        samples = [ds[i] for i in range(len(ds))]  # parses every JSON once: .json.npy caches
+        set_up_s = time.perf_counter() - t0
+        model = SemanticSegModel("resnet50.json", device="cuda",
+                                 generator=torch.Generator().manual_seed(0))
+        calibrate_bn(model, [s["image_raw"] for s in samples[:4]], fill=128.0)
+        weights = tmp / "resnet50-calibrated.pt"
+        torch.save(model.state_dict(), weights)
+        model.fuse()
+        kw = dict(weights=str(weights), cfg="resnet50.json", img_dir=str(img_dir),
+                  json_dir=str(json_dir), imgsz=640, batch_size=SEM_BS, nc=SEM_NC,
+                  device="cuda")
+        result = {"card": card, "frames": SEM_FRAMES, "shape": list(SEM_SHAPE), "bs": SEM_BS,
+                  "set_up_s": set_up_s}
+        for route, dp in (("host", False), ("device", True)):
+            letterbox_normalize.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (miou, vloss, _, _), iou, (ms,) = val.run(device_preprocess=dp, **kw)
+            wall = time.perf_counter() - t0
+            result[route] = {"miou": float(miou), "val_loss": float(vloss),
+                             "speed_ms_per_image": ms, "img_per_s_timed": 1e3 / ms,
+                             "img_per_s_run": SEM_FRAMES / wall, "run_s": wall,
+                             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                             "k1_launches": letterbox_normalize.launches}
+            print(f"semantic val {route} route: speed {ms:.3f} ms an image, "
+                  f"{1e3 / ms:.1f} img/s timed, {SEM_FRAMES / wall:.1f} img/s a whole run, "
+                  f"mIoU {miou:.4f}, val loss {vloss:.4f}", flush=True)
+            if not (np.isfinite(vloss) and 0 <= miou <= 1):
+                raise AssertionError(f"semantic val {route}: mIoU {miou}, loss {vloss}")
+        launches = {"letterbox_normalize": result["device"]["k1_launches"]}
+        n_batches = -(-SEM_FRAMES // SEM_BS)
+        if result["host"]["k1_launches"] != 0 or launches["letterbox_normalize"] != n_batches:
+            raise AssertionError(f"semantic val: K1 launches host {result['host']['k1_launches']}"
+                                 f", device {launches['letterbox_normalize']}; expected 0 and "
+                                 f"{n_batches}")
+
+        # semantic_preprocess on the card against its plain version, one val batch
+        im = torch.from_numpy(np.stack([s["image_raw"] for s in samples[:SEM_BS]])).cuda()
+        mk = torch.from_numpy(np.stack([s["mask_raw"] for s in samples[:SEM_BS]])).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        aug = dict(flip=torch.rand(SEM_BS, device="cuda", generator=gen) < 0.5,
+                   bright=0.8 + 0.4 * torch.rand(SEM_BS, device="cuda", generator=gen),
+                   contr=0.8 + 0.4 * torch.rand(SEM_BS, device="cuda", generator=gen))
+        (gi, gm), (ri, rm) = (f(im, mk, 640, **aug) for f in (semantic_preprocess,
+                                                              semantic_preprocess_reference))
+        err = (gi - ri).abs().max().item()
+        if not (torch.equal(gm, rm) and err <= 1e-5):
+            raise AssertionError(f"semantic_preprocess on the card: image error {err}, "
+                                 f"masks equal {torch.equal(gm, rm)}")
+        result["semantic_preprocess_max_abs_err"] = err
+        del im, mk, gi, gm, ri, rm
+
+        # card against CPU, the card's convolutions in float32 and in TF32
+        result["card_vs_cpu"] = semantic_card_vs_cpu(
+            model, [s["image_raw"] for s in samples[:SEM_CHECK_FRAMES]],
+            [s["mask_raw"] for s in samples[:SEM_CHECK_FRAMES]])
+
+        # the predictor at batch 1: 2 warm-up frames, then SEM_PREDICT_FRAMES timed
+        frames = sorted(img_dir.iterdir())
+        for name, n in (("warm", 2), ("predict", SEM_PREDICT_FRAMES)):
+            (tmp / name).mkdir()
+            for f in frames[:n]:
+                shutil.copy(f, tmp / name / f.name)
+        predict.run(weights=str(weights), source=str(tmp / "warm"), project=str(tmp),
+                    name="p0", device="cuda")
+        metrics, out_dir, speed = predict.run(weights=str(weights), source=str(tmp / "predict"),
+                                              gt_json_dir=str(json_dir), project=str(tmp),
+                                              name="p1", device="cuda")
+        n_out = len(list(out_dir.iterdir()))
+        if n_out != 3 * SEM_PREDICT_FRAMES or not np.isfinite(metrics["mIoU"]):
+            raise AssertionError(f"semantic predict: {n_out} outputs, mIoU {metrics['mIoU']}")
+        result["predict_bs1_ms_per_frame"] = dict(zip(("pre", "infer", "post"), speed))
+        result["predict_miou"] = float(metrics["mIoU"])
+        print(f"semantic predict {SEM_PREDICT_FRAMES} frames at batch 1: {speed[0]:.3f} / "
+              f"{speed[1]:.3f} / {speed[2]:.3f} ms pre / infer / post a frame", flush=True)
+
+        # the fused forward + argmax at bs 32 (cuDNN TF32 on, torch's default)
+        x = torch.rand(SEM_INFER_BS, 3, 640, 640, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(4))
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(x).argmax(1), 10)
+        result["fused_forward_argmax_bs32"] = {"ms": ms, "img_per_s": SEM_INFER_BS / ms * 1e3}
+        print(f"semantic fused forward + argmax at bs {SEM_INFER_BS}: {ms:.3f} ms, "
+              f"{SEM_INFER_BS / ms * 1e3:.1f} img/s", flush=True)
+        del x
+        result["val_batch_parts_ms"] = semantic_batch_parts(model, samples, weights)
+        print("semantic " + json.dumps(result), flush=True)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    del model, samples
+    torch.cuda.empty_cache()
+
+    def profile():
+        """One more device-route semantic.val run under torch.profiler: the
+        card's busy share of the run's wall clock (model build and load, the
+        loader, the batches, the host confusion matrix)."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                val.run(device_preprocess=True, **kw)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        return {"card": card, "run_wall_ms_profiled": wall_ms,
+                "device_ms": device_ms if device_ms else "not measured",
+                "busy_share": device_ms / wall_ms if device_ms else "not measured",
+                "idle_share": 1 - device_ms / wall_ms if device_ms else "not measured",
+                "top_ms": [[e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count]
+                           for e in top]}
+    return launches, profile
 
 
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
@@ -1515,6 +1847,9 @@ def main(argv=None) -> int:
     by_path = {cfg.removesuffix(".json"): model_path(cfg, frames, card) for cfg in MODELS}
     # 6b. the validation slice: segment.val at bs 32 through K1
     by_path["eval yolov5s-seg"], eval_batch = eval_path(card)
+    # 6c. the semantic flagship: semantic.val on both routes (K1 on the device route),
+    # semantic.predict
+    by_path["eval semantic resnet50"], semantic_profile = semantic_path(card)
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
     # 10. the train CLI on a dataset on disk
@@ -1536,6 +1871,8 @@ def main(argv=None) -> int:
     del train_profile
     print("train cli epoch profile " + json.dumps(cli_profile()), flush=True)
     del cli_profile
+    print("semantic val profile " + json.dumps(semantic_profile()), flush=True)
+    del semantic_profile
 
     # 11. kernels line: times are means over the launches of the main paths, each
     # launch weighted by the shape it ran at
@@ -1547,6 +1884,8 @@ def main(argv=None) -> int:
     lcalls = {n: len(MODELS) * [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)]
                                 for i in range(N_FRAMES)].count(n) for n in MAIN_SHAPES}
     lcalls["val_480p_bs32_no_scaleup"] = by_path["eval yolov5s-seg"]["letterbox_normalize"]
+    lcalls["semantic_720x960_bs16_fill128"] = \
+        by_path["eval semantic resnet50"]["letterbox_normalize"]
     # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training), and the
     # CLI's forwards at bs 16 (its micro-steps and val batches); K3: the micro-steps
     n_dcn = sum(DCN_PATH_SHAPES.values())

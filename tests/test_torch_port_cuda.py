@@ -22,7 +22,8 @@ import torch
 from yolo_dual_tpu_torch.kernels.dcn_sampling import (
     WINDOW_MARGIN, dcnv3_core, dcnv3_core_bwd, dcnv3_sampling, dcnv3_sampling_backward)
 from yolo_dual_tpu_torch.kernels.preprocess import (
-    LaunchParams, _launch, launch_record, letterbox_normalize, letterbox_normalize_reference)
+    LaunchParams, _launch, launch_record, letterbox_normalize, letterbox_normalize_reference,
+    semantic_preprocess, semantic_preprocess_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -461,3 +462,34 @@ def test_mosaic_warp_hsv_on_the_card_equals_cpu(cuda):
     got = mosaic_warp_hsv(*(a.to(cuda) for a in args), out_size=s)
     assert got.device.type == "cuda"
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+SEMANTIC_CASES = {  # name: (b, h, w, out_size, augment)
+    "camvid_720x960_to_640": (4, 720, 960, 640, True),
+    "camvid_720x960_to_640_plain": (2, 720, 960, 640, False),
+    "odd_45x67_to_64": (3, 45, 67, 64, True),
+    "portrait_70x37_to_64": (2, 70, 37, 64, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEMANTIC_CASES))
+def test_semantic_preprocess_k1_matches_plain(cuda, name):
+    """semantic_preprocess on the card (K1 at fill 128, one launch, then the
+    mask gathers, flip, brightness and contrast) against its plain version
+    on the same card: the mask exact, the image within K1's 1e-5."""
+    b, h, w, s, augment = SEMANTIC_CASES[name]
+    rng = np.random.default_rng(h * w + b)
+    im = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(cuda)
+    mk = torch.from_numpy(rng.integers(0, 12, (b, h, w)).astype(np.int32)).to(cuda)
+    aug = dict(flip=torch.from_numpy(np.arange(b) % 2 == 0).to(cuda),
+               bright=torch.from_numpy(rng.uniform(0.8, 1.2, b).astype(np.float32)).to(cuda),
+               contr=torch.from_numpy(rng.uniform(0.8, 1.2, b).astype(np.float32)).to(cuda)) \
+        if augment else {}
+    want_im, want_mk = semantic_preprocess_reference(im, mk, s, **aug)
+    before = letterbox_normalize.launches
+    got_im, got_mk = semantic_preprocess(im, mk, s, **aug)
+    torch.cuda.synchronize()
+    assert letterbox_normalize.launches == before + 1
+    assert got_im.shape == (b, 3, s, s) and got_mk.shape == (b, s, s)
+    assert got_mk.dtype == torch.int32 and torch.equal(got_mk, want_mk)
+    assert (got_im - want_im).abs().max().item() <= 1e-5

@@ -143,3 +143,74 @@ def write_yolo_split(root, split, n, shapes, seed, nc=TINY_NC):
             for side in ("jax", "port"):
                 (root / side / "labels" / split / f"im{i}.txt").write_text("\n".join(lines))
     return root
+
+
+SEM_CFG = ROOT / "yolo_dual_tpu" / "configs" / "semantic"
+SEM_NC = 12
+
+
+def narrow_semantic(name, div):
+    """The JAX semantic config `name` with the same rows and every width but
+    the class count divided by `div` (at least 4; a SegmentHead's width at
+    least 2)."""
+    import yaml
+    d = yaml.safe_load((SEM_CFG / f"{name}.yaml").read_text())
+    for row in d["backbone"] + d["head"]:
+        args = row[3]
+        if row[2] == "SegmentHead":
+            args[1] = max(args[1] // div, 2)
+        elif row[2] not in ("nn.Softmax", "Concat", "Upsample") and args[0] != d["nc"]:
+            args[0] = max(args[0] // div, 4)
+    return d
+
+
+def write_json_set(root, n, shape, seed, nc=SEM_NC):
+    """n seeded frames of `shape` (h, w) under root/jax/images as PNG and
+    root/port/images as `.npy` of the same RGB pixels, and one JSON dense mask
+    a frame under root/json: a background class and 3-6 rectangles of other
+    classes, class nc - 1 (the ignored one) in every frame, each rectangle
+    painted in the frame in a colour of its class plus noise. Returns root."""
+    import json
+
+    import cv2
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 256, (nc, 3))
+    for d in ("jax/images", "port/images", "json"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    h, w = shape
+    for i in range(n):
+        mask = np.full((h, w), rng.integers(0, nc - 1), np.uint8)
+        for k in range(rng.integers(3, 7)):
+            y0, x0 = rng.integers(0, h - 4), rng.integers(0, w - 4)
+            y1, x1 = y0 + rng.integers(3, h // 2 + 4), x0 + rng.integers(3, w // 2 + 4)
+            mask[y0:y1, x0:x1] = nc - 1 if k == 0 else rng.integers(0, nc)
+        im = np.clip(colours[mask] + rng.integers(-40, 41, (h, w, 3)), 0, 255).astype(np.uint8)
+        cv2.imwrite(str(root / "jax" / "images" / f"f{i:02d}.png"), im[..., ::-1])
+        np.save(root / "port" / "images" / f"f{i:02d}.npy", im)
+        (root / "json" / f"f{i:02d}.json").write_text(json.dumps({
+            "filename": f"f{i:02d}.png", "shape": [h, w], "dtype": "uint8",
+            "class_names": [], "mask_data": mask.reshape(-1).tolist()}))
+    return root
+
+
+def calibrated_semantic(jm, v, cfg, images):
+    """JAX variables `v` of the semantic model `jm` with every BatchNorm's
+    running statistics replaced by those of `images` ((b, 3, h, w) float in
+    [0, 1]), taken through the port's model of `cfg` in train mode and carried
+    back with JAX's own torch import. With identity or random statistics a
+    random network's scores collapse onto one class; calibrated, the argmax
+    map holds several."""
+    import torch
+
+    from yolo_dual_tpu.io.torch_import import import_torch_state_dict
+    from yolo_dual_tpu_torch.io.weights import state_dict_from_flax
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    model = SemanticSegModel(cfg, device="cpu")
+    model.load_state_dict(state_dict_from_flax(v), strict=True)
+    for bn in model.modules():
+        if isinstance(bn, torch.nn.BatchNorm2d):
+            bn.reset_running_stats()
+            bn.momentum = None  # a cumulative average: one batch sets its own statistics
+    with torch.no_grad():
+        model.train()(images)
+    return import_torch_state_dict(v, model.state_dict(), spec=jm.spec, strict=True)

@@ -1,6 +1,7 @@
-"""Instance-segmentation evaluation: box + mask mAP (port of
-yolo_dual_tpu/engine/validator.py:evaluate_segment; reference
-segment/val.py:128-400).
+"""Instance-segmentation evaluation, box + mask mAP, and semantic evaluation,
+confusion-matrix mIoU (port of yolo_dual_tpu/engine/validator.py:
+evaluate_segment, evaluate_semantic; reference segment/val.py:128-400,
+unet-lite/Resnet50/val_diceloss.py:148-293).
 
 Per batch on the device: the letterbox kernel on raw frames
 (kernels/preprocess.py, `image_raw` batches), the forward, the multi-label
@@ -13,14 +14,16 @@ and runs the AP curves (metrics/).
 from __future__ import annotations
 
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from yolo_dual_tpu_torch.data.loader import normalize_image
-from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
-from yolo_dual_tpu_torch.metrics import Metrics, ap_per_class_box_and_mask, match_predictions_device
+from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize, semantic_preprocess
+from yolo_dual_tpu_torch.metrics import (Metrics, SegmentationConfusionMatrix,
+                                         ap_per_class_box_and_mask, match_predictions_device)
 from yolo_dual_tpu_torch.ops.boxes import box_iou, clip_boxes, scale_boxes, xywh2xyxy
 from yolo_dual_tpu_torch.ops.mask_ops import mask_iou, process_mask
 from yolo_dual_tpu_torch.ops.nms import nms_from_raw
@@ -175,3 +178,53 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     LOGGER.info(("%22s" + "%11.3g" * 8) % ("all", *mean))
     LOGGER.info(f"Speed: {t[0]:.1f}ms pre, {t[1]:.1f}ms inference+NMS, {t[2]:.1f}ms post per image")
     return mean, metrics.get_maps(nc), t
+
+
+def evaluate_semantic(model, loader, nc: int, ignore_index: Optional[int] = 11, loss_fn=None,
+                      verbose: bool = False, names=None, mesh=None, device="cuda"):
+    """Semantic mIoU evaluation (JAX engine/validator.py:265). Returns
+    ((miou, val_loss, 0, 0), per-class IoU, (ms per image,)).
+
+    model: a SemanticSegModel; moved to `device`, put in eval mode and
+    conv+BN-folded in place. loader: batches of `image` uint8
+    (bs, s, s, 3) and `mask` (bs, s, s) from the host route, or `image_raw` /
+    `mask_raw` at the frames' native size, which `semantic_preprocess` fits
+    to `loader.dataset.img_size` on the device (on the card: K1, one launch
+    a batch, timed with the forward as JAX times it); optional `n_valid`.
+    The argmax runs on the device, the confusion matrix on the host;
+    `loss_fn` (a SemanticSegLoss) gives the mean val loss over batches."""
+    if mesh is not None:
+        raise NotImplementedError("evaluate_semantic(mesh=...): data-parallel eval is not "
+                                  "ported yet (ROADMAP A item 7, A10)")
+    dev = select_device(device)
+    model = model.to(dev).eval().fuse()
+    cm = SegmentationConfusionMatrix(nc, ignore_index=ignore_index)
+    total_loss, n_batches, seen = 0.0, 0, 0
+    dt = Profile(device=dev)
+    for batch in loader:
+        if "image_raw" in batch:
+            with dt:
+                image, gt = semantic_preprocess(
+                    torch.as_tensor(batch["image_raw"]).to(dev).contiguous(),
+                    torch.as_tensor(batch["mask_raw"]).to(dev), out_size=loader.dataset.img_size)
+        else:
+            image = torch.as_tensor(batch["image"]).to(dev).permute(0, 3, 1, 2)
+            gt = torch.as_tensor(batch["mask"]).to(dev)
+        with dt, torch.inference_mode():
+            out = model(normalize_image(image).contiguous())
+        bsz = int(batch.get("n_valid", image.shape[0]))
+        with torch.inference_mode():
+            cm.update(out[:bsz].argmax(1).cpu().numpy(), gt[:bsz].cpu().numpy())
+            if loss_fn is not None:
+                total_loss += float(loss_fn(out[:bsz], gt[:bsz])[0])
+                n_batches += 1
+        seen += bsz
+    miou, iou = cm.compute_iou()
+    avg_loss = total_loss / max(n_batches, 1)
+    t = dt.t / max(seen, 1) * 1e3
+    LOGGER.info(f"mIoU: {miou:.4f}  val-loss: {avg_loss:.4f}  ({t:.1f} ms/img)")
+    if verbose and names:
+        for i, v in enumerate(iou):
+            tag = " (ignored)" if i == ignore_index else ""
+            LOGGER.info(f"  {names.get(i, i):>12}: IoU {v:.4f}{tag}")
+    return (miou, avg_loss, 0.0, 0.0), iou, (t,)

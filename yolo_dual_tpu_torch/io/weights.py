@@ -27,7 +27,8 @@ def state_dict_from_flax(variables) -> dict:
     """JAX `{"params", "batch_stats"}` tree (nested dicts of arrays) -> torch
     state_dict with the reference's names and layouts:
 
-    - `model_{i}` -> `model.{i}`, `model_{i}_{r}` -> `model.{i}.{r}`, `m_{j}` -> `m.{j}`;
+    - `model_{i}` -> `model.{i}`, `model_{i}_{r}` -> `model.{i}.{r}`, `m_{j}` -> `m.{j}`,
+      a ResNet stage's `block{j}` -> `layer.{j}` (JAX train/checkpoint.py:122-128);
     - the Segment head's `detect` level is dropped (the torch Segment subclasses Detect);
     - conv `kernel` HWIO -> `weight` OIHW; Dense `kernel` (in, out) ->
       Linear `weight` (out, in); BN `scale` -> `weight`;
@@ -46,8 +47,8 @@ def state_dict_from_flax(variables) -> dict:
                 segs.pop(1)
             new = []
             for s in segs[:-1]:
-                mm = re.fullmatch(r"m_(\d+)", s)
-                new.append(f"m.{mm.group(1)}" if mm else s)
+                mm = re.fullmatch(r"(m_|block)(\d+)", s)
+                new.append(f"{'m' if mm.group(1) == 'm_' else 'layer'}.{mm.group(2)}" if mm else s)
             leaf = segs[-1]
             if coll == "batch_stats":
                 leaf = {"mean": "running_mean", "var": "running_var"}[leaf]

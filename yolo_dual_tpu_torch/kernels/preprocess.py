@@ -1,9 +1,11 @@
-"""Fused letterbox-resize + pad + normalize (port of
-yolo_dual_tpu/kernels/preprocess.py).
+"""Fused letterbox-resize + pad + normalize, and the semantic input path
+around it (port of yolo_dual_tpu/kernels/preprocess.py).
 
 `letterbox_normalize` launches the hand-written CUDA kernel csrc/letterbox.cu on
 a CUDA tensor and runs the plain torch version, `letterbox_normalize_reference`,
 on a CPU tensor. Output is NCHW float32 (B, 3, S, S) in [0, 1].
+`semantic_preprocess` letterboxes frames through it at fill 128 and gathers
+their dense masks onto the same canvas.
 """
 
 from __future__ import annotations
@@ -219,3 +221,81 @@ def _bind():
     error_string.restype = ctypes.c_char_p
     _BOUND[:] = launch, error_string
     return _BOUND
+
+
+def _nearest_indices(n_in: int, n_out: int) -> np.ndarray:
+    """Source indices of the device route's nearest mask resize (JAX
+    kernels/preprocess.py:135): floor((i + 0.5) * n_in / n_out). Not
+    cv2.INTER_NEAREST's floor(i * n_in / n_out), which the host route uses
+    (data/json_dataset.py:resize_nearest_u8), although JAX's docstring says so."""
+    return np.clip(np.floor((np.arange(n_out) + 0.5) * (n_in / n_out)),
+                   0, n_in - 1).astype(np.int64)
+
+
+_MASK_INDICES: dict = {}
+
+
+def mask_indices(h: int, w: int, nh: int, nw: int, device: torch.device):
+    """The (rows, cols) int64 gather indices of `_nearest_indices` for an
+    (h, w) mask fitted to (nh, nw), on `device`; made once a geometry and
+    device, as K1's launch records are, so a batch copies only its frames
+    and masks to the card."""
+    key = (h, w, nh, nw, device)
+    idx = _MASK_INDICES.get(key)
+    if idx is None:
+        idx = _MASK_INDICES[key] = (torch.from_numpy(_nearest_indices(h, nh)).to(device),
+                                    torch.from_numpy(_nearest_indices(w, nw)).to(device))
+    return idx
+
+
+def _semantic(letterbox, images, masks, out_size, fill, flip, bright, contr):
+    """The semantic input path with `letterbox` as its image resize (JAX
+    kernels/preprocess.py:142-185): the frames letterboxed at `fill`
+    (scaleup), the masks nearest-gathered onto a zero canvas, then the
+    per-sample flip, brightness and contrast of the padded canvas."""
+    if masks.ndim != 3 or tuple(masks.shape) != tuple(images.shape[:3]):
+        raise ValueError(f"semantic_preprocess: masks {tuple(masks.shape)} do not match frames "
+                         f"{tuple(images.shape)}")
+    imgs = letterbox(images, out_size, fill=fill, scaleup=True)
+    b, h, w = masks.shape
+    _, nh, nw, top, left = _content_box(h, w, out_size, True)
+    dev = images.device
+    ry, rx = mask_indices(h, w, nh, nw, dev)
+    m = masks.to(dev).index_select(1, ry).index_select(2, rx).to(torch.int32)
+    canvas = torch.zeros((b, out_size, out_size), dtype=torch.int32, device=dev)
+    canvas[:, top:top + nh, left:left + nw] = m
+    if flip is not None:
+        f = torch.as_tensor(flip, device=dev).bool()
+        imgs = torch.where(f[:, None, None, None], imgs.flip(-1), imgs)
+        canvas = torch.where(f[:, None, None], canvas.flip(-1), canvas)
+    if bright is not None:
+        imgs = imgs * torch.as_tensor(bright, dtype=torch.float32, device=dev)[:, None, None, None]
+    if contr is not None:
+        c = torch.as_tensor(contr, dtype=torch.float32, device=dev)[:, None, None, None]
+        mean = imgs.mean(dim=(1, 2, 3), keepdim=True)
+        imgs = (imgs - mean) * c + mean
+    if bright is not None or contr is not None:
+        imgs = imgs.clamp(0.0, 1.0)
+    return imgs, canvas
+
+
+def semantic_preprocess(images: torch.Tensor, masks: torch.Tensor, out_size: int = 640,
+                        fill: float = 128.0, flip=None, bright=None, contr=None):
+    """The device route's semantic input path (JAX kernels/preprocess.py:142):
+    uint8 frames (b, H, W, 3) at their native size and their integer class
+    masks (b, H, W) -> (images float32 (b, 3, S, S) in [0, 1], masks int32
+    (b, S, S)). The frames go through `letterbox_normalize` at `fill` with
+    scaleup (on a CUDA tensor K1, csrc/letterbox.cu, one launch a call; it
+    raises rather than fall back); the masks are nearest-gathered
+    (`_nearest_indices`) and padded with class 0. flip / bright / contr:
+    optional per-sample (b,) bool / float32 / float32 augmentations, applied
+    to the padded canvas, as JAX applies them."""
+    return _semantic(letterbox_normalize, images, masks, out_size, fill, flip, bright, contr)
+
+
+def semantic_preprocess_reference(images: torch.Tensor, masks: torch.Tensor, out_size: int = 640,
+                                  fill: float = 128.0, flip=None, bright=None, contr=None):
+    """Plain version of `semantic_preprocess` on any device: K1's plain version
+    (`letterbox_normalize_reference`) and the same gathers."""
+    return _semantic(letterbox_normalize_reference, images, masks, out_size, fill, flip,
+                     bright, contr)

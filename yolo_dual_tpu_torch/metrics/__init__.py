@@ -9,6 +9,7 @@ from yolo_dual_tpu_torch.metrics.seg import (  # noqa: F401
     IOUV,
     Metric,
     Metrics,
+    SegmentationConfusionMatrix,
     ap_per_class_box_and_mask,
     fitness_seg,
     match_predictions,

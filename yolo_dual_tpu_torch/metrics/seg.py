@@ -5,8 +5,8 @@ utils/segment/metrics.py:11-210, segment/val.py:91-125).
 The AP accumulators are host numpy. `match_predictions_device` is the
 validator's matching in torch, batched over images and IoU thresholds where
 the JAX package vmaps; `match_predictions` is the reference's numpy rule it
-is held against. The semantic SegmentationConfusionMatrix is not ported yet
-(ROADMAP A item 4).
+is held against. `SegmentationConfusionMatrix` is the semantic path's
+pixel confusion matrix and mIoU, on the host.
 """
 
 from __future__ import annotations
@@ -160,3 +160,56 @@ def match_predictions_device(pred_cls: torch.Tensor, gt_cls: torch.Tensor, iou: 
     correct = torch.zeros((*win_det.shape[:-1], d + 1), dtype=torch.bool, device=iou.device)
     correct.scatter_(-1, win_det, True)                    # a gt without claimant writes column d
     return correct[..., :d].transpose(-1, -2)
+
+
+class SegmentationConfusionMatrix:
+    """Semantic-seg confusion matrix (rows: target, columns: prediction) with
+    per-class IoU and an mIoU that skips `ignore_index` (JAX
+    metrics/seg.py:168; reference unet-lite/Resnet50/val_diceloss.py:69-118)."""
+
+    def __init__(self, nc: int, ignore_index: int = None):
+        self.nc = nc
+        self.ignore_index = ignore_index
+        self.matrix = np.zeros((nc, nc), np.int64)
+
+    def update(self, pred: np.ndarray, target: np.ndarray):
+        """pred / target: integer class ids of one shape; targets outside
+        [0, nc) are dropped, predictions clipped into it."""
+        pred = np.asarray(pred).reshape(-1)
+        target = np.asarray(target).reshape(-1)
+        keep = (target >= 0) & (target < self.nc)
+        pred = np.clip(pred[keep], 0, self.nc - 1)
+        idx = target[keep] * self.nc + pred
+        self.matrix += np.bincount(idx, minlength=self.nc ** 2).reshape(self.nc, self.nc)
+
+    def compute_iou(self):
+        """(mIoU over the classes other than ignore_index that occur, per-class
+        IoU with NaN where a class is neither predicted nor present)."""
+        tp = np.diag(self.matrix).astype(np.float64)
+        fp = self.matrix.sum(0) - tp
+        fn = self.matrix.sum(1) - tp
+        denom = tp + fp + fn
+        iou = np.where(denom > 0, tp / np.maximum(denom, 1), np.nan)
+        classes = np.arange(self.nc)
+        if self.ignore_index is not None:
+            classes = classes[classes != self.ignore_index]
+        valid = iou[classes]
+        miou = np.nanmean(valid) if np.isfinite(valid).any() else 0.0
+        return miou, iou
+
+    def pixel_accuracy(self):
+        return np.diag(self.matrix).sum() / max(self.matrix.sum(), 1)
+
+    def class_accuracy(self):
+        """Per-class recall, diag / row sum (reference test.py:455-458)."""
+        row = self.matrix.sum(1).astype(np.float64)
+        return np.diag(self.matrix) / np.maximum(row, 1)
+
+    def get_metrics(self):
+        """{"mIoU", "IoU", "Accuracy", "Class_Accuracy"} (reference test.py:436-464)."""
+        miou, iou = self.compute_iou()
+        return {"mIoU": miou, "IoU": iou, "Accuracy": self.pixel_accuracy(),
+                "Class_Accuracy": self.class_accuracy()}
+
+    def reset(self):
+        self.matrix[:] = 0

@@ -3,9 +3,11 @@
 Compiles a config dict (`nc / depth_multiple / width_multiple / anchors /
 backbone / head`, rows `[from, number, module, args]`, reference
 models/yolo.py:299-382 parse_model) into a static `ModelSpec`, and builds torch
-modules from it through an explicit registry. Only the detect-style dialect
-and the modules of the yolov5{n,s,m,l,x}-seg configs, plus the DCNv3 blocks
-(`C3_DCNV3`, `DCNV3_YoLo`), are ported.
+modules from it through an explicit registry. Both dialects of the JAX
+compiler are ported: 'detect' (the yolov5{n,s,m,l,x}-seg configs and the
+DCNv3 blocks `C3_DCNV3`, `DCNV3_YoLo`) and 'semantic' (the ResNet, ResNet
+U-Net and VGG16 configs: the `number` column ignored, C3 rows read their
+repeat from args[1], no width scaling, relu by default, aligning Concats).
 
 Unlike the JAX spec, each layer records its input channels `c1`, because torch
 modules are built with them.
@@ -53,6 +55,17 @@ class ModelSpec:
     anchors: Tuple[Tuple[float, ...], ...] = ()
     strides: Tuple[int, ...] = ()
     default_act: Optional[str] = None
+    style: str = "detect"
+
+    @property
+    def bn_profile(self) -> Tuple[float, float]:
+        """(eps, torch momentum) of the graph's BatchNorms: torch's defaults
+        on the semantic path, the reference's initialize_weights profile on
+        the detect path (JAX models/model.py:57-60)."""
+        from yolo_dual_tpu_torch.nn import common as C
+        if self.style == "semantic":
+            return C.SEMANTIC_BN_EPS, C.SEMANTIC_BN_MOMENTUM
+        return C.BN_EPS, C.BN_MOMENTUM
 
 
 # ---------------------------------------------------------------------------
@@ -66,15 +79,18 @@ def _populate_registry():
     if REGISTRY:
         return
     from yolo_dual_tpu_torch.models import heads as H
+    from yolo_dual_tpu_torch.nn import backbones as B
     from yolo_dual_tpu_torch.nn import common as C
     from yolo_dual_tpu_torch.nn import dcn as D
 
     for nm, cls in {"Conv": C.Conv, "Bottleneck": C.Bottleneck, "C3": C.C3,
-                    "SPPF": C.SPPF, "Proto": C.Proto, "DCNV3_YoLo": D.DCNV3_YoLo,
-                    "C3_DCNV3": D.C3_DCNV3}.items():
+                    "C3Conv": C.C3Conv, "SPPF": C.SPPF, "Proto": C.Proto,
+                    "DCNV3_YoLo": D.DCNV3_YoLo, "C3_DCNV3": D.C3_DCNV3,
+                    "ResNetStem": B.ResNetStem, "ResNetLayer": B.ResNetLayer,
+                    "VGGBlock": B.VGGBlock, "SegmentHead": B.SegmentHead}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(c1, **kw)
     for nm, cls in {"Concat": C.Concat, "Upsample": C.Upsample,
-                    "nn.Upsample": C.Upsample}.items():
+                    "nn.Upsample": C.Upsample, "nn.Softmax": nn.Softmax}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(**kw)
     for nm, cls in {"Detect": H.Detect, "Segment": H.Segment}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(ch=c1, **kw)
@@ -93,12 +109,17 @@ def build_module(layer: LayerSpec) -> nn.Module:
     return build(layer.c1, layer.kw())
 
 
-# Modules whose first arg is c2 and gets width-scaled.
-_CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3", "DCNV3_YoLo", "C3_DCNV3"}
-# Modules where the compiler inserts the repeat count as an `n` kwarg. As in the
-# JAX compiler, C3_DCNV3 is not one of them: its row repeat stays a repeat of
-# whole C3_DCNV3 modules, each with one inner bottleneck.
-_REPEAT_AS_N = {"C3"}
+# Modules whose first arg is c2 (width-scaled on the detect path).
+_CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3", "C3Conv", "DCNV3_YoLo", "C3_DCNV3"}
+# Modules whose repeat is an `n` kwarg (on the detect path the compiler
+# inserts the row's repeat). As in the JAX compiler, C3_DCNV3 is not one of
+# them: its row repeat stays a repeat of whole C3_DCNV3 modules, each with one
+# inner bottleneck.
+_REPEAT_AS_N = {"C3", "C3Conv"}
+# Modules whose output width is their first arg.
+_C2_FIRST = {"ResNetStem", "ResNetLayer", "VGGBlock", "SegmentHead"}
+_RESNET_LAYERS = {"ResNet50Layer": "bottleneck", "ResNet18Layer": "basic",
+                  "ResNet34Layer": "basic"}
 
 
 def _resolve(a, symbols: dict):
@@ -149,19 +170,51 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
         return {"d": a[0] if a else 1}, n
     if name == "C3_DCNV3":  # the JAX compiler's default branch: c2 only
         return dict(zip(["c2"], a)), n
+    if name == "nn.Softmax":
+        return {"dim": a[0] if a else 1}, n
+    keys = {"ResNetStem": ["c2"], "ResNetLayer": ["c2", "n", "stride", "block"],
+            "VGGBlock": ["c2", "n", "pool"], "SegmentHead": ["nc", "width"]}.get(name)
+    if keys is not None:
+        kw = dict(zip(keys, a))
+        if act is not None:
+            kw["act"] = act
+        return kw, n
     raise KeyError(f"Module {name!r} is not ported. Known: "
-                   f"{sorted(_CONVLIKE | {'Concat', 'Upsample', 'nn.Upsample', 'Detect', 'Segment'})}")
+                   f"{sorted(_CONVLIKE | _C2_FIRST | set(_RESNET_LAYERS) | {'Concat', 'Upsample', 'nn.Upsample', 'nn.Softmax', 'Detect', 'Segment'})}")
+
+
+def _semantic_row(name: str, args: list, n: int):
+    """The semantic dialect's row rewrites (JAX models/compiler.py:346-365):
+    C3 becomes C3Conv with its repeat from args[1] (False -> 0 inner blocks),
+    ResNet{18,34,50}Layer become ResNetLayer with their block kind, and the
+    `number` column is ignored, except on the ResNet rows, which keep it
+    as JAX does. Returns (name, args, n)."""
+    if name == "C3":
+        inner = int(args[1]) if len(args) > 1 else 1
+        shortcut = bool(args[2]) if len(args) > 2 else False
+        return "C3Conv", [args[0], inner, shortcut] + list(args[3:]), 1
+    if name in _RESNET_LAYERS:
+        if len(args) != 3:
+            raise ValueError(f"{name} args {args}: expected [c2, blocks, stride]")
+        return "ResNetLayer", list(args) + [_RESNET_LAYERS[name]], n
+    return name, args, 1
 
 
 def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
-    """Compile a model-config dict into a ModelSpec (reference models/yolo.py:299-382)."""
-    if d.get("compiler", "detect" if d.get("anchors") is not None else "semantic") != "detect":
-        raise NotImplementedError("only detect-style configs (with anchors) are ported")
+    """Compile a model-config dict into a ModelSpec (reference models/yolo.py:299-382).
+    A config without anchors, or with `compiler: semantic`, compiles in the
+    semantic dialect."""
+    style = d.get("compiler", "detect" if d.get("anchors") is not None else "semantic")
+    if style not in ("detect", "semantic"):
+        raise ValueError(f"unknown compiler dialect {style!r}; expected 'detect' or 'semantic'")
+    semantic = style == "semantic"
     anchors = d.get("anchors")
     model_nc = nc if (nc is not None and nc != d.get("nc")) else d["nc"]
     gd = d.get("depth_multiple", 1.0)
     gw = d.get("width_multiple", 1.0)
     default_act = d.get("activation")
+    if semantic and default_act is None:
+        default_act = "relu"
 
     na = (len(anchors[0]) // 2) if isinstance(anchors, list) else (anchors or 0)
     no = na * (model_nc + 5)
@@ -175,17 +228,22 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
     for i, (f, n, name, args) in enumerate(rows):
         name = str(name)
         args = [_resolve(a, symbols) for a in args]
+        if semantic:
+            name, args, n = _semantic_row(name, args, n)
         n = max(round(n * gd), 1) if n > 1 else n
         c1 = chs[f] if isinstance(f, int) else tuple(chs[x] for x in f)
 
         if name in _CONVLIKE:
             c2 = args[0]
-            if c2 != no:
-                c2 = make_divisible(c2 * gw, 8)
-            args = [c2, *args[1:]]
-            if name in _REPEAT_AS_N:
-                args.insert(1, n)
-                n = 1
+            if not semantic:
+                if c2 != no:
+                    c2 = make_divisible(c2 * gw, 8)
+                args = [c2, *args[1:]]
+                if name in _REPEAT_AS_N:
+                    args.insert(1, n)
+                    n = 1
+        elif name in _C2_FIRST:
+            c2 = args[0]
         elif name == "Concat":
             c2 = sum(c1)
         elif name in ("Detect", "Segment"):
@@ -205,6 +263,8 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
                 kwargs["npr"] = make_divisible(args[3] * gw, 8) if len(args) > 3 else 256
         else:
             kwargs, n = _adapt_args(name, args, n, default_act)
+            if name == "Concat" and semantic:
+                kwargs["align"] = True
 
         fi = f if isinstance(f, int) else tuple(f)
         layers.append(LayerSpec(i=i, f=fi, n=n, name=name, kwargs=_freeze(kwargs), c1=c1, c2=c2))
@@ -215,7 +275,8 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
 
     anchors_t = _freeze(anchors) if isinstance(anchors, list) else ()
     return ModelSpec(layers=tuple(layers), nc=model_nc, ch_in=ch, save=tuple(sorted(save)),
-                     out_ch=tuple(chs), anchors=anchors_t, strides=(), default_act=default_act)
+                     out_ch=tuple(chs), anchors=anchors_t, strides=(), default_act=default_act,
+                     style=style)
 
 
 def with_strides(spec: ModelSpec, strides: Sequence[int]) -> ModelSpec:

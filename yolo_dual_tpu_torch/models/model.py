@@ -1,5 +1,5 @@
-"""Graph walker and SegmentationModel (port of yolo_dual_tpu/models/model.py;
-reference models/yolo.py:109-296).
+"""Graph walker, SegmentationModel and SemanticSegModel (port of
+yolo_dual_tpu/models/model.py; reference models/yolo.py:109-296).
 
 The space-to-depth blocked stem that the JAX `fuse()` applies on its own
 (nn/blocked.py) is a TPU layout rewrite of the same math and is not ported:
@@ -16,7 +16,7 @@ import torch.nn as nn
 
 from yolo_dual_tpu_torch.models.compiler import ModelSpec, build_module, parse_config, with_strides
 from yolo_dual_tpu_torch.models.heads import Detect
-from yolo_dual_tpu_torch.nn.common import Conv
+from yolo_dual_tpu_torch.nn.common import Conv, resize_bilinear
 from yolo_dual_tpu_torch.nn.dcn import DCNv3
 from yolo_dual_tpu_torch.utils.general import find_cfg, load_config, select_device
 
@@ -26,13 +26,18 @@ _HEADS = ("Detect", "Segment")
 class GraphModel(nn.Module):
     """Walks a compiled ModelSpec (reference BaseModel._forward_once,
     models/yolo.py:114-125). Layer i is `self.model[i]`, so parameter names are
-    the reference's `model.{i}.…`."""
+    the reference's `model.{i}.…`. Every BatchNorm takes the spec's profile
+    (`spec.bn_profile`)."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
         self.spec = spec
         self.save = frozenset(spec.save)
         self.model = nn.ModuleList(build_module(layer) for layer in spec.layers)
+        eps, momentum = spec.bn_profile
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.eps, m.momentum = eps, momentum
 
     def forward(self, x, decode: Optional[bool] = None):
         """decode=None decodes in eval mode. Segment head output: decoded
@@ -55,6 +60,14 @@ class GraphModel(nn.Module):
             out = mod(inp, decode=decode) if layer.name in _HEADS else mod(inp)
             y.append(out if layer.i in self.save else None)
         return out
+
+    def fuse(self):
+        """Fold every Conv's BatchNorm into its conv, in place (reference
+        models/yolo.py fuse), with the BatchNorm's own eps. Inference only."""
+        for m in self.modules():
+            if isinstance(m, Conv):
+                m.fuse()
+        return self
 
 
 def _probe_strides(spec: ModelSpec) -> ModelSpec:
@@ -128,10 +141,34 @@ class SegmentationModel(GraphModel):
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         initialize_detect_biases(self)
 
-    def fuse(self):
-        """Fold every Conv's BatchNorm into its conv, in place (reference
-        models/yolo.py fuse). Inference only."""
-        for m in self.modules():
-            if isinstance(m, Conv):
-                m.fuse()
-        return self
+
+class SemanticSegModel(GraphModel):
+    """Dense semantic segmentation (JAX models/model.py:326-345), compiled
+    from a semantic config (a dict, a path, or the name of one of the
+    package's JSON copies, e.g. "resnet50.json").
+
+    forward(x) takes (b, 3, H, W) float images in [0, 1] and returns the
+    (b, nc, H, W) class scores: where the graph's output has another size
+    (resnet50.json: half the input), it is resized bilinearly to the input's.
+    Built on the meta device and materialized on `device`, weights drawn
+    from `generator` (default: a CPU generator seeded 0); BatchNorms carry
+    torch's defaults (eps 1e-5, momentum 0.1).
+    """
+
+    def __init__(self, cfg="resnet50.json", ch: int = 3, nc: Optional[int] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        dev = select_device(device)
+        d = dict(cfg) if isinstance(cfg, dict) else load_config(find_cfg(cfg))
+        spec = parse_config(d, ch=ch, nc=nc)
+        if spec.style != "semantic":
+            raise ValueError("SemanticSegModel needs a semantic config (no anchors); "
+                             "use SegmentationModel for detect-style configs")
+        with torch.device("meta"):
+            super().__init__(spec)
+        self.to_empty(device=dev)
+        self.nc = spec.nc
+        init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
+
+    def forward(self, x):
+        out = self._walk(x, decode=False)
+        return resize_bilinear(out, x.shape[-2:])

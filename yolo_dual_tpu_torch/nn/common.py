@@ -12,10 +12,16 @@ import torch.nn.functional as F
 
 from yolo_dual_tpu_torch.nn.activations import resolve_act
 
-# The detection/segment profile: eps 1e-3, torch momentum 0.03 (flax 0.97),
-# reference utils/torch_utils.py:217-219.
+# BatchNorm profiles (eps, torch momentum) of the reference's two paths (JAX
+# nn/common.py:37-45): the detection/segment models' initialize_weights sets
+# eps 1e-3, momentum 0.03 (flax 0.97; reference utils/torch_utils.py:217-219);
+# the semantic scripts keep torch's defaults. A compiled spec picks its
+# profile (models/compiler.py:ModelSpec.bn_profile); modules are built with
+# the detect one and GraphModel sets the other on its own BatchNorms.
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+SEMANTIC_BN_EPS = 1e-5
+SEMANTIC_BN_MOMENTUM = 0.1
 
 
 def autopad(k, p=None, d: int = 1):
@@ -143,14 +149,40 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat([x, y1, y2, y3], 1))
 
 
-class Concat(nn.Module):
-    """Concatenate a list of tensors along dimension `d` (1 = channels)."""
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor with half-pixel centers, as JAX's
+    `resize_bilinear` (`jax.image.resize(..., "bilinear")`, JAX
+    nn/common.py:284): that resize antialiases when it shrinks, so this one
+    does too (antialias=True; on an enlargement the flag changes nothing)."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
+                         antialias=True)
 
-    def __init__(self, d=1):
+
+class C3Conv(C3):
+    """C3 whose inner blocks are plain 3x3 Convs, the semantic scripts' own
+    "C3" (JAX nn/common.py:487). With n=0 it is the split and merge alone,
+    which rows like `[-1, 3, C3, [512, False]]` build (int(False) == 0)."""
+
+    def inner(self, c_, n, shortcut, g, act):
+        return [Conv(c_, c_, 3, 1, g=g, act=act) for _ in range(n)]
+
+
+class Concat(nn.Module):
+    """Concatenate a list of tensors along dimension `d` (1 = channels). With
+    `align` every input is first resized bilinearly to the first one's size,
+    as the semantic graphs' Concat does (JAX nn/common.py:720-734)."""
+
+    def __init__(self, d=1, align=False):
         super().__init__()
         self.d = d
+        self.align = align
 
     def forward(self, xs):
+        if self.align:
+            size = xs[0].shape[-2:]
+            xs = [resize_bilinear(t, size) for t in xs]
         return torch.cat(xs, self.d)
 
 

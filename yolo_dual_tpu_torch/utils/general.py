@@ -78,11 +78,12 @@ def find_cfg(name) -> Path:
     """Resolve a config name: an existing path, else the package's JSON copy of
     that model or hyperparameter config (`yolov5s-seg.yaml` and
     `yolov5s-seg.json` both find configs/segment/yolov5s-seg.json;
+    `resnet50.yaml` finds configs/semantic/resnet50.json;
     `hyp.scratch-low.yaml` finds configs/hyps/hyp.scratch-low.json)."""
     p = Path(name)
     if p.exists():
         return p
-    cands = [CONFIGS / sub / (p.stem + ".json") for sub in ("segment", "hyps")]
+    cands = [CONFIGS / sub / (p.stem + ".json") for sub in ("segment", "semantic", "hyps")]
     for c in cands:
         if c.exists():
             return c

@@ -1,6 +1,7 @@
-"""Box and mask drawing for saved predictions (port of the parts of
-yolo_dual_tpu/utils/plots.py that the predictor uses). cv2 is imported only
-when a box is drawn."""
+"""Box and mask drawing for saved predictions, and the semantic path's
+CamVid colouring and panels (port of the parts of yolo_dual_tpu/utils/plots.py
+that the predictors and the semantic val CLI use). cv2 is imported only when
+a box or a legend's text is drawn."""
 
 from __future__ import annotations
 
@@ -59,3 +60,51 @@ class Annotator:
 
     def result(self):
         return self.im
+
+
+CAMVID_PALETTE = np.array([
+    [128, 128, 128], [128, 0, 0], [192, 192, 128], [128, 64, 128], [60, 40, 222],
+    [128, 128, 0], [192, 128, 128], [64, 64, 128], [64, 0, 128], [64, 64, 0],
+    [0, 128, 192], [0, 0, 0]], np.uint8)
+
+
+def colorize_semantic(mask: np.ndarray, palette: np.ndarray = CAMVID_PALETTE) -> np.ndarray:
+    """Class-id mask (h, w) -> RGB uint8 (h, w, 3) in `palette`'s colours."""
+    return palette[np.clip(mask, 0, len(palette) - 1)]
+
+
+def legend_strip(names, palette: np.ndarray = CAMVID_PALETTE, height: int = 640,
+                 width: int = 160) -> np.ndarray:
+    """Vertical class legend (reference test.py:121-130): a colour swatch a
+    row, as JAX draws it, and the class name beside it where cv2 is installed."""
+    strip = np.full((height, width, 3), 255, np.uint8)
+    n = max(len(names), 1)
+    row_h = height // n
+    sw = max(min(row_h - 6, 24), 4)
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    for i, name in enumerate(names):
+        y0 = i * row_h + (row_h - sw) // 2
+        strip[max(y0, 0):y0 + sw + 1, 6:7 + sw] = palette[i % len(palette)]
+        if cv2 is not None:
+            cv2.putText(strip, str(name), (12 + sw, y0 + sw - max(sw // 4, 2)),
+                        cv2.FONT_HERSHEY_SIMPLEX, max(row_h / 80.0, 0.3), (0, 0, 0), 1,
+                        cv2.LINE_AA)
+    return strip
+
+
+def semantic_panel(image: np.ndarray, gt: np.ndarray, pred: np.ndarray,
+                   palette: np.ndarray = CAMVID_PALETTE, names=None) -> np.ndarray:
+    """[input | GT | prediction | diff (green right, red wrong)] side by side,
+    plus a legend strip when `names` is given (reference
+    seg_diceloss_Resnet50.py:851-872, val_diceloss.py:122-143). `image`: uint8
+    RGB or float in [0, 1]."""
+    img = (image * 255).astype(np.uint8) if image.dtype != np.uint8 else image
+    diff = np.where((gt != pred)[..., None], np.array([255, 0, 0], np.uint8),
+                    np.array([0, 255, 0], np.uint8))
+    panels = [img, colorize_semantic(gt, palette), colorize_semantic(pred, palette), diff]
+    if names is not None:
+        panels.append(legend_strip(names, palette, height=img.shape[0]))
+    return np.concatenate(panels, axis=1)
