@@ -16,9 +16,10 @@ which raises on failure:
    (timed only) and the least time the card could take:
    - letterbox (K1) at the frames of LETTERBOX_CASES: the streamed 1080p, 720p
      and 480p frames, 32 x 720p, the validator's 32 x 480p with scaleup=False,
-     an upscale, a small frame padded instead, fill 128, and the semantic
-     validator's 16 x 720x960 at fill 128 (max abs error <= 1e-5; library:
-     F.interpolate + F.pad + /255);
+     an upscale, a small frame padded instead, fill 128, the semantic
+     validator's and trainer's 16 x 720x960 at fill 128 and the learning
+     proof's 4 x 96x96 (max abs error <= 1e-5; library: F.interpolate +
+     F.pad + /255);
    - DCNv3 sampling (K2) at the three shapes of yolov5s-seg-dcnv3 at 640 px,
      batch 1, 16 and 32, with seeded offsets of a few px that reach past the
      border (max abs error <= 1e-5; library: the reference's F.grid_sample
@@ -69,6 +70,27 @@ which raises on failure:
    argmax at bs 32 in img/s; one device-route val batch part by part; after
    phase 9 one more device-route val run under torch.profiler (the card's
    busy share);
+6d. the semantic flagship trains (semantic_train_path): (a) one train step
+   (accumulate 1, past warmup) of resnet50.json, BatchNorm calibrated, on 2
+   frames at 320 px from the same weights on the card and on the CPU, the
+   card once with TF32 convolutions off and once on: the loss, every
+   parameter's update and the BatchNorm statistics against the CPU's, the
+   float32 reading within SEM_STEP_*_TOL and the TF32 one beyond each; the
+   micro-step at bs 16, 640 px, accumulate 4 on device-route batches, split
+   into forward + loss / backward / optimizer + EMA (CUDA events), with its
+   peak memory, and one bs-16 batch built on the host on each route; (b)
+   `python -m yolo_dual_tpu_torch.semantic.train` in-process with
+   resnet50.json (nc 12, 640 px, bs 16, --nbs 64, SGD, hyp.scratch-seg,
+   dice, EMA) on 48 CamVid-style 720x960 frames and 16 val frames (6c's
+   writer) under build/: 2 epochs on the device route (the counts set to 0
+   just before read one K1 launch a training batch, 6), a bare --resume to a
+   third (3), one host-route epoch (0), the native mask scanner loaded,
+   results.csv finite, each epoch's train / val / save seconds; (c) the
+   learning proof: the controlled golden of tests/test_semantic_golden.py
+   (resnet50.json, the synthetic scene of 24 frames at 96 px, 30 epochs,
+   bs 4, --nbs 4 --no-ema --no-augment, its hyp, seed 3) on the device
+   route (K1 at 96 -> 96, 180 launches) reaches mIoU >= 0.9285 - 0.05;
+   after phase 9 one more resumed device-route epoch under torch.profiler;
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -246,6 +268,7 @@ LETTERBOX_CASES = {  # name: ((B, H, W), out_size, fill, scaleup)
     "240p_no_scaleup": ((1, 240, 320), 640, 114.0, False),
     "720p_fill128": ((1, 720, 1280), 640, 128.0, True),  # semantic_preprocess's fill
     "semantic_720x960_bs16_fill128": ((16, 720, 960), 640, 128.0, True),  # semantic val's
+    "semantic_train_96_bs4_fill128": ((4, 96, 96), 96, 128.0, True),  # the learning proof's
 }
 
 
@@ -1298,6 +1321,346 @@ def semantic_path(card: str):
     return launches, profile
 
 
+# Phase 6d: the semantic flagship trains (semantic.train). resnet50.json at full width,
+# hyp.scratch-seg, SGD, dice, EMA, bs 16, 640 px, accumulate 4 (--nbs 64), on
+# SEM_TRAIN_FRAMES + SEM_VAL_FRAMES CamVid-style 720x960 frames (phase 6c's writer).
+SEM_TRAIN_FRAMES, SEM_VAL_FRAMES, SEM_TRAIN_EPOCHS = 48, 16, 2
+SEM_ACCUMULATE = max(round(64 / SEM_BS), 1)
+SEM_STEP_FRAMES, SEM_STEP_SIZE = 2, 320  # (a): one step, card against CPU
+# (a)'s limits, each between the card's float32 reading and its TF32 one, which must break
+# each: the loss (relative), every parameter's update and every BatchNorm statistic (the
+# largest error over the CPU tensor's largest magnitude). On an NVIDIA H100 80GB HBM3,
+# 700 W, float32 / TF32 read 0 / 1.0e-4, 0.173 / 1.51, 1.8e-6 / 1.9e-3 (PERF.md); the
+# float32 update error is the deep softmax graph's conditioning, and the card's float32
+# update must stand no further from a float64 CPU step than twice the CPU's float32 one
+SEM_STEP_LOSS_TOL, SEM_STEP_UPDATE_TOL, SEM_STEP_BN_TOL = 1e-5, 0.5, 1e-4
+# (c): the controlled golden of tests/test_semantic_golden.py:54-135 (resnet50.yaml: 0.9285,
+# slack 0.05): 24 frames of 96 px, 30 epochs, bs 4, --nbs 4 --no-ema --no-augment, seed 3,
+# its hyp (lr0 0.05, short warmup); here on the device route (K1 at 96 -> 96, the identity)
+SEM_GOLDEN_FLOOR = 0.9285 - 0.05
+SEM_GOLDEN_HYP = dict(lr0=0.05, lrf=0.2, momentum=0.9, weight_decay=5e-4, warmup_epochs=1.0,
+                      warmup_momentum=0.8, warmup_bias_lr=0.1, ema_decay=0.95, ema_tau=50.0)
+
+
+def semantic_train_setup(model, bs: int, accumulate: int, steps_per_epoch: int, count: int = 0):
+    """Trainer and state of semantic.train's defaults for `model`: SGD with
+    hyp.scratch-seg (weight decay scaled by bs · accumulate / 64), the EMA,
+    the dice loss; the optimizer's inner step count starts at `count`."""
+    from yolo_dual_tpu_torch.losses.semantic import SemanticSegLoss
+    from yolo_dual_tpu_torch.train.ema import ModelEMA
+    from yolo_dual_tpu_torch.train.optim import smart_optimizer
+    from yolo_dual_tpu_torch.train.trainer import Trainer
+    from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
+    hyp = load_config(find_cfg("hyp.scratch-seg.json"))
+    opt = smart_optimizer(model, "SGD", hyp, epochs=100, steps_per_epoch=steps_per_epoch,
+                          accumulate=accumulate, total_batch_size=bs)
+    opt.count = count
+    trainer = Trainer(model, SemanticSegLoss(SEM_NC), opt, ModelEMA(model), task="semantic")
+    return trainer, trainer.init_state()
+
+
+def semantic_step_card_vs_cpu(frames, masks) -> dict:
+    """(a): one train step (accumulate 1, past warmup so every group moves) of
+    resnet50.json, BatchNorm calibrated, on SEM_STEP_FRAMES frames resized and
+    padded to SEM_STEP_SIZE on the host, from the same weights on the CPU (in
+    float32, and in float64 as the anchor) and on the card, the card's
+    convolutions once in float32 (cuDNN TF32 off) and once in TF32: the loss,
+    the parameters after the step and their updates, the BatchNorm
+    statistics. The float32 reading must lie within the limits and the TF32
+    one beyond each. Leaves TF32 on, torch's default."""
+    from yolo_dual_tpu_torch.data.json_dataset import resize_and_pad
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = SemanticSegModel("resnet50.json", device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    calibrate_bn(model, frames[:4], fill=128.0)
+    start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    pairs = [resize_and_pad(f, m.astype(np.uint8), SEM_STEP_SIZE)[:2]
+             for f, m in zip(frames[:SEM_STEP_FRAMES], masks[:SEM_STEP_FRAMES])]
+    batch = {"image": np.stack([p[0] for p in pairs]),
+             "mask": np.stack([p[1] for p in pairs]).astype(np.int32)}
+    batch64 = {"image": torch.from_numpy(batch["image"]).permute(0, 3, 1, 2).double() / 255,
+               "mask": batch["mask"]}
+    runs = {}
+    for name, dev, tf32 in (("cpu", "cpu", False), ("cpu64", "cpu", False),
+                            ("card_f32", "cuda", False), ("card_tf32", "cuda", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        m = SemanticSegModel("resnet50.json", device=dev)
+        m.load_state_dict(start)
+        if name == "cpu64":
+            m.double()
+        trainer, state = semantic_train_setup(m, SEM_STEP_FRAMES, 1, steps_per_epoch=3, count=100)
+        state, metrics = trainer.train_step(state, batch64 if name == "cpu64" else batch)
+        runs[name] = {"items": metrics["items"].cpu().double(),
+                      "sd": {k: v.detach().cpu().double() for k, v in m.state_dict().items()}}
+        del m, trainer, state
+    torch.backends.cudnn.allow_tf32 = True
+    params = [k for k in start if not k.endswith(("running_mean", "running_var",
+                                                  "num_batches_tracked"))]
+    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
+    cpu = runs["cpu"]
+
+    def worst(a, b, keys, base=None):  # largest error over the tensor's largest magnitude
+        out = []
+        for k in keys:
+            x, y = (a[k] - base[k], b[k] - base[k]) if base else (a[k], b[k])
+            if y.abs().max() > 0:
+                out.append(((x - y).abs().max().item() / y.abs().max().item(), k))
+        return sorted(out)[::-1]
+    base = {k: v.double() for k, v in start.items()}
+    f64 = runs["cpu64"]["sd"]
+    cpu_vs_f64 = worst(cpu["sd"], f64, params, base)
+    readings = {}
+    for name in ("card_f32", "card_tf32"):
+        r = runs[name]
+        upd, par, bn = (worst(r["sd"], cpu["sd"], params, base), worst(r["sd"], cpu["sd"], params),
+                        worst(r["sd"], cpu["sd"], stats))
+        vs_f64 = worst(r["sd"], f64, params, base)
+        readings[name] = {
+            "items_card": r["items"].tolist(), "items_cpu": cpu["items"].tolist(),
+            "items_cpu64": runs["cpu64"]["items"].tolist(),
+            "loss_rel": abs(r["items"][0] - cpu["items"][0]).item() / abs(cpu["items"][0]).item(),
+            "update_rel": upd[0][0], "worst_updates": upd[:3], "param_rel": par[0][0],
+            "bn_stat_rel": bn[0][0], "worst_bn_stats": bn[:3],
+            "update_rel_vs_f64": vs_f64[0][0], "cpu_update_rel_vs_f64": cpu_vs_f64[0][0],
+            "worst_updates_vs_f64": vs_f64[:3]}
+    limits = {"loss_rel": SEM_STEP_LOSS_TOL, "update_rel": SEM_STEP_UPDATE_TOL,
+              "bn_stat_rel": SEM_STEP_BN_TOL}
+    for name, r in readings.items():
+        r["within"] = {k: (lim is not None and r[k] <= lim) for k, lim in limits.items()}
+        print(f"semantic train step card vs cpu ({name}, bs {SEM_STEP_FRAMES}, {SEM_STEP_SIZE} px): "
+              + json.dumps(r), flush=True)
+    off, on = readings["card_f32"], readings["card_tf32"]
+    if all(v is not None for v in limits.values()):
+        if not all(off["within"].values()):
+            raise AssertionError(f"semantic train step card vs CPU beyond {limits}: {off}")
+        if not off["update_rel_vs_f64"] <= 2 * off["cpu_update_rel_vs_f64"] + 1e-3:
+            raise AssertionError(f"semantic train step: the card's float32 updates stand further "
+                                 f"from float64 than twice the CPU's: {off}")
+        if any(on["within"].values()):
+            raise AssertionError(f"semantic train step: TF32 convolutions pass a limit of "
+                                 f"{limits}, which then does not tell float32 from TF32: {on}")
+    if not np.isfinite(off["items_card"]).all():
+        raise AssertionError(f"semantic train step: loss items {off['items_card']}")
+    return readings
+
+
+def semantic_micro_steps(samples, card: str) -> dict:
+    """The CLI's micro-step at full width on device-route batches already on
+    the card: 4 warm-up micro-steps, 8 split by CUDA events into forward +
+    loss / backward / optimizer + EMA, 8 whole; the parameters move on every
+    SEM_ACCUMULATE-th only; peak memory."""
+    from yolo_dual_tpu_torch.kernels.preprocess import semantic_preprocess
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    model = SemanticSegModel("resnet50.json", device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    trainer, state = semantic_train_setup(model, SEM_BS, SEM_ACCUMULATE,
+                                          steps_per_epoch=SEM_TRAIN_FRAMES // SEM_BS)
+    batches = []
+    for s in range(0, 2 * SEM_BS, SEM_BS):
+        chunk = samples[s:s + SEM_BS]
+        image, mask = semantic_preprocess(
+            torch.from_numpy(np.stack([c["image_raw"] for c in chunk])).cuda(),
+            torch.from_numpy(np.stack([c["mask_raw"] for c in chunk])).cuda(), 640,
+            flip=torch.tensor([c["flip"] for c in chunk]).cuda(),
+            bright=torch.tensor([c["bright"] for c in chunk]).cuda(),
+            contr=torch.tensor([c["contr"] for c in chunk]).cuda())
+        batches.append({"image": image, "mask": mask})
+    params = list(model.parameters())
+    flat = lambda: torch.cat([p.detach().flatten() for p in params])  # noqa: E731
+    moved = []
+    for i in range(2 * SEM_ACCUMULATE):
+        before = flat()
+        state, metrics = trainer.train_step(state, batches[i % 2])
+        moved.append(not torch.equal(before, flat()))
+    boundaries = [(i + 1) % SEM_ACCUMULATE == 0 for i in range(2 * SEM_ACCUMULATE)]
+    if moved != boundaries or state.ema.updates != 2 or not torch.isfinite(metrics["items"]).all():
+        raise AssertionError(f"semantic micro-steps: moved {moved}, expected {boundaries}; EMA "
+                             f"updates {state.ema.updates}; items {metrics['items'].tolist()}")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    split = []
+    for i in range(8):
+        e = [ev() for _ in range(4)]
+        model.zero_grad(set_to_none=True)
+        e[0].record()
+        loss, _ = trainer.forward_loss(model, batches[i % 2])
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        trainer.apply_gradients(state)
+        e[3].record()
+        split.append(e)
+    torch.cuda.synchronize()
+    parts = np.array([[a.elapsed_time(b) for a, b in zip(e, e[1:])] for e in split])
+    torch.cuda.reset_peak_memory_stats()
+    whole = cuda_ms(lambda: trainer.train_step(state, batches[0]), 8, warmup=0)
+    real = [i for i in range(8) if (i + 1) % SEM_ACCUMULATE == 0]
+    out = {"model": "resnet50", "card": card, "bs": SEM_BS, "imgsz": 640,
+           "accumulate": SEM_ACCUMULATE, "tf32": {"cudnn_conv": True, "matmul": False},
+           "micro_step_ms": whole, "img_per_s": SEM_BS / (whole / 1e3),
+           "forward_loss_ms": float(parts[:, 0].mean()), "backward_ms": float(parts[:, 1].mean()),
+           "optimizer_ema_ms": float(parts[:, 2].mean()),
+           "optimizer_ema_ms_on_real_steps": float(parts[real, 2].mean()),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("semantic train timing " + json.dumps(out), flush=True)
+    del model, trainer, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def semantic_host_batch_ms(img_dir: Path, json_dir: Path) -> dict:
+    """One bs-16 training batch built on this thread, each route with its
+    augmentation (the loader's work: reads, and on the host route
+    _augment_pair and the resize and pad)."""
+    from yolo_dual_tpu_torch.data.json_dataset import JSONSegmentDataset
+    out = {}
+    for route, dp in (("host", False), ("device", True)):
+        ds = JSONSegmentDataset(img_dir, json_dir, 640, augment=True, seed=5,
+                                device_preprocess=dp)
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in range(SEM_BS)]
+        batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        out[route] = (time.perf_counter() - t0) * 1e3
+        del batch
+    return out
+
+
+def semantic_train_path(card: str):
+    """Phase 6d: the semantic flagship's training. (a) one step card against
+    CPU; the micro-step timed; (b) `semantic.train` in-process with
+    resnet50.json at full width on a CamVid-style set written under build/:
+    SEM_TRAIN_EPOCHS epochs on the device route (K1 once a training batch, the
+    count set to 0 just before), a bare --resume to one more, one host-route
+    epoch (0 launches), the native mask scanner loaded, results.csv finite;
+    (c) the learning proof. Returns the K1 launches by geometry and a function
+    that profiles one more resumed device-route epoch (after phase 9)."""
+    import shutil
+    from yolo_dual_tpu_torch import native
+    from yolo_dual_tpu_torch.data.json_dataset import JSONSegmentDataset
+    from yolo_dual_tpu_torch.data.tools import write_synthetic_camvid_scene
+    from yolo_dual_tpu_torch.semantic import train as cli
+    root = Path(__file__).resolve().parent / "build" / "phase6d"
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    img_dir, json_dir = write_semantic_set(root / "train", SEM_TRAIN_FRAMES, seed=41)
+    val_img, val_json = write_semantic_set(root / "val", SEM_VAL_FRAMES, seed=42)
+    write_s = time.perf_counter() - t
+    ds = JSONSegmentDataset(img_dir, json_dir, 640, augment=True, seed=0, device_preprocess=True)
+    samples = [ds[i] for i in range(2 * SEM_BS)]
+    result = {"card": card, "frames": {"train": SEM_TRAIN_FRAMES, "val": SEM_VAL_FRAMES},
+              "write_dataset_s": write_s}
+    result["step_card_vs_cpu"] = semantic_step_card_vs_cpu(
+        [s["image_raw"] for s in samples[:4]], [s["mask_raw"] for s in samples[:4]])
+    result["micro_step"] = semantic_micro_steps(samples, card)
+    del samples
+    result["host_batch_ms"] = semantic_host_batch_ms(img_dir, json_dir)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    project = root / "runs"
+    common = ["--cfg", "resnet50.json", "--img-dir", str(img_dir), "--json-dir", str(json_dir),
+              "--val-img-dir", str(val_img), "--val-json-dir", str(val_json),
+              "--project", str(project), "--device", "cuda"]
+    steps = SEM_TRAIN_FRAMES // SEM_BS
+    probe = CliProbe(cli)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        (dev_epochs, _), dev_launches = cli_launches(lambda: probe.run(
+            common + ["--epochs", str(SEM_TRAIN_EPOCHS), "--name", "device",
+                      "--device-preprocess"]))
+        peak = torch.cuda.max_memory_allocated()
+        dev_res = cli_results(project / "device")
+        (_, _), resume_launches = cli_launches(lambda: probe.run(
+            ["--project", str(project), "--name", "device", "--resume", "--epochs",
+             str(SEM_TRAIN_EPOCHS + 1), "--device", "cuda"]))
+        resumed = cli_results(project / "device")
+        (host_epochs, _), host_launches = cli_launches(lambda: probe.run(
+            common + ["--epochs", "1", "--name", "host"]))
+        host_res = cli_results(project / "host")
+        scene = write_synthetic_camvid_scene(root / "scene")
+        (root / "hyp_golden.json").write_text(json.dumps(SEM_GOLDEN_HYP))
+        t = time.perf_counter()
+        (golden_epochs, _), golden_launches = cli_launches(lambda: probe.run(
+            ["--cfg", "resnet50.json", "--img-dir", str(scene[0]), "--json-dir", str(scene[1]),
+             "--imgsz", "96", "--batch-size", "4", "--epochs", "30", "--hyp",
+             str(root / "hyp_golden.json"), "--loss", "dice", "--project", str(project),
+             "--name", "golden", "--seed", "3", "--nbs", "4", "--no-ema", "--no-augment",
+             "--device-preprocess", "--device", "cuda"]))
+        golden_s = time.perf_counter() - t
+        golden = cli_results(project / "golden")
+    finally:
+        probe.close()
+    native_loaded = native.load() is not None
+    train_s = dev_epochs[-1]["train_s"]  # the second epoch: warm
+    result.update({
+        "native_scanner_loaded": native_loaded, "cli_peak_memory_gb": peak / 1e9,
+        "device_route": {"epochs": dev_epochs, "epoch_img_per_s": SEM_TRAIN_FRAMES / train_s,
+                         "launches": dev_launches, "results": dev_res.tolist()},
+        "resumed": {"launches": resume_launches, "results": resumed.tolist()},
+        "host_route": {"epochs": host_epochs,
+                       "epoch_img_per_s": SEM_TRAIN_FRAMES / host_epochs[0]["train_s"],
+                       "launches": host_launches, "results": host_res.tolist()},
+        "golden": {"miou": golden[:, 4].tolist(), "best_miou": float(golden[:, 4].max()),
+                   "floor": SEM_GOLDEN_FLOOR, "run_s": golden_s,
+                   "launches": golden_launches}})
+    print("semantic train " + json.dumps(result), flush=True)
+    problems = []
+    k1 = lambda n: {"letterbox_normalize": n, "dcnv3_sampling": 0,  # noqa: E731
+                    "dcnv3_sampling_backward": 0}
+    for got, w in ((dev_launches, k1(SEM_TRAIN_EPOCHS * steps)), (resume_launches, k1(steps)),
+                   (host_launches, k1(0)), (golden_launches, k1(30 * 6))):
+        if got != w:
+            problems.append(f"launches {got}, expected {w}")
+    if not native_loaded:
+        problems.append("the native mask scanner did not load")
+    if dev_res.shape != (SEM_TRAIN_EPOCHS, 7) or not np.isfinite(dev_res).all():
+        problems.append(f"results.csv of the device route: {dev_res.tolist()}")
+    if resumed[:, 0].tolist() != list(range(SEM_TRAIN_EPOCHS + 1)) or not np.isfinite(resumed).all():
+        problems.append(f"results.csv after --resume: {resumed.tolist()}")
+    if host_res.shape != (1, 7) or not np.isfinite(host_res).all():
+        problems.append(f"results.csv of the host route: {host_res.tolist()}")
+    if not golden[:, 4].max() >= SEM_GOLDEN_FLOOR:
+        problems.append(f"the learning proof reached mIoU {golden[:, 4].max()}, under the floor "
+                        f"{SEM_GOLDEN_FLOOR}")
+    if problems:
+        raise AssertionError("semantic train: " + "; ".join(problems))
+    launches = {"semantic_720x960_bs16_fill128": (SEM_TRAIN_EPOCHS + 1) * steps,
+                "semantic_train_96_bs4_fill128": 30 * 6}
+
+    def profile():
+        """One more resumed device-route epoch under torch.profiler: the
+        card's busy share of the epoch's wall clock (the loader, the steps,
+        the val pass and the checkpoint writes)."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                cli.main(["--project", str(project), "--name", "device", "--resume", "--epochs",
+                          str(SEM_TRAIN_EPOCHS + 2), "--device", "cuda"])
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            epochs_run = cli_results(project / "device")[:, 0].tolist()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        if epochs_run != list(range(SEM_TRAIN_EPOCHS + 2)):
+            raise AssertionError(f"the profiled --resume ran epochs {epochs_run}")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        return {"card": card, "epoch_wall_ms_profiled": wall_ms,
+                "device_ms": device_ms if device_ms else "not measured",
+                "busy_share": device_ms / wall_ms if device_ms else "not measured",
+                "idle_share": 1 - device_ms / wall_ms if device_ms else "not measured",
+                "top_ms": [[e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count]
+                           for e in top]}
+    return launches, profile
+
+
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
     """One seeded synthetic batch as the JAX package's loader yields it: uint8
     NHWC images, targets (bs, M, 5) normalised [cls, x, y, w, h] with 1..M
@@ -1550,17 +1913,18 @@ def write_train_set(root: Path) -> Path:
 
 
 class CliProbe(logging.Handler):
-    """Runs the train CLI in-process and reads what it reports: each epoch's
+    """Runs a train CLI in-process (segment.train unless `cli` is given) and
+    reads what it reports: each epoch's
     train, val and save seconds from the `epoch_times` of its log records, and,
     through one wrapper around Trainer.train_step, the loss items of the run's
     first micro-step."""
 
-    def __init__(self):
+    def __init__(self, cli=None):
         super().__init__()
-        from yolo_dual_tpu_torch.segment import train as cli
+        from yolo_dual_tpu_torch.segment import train as segment_cli
         from yolo_dual_tpu_torch.train.trainer import Trainer
         from yolo_dual_tpu_torch.utils.general import LOGGER
-        self.cli, self.logger, self.step = cli, LOGGER, Trainer.train_step
+        self.cli, self.logger, self.step = cli or segment_cli, LOGGER, Trainer.train_step
         self.epochs, self.first_items = [], None
         probe = self
 
@@ -1613,7 +1977,7 @@ def loader_batch_phase(root: Path, card: str) -> dict:
     mosaic_warp_hsv on it, card against CPU and timed."""
     from yolo_dual_tpu_torch.data import dataset as dsmod
     from yolo_dual_tpu_torch.kernels.augment import mosaic_warp_hsv
-    from yolo_dual_tpu_torch.segment.train import to_device
+    from yolo_dual_tpu_torch.data.loader import to_device
     from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
     hyp = load_config(find_cfg("hyp.scratch-low.json"))
     loader, ds = dsmod.create_dataloader(str(root / "images" / "train"), TRAIN_IMGSZ, TRAIN_BS,
@@ -1850,6 +2214,10 @@ def main(argv=None) -> int:
     # 6c. the semantic flagship: semantic.val on both routes (K1 on the device route),
     # semantic.predict
     by_path["eval semantic resnet50"], semantic_profile = semantic_path(card)
+    # 6d. the semantic flagship trains: one step card vs CPU, semantic.train on both routes,
+    # --resume, the learning proof
+    semantic_train_k1, semantic_train_profile = semantic_train_path(card)
+    by_path["train semantic resnet50"] = {"letterbox_normalize": sum(semantic_train_k1.values())}
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
     # 10. the train CLI on a dataset on disk
@@ -1873,6 +2241,8 @@ def main(argv=None) -> int:
     del cli_profile
     print("semantic val profile " + json.dumps(semantic_profile()), flush=True)
     del semantic_profile
+    print("semantic train epoch profile " + json.dumps(semantic_train_profile()), flush=True)
+    del semantic_train_profile
 
     # 11. kernels line: times are means over the launches of the main paths, each
     # launch weighted by the shape it ran at
@@ -1885,7 +2255,9 @@ def main(argv=None) -> int:
                                 for i in range(N_FRAMES)].count(n) for n in MAIN_SHAPES}
     lcalls["val_480p_bs32_no_scaleup"] = by_path["eval yolov5s-seg"]["letterbox_normalize"]
     lcalls["semantic_720x960_bs16_fill128"] = \
-        by_path["eval semantic resnet50"]["letterbox_normalize"]
+        by_path["eval semantic resnet50"]["letterbox_normalize"] \
+        + semantic_train_k1["semantic_720x960_bs16_fill128"]
+    lcalls["semantic_train_96_bs4_fill128"] = semantic_train_k1["semantic_train_96_bs4_fill128"]
     # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training), and the
     # CLI's forwards at bs 16 (its micro-steps and val batches); K3: the micro-steps
     n_dcn = sum(DCN_PATH_SHAPES.values())

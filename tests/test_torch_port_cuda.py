@@ -493,3 +493,94 @@ def test_semantic_preprocess_k1_matches_plain(cuda, name):
     assert got_im.shape == (b, 3, s, s) and got_mk.shape == (b, s, s)
     assert got_mk.dtype == torch.int32 and torch.equal(got_mk, want_mk)
     assert (got_im - want_im).abs().max().item() <= 1e-5
+
+
+def narrow_resnet18(div: int = 8) -> dict:
+    """The port's resnet18.json with every width but the class count divided
+    by `div` (the SegmentHead's at least 2), as tests/torch_port_common.py
+    narrows the JAX yaml; built here from the JSON copy, since the card's
+    machine has no PyYAML."""
+    from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
+    d = load_config(find_cfg("resnet18.json"))
+    for row in d["backbone"] + d["head"]:
+        args = row[3]
+        if row[2] == "SegmentHead":
+            args[1] = max(args[1] // div, 2)
+        elif row[2] not in ("nn.Softmax", "Concat", "Upsample") and args[0] != d["nc"]:
+            args[0] = max(args[0] // div, 4)
+    return d
+
+
+def test_semantic_train_step_on_the_card_equals_cpu(cuda):
+    """One semantic train step (past warmup, so every group moves) of a
+    narrow ResNet18 from the same weights on the card and on the CPU, TF32
+    off: loss items within 1e-4 relative, every parameter's update within
+    1e-2 of its largest magnitude, the BatchNorm statistics within 1e-4 of
+    theirs (the step's float32 gradients carry the card's other summation
+    orders; the statistics are one batch's moments)."""
+    from yolo_dual_tpu_torch.losses.semantic import SemanticSegLoss
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    from yolo_dual_tpu_torch.train.ema import ModelEMA
+    from yolo_dual_tpu_torch.train.optim import smart_optimizer
+    from yolo_dual_tpu_torch.train.trainer import Trainer
+    cfg = narrow_resnet18()
+    rng = np.random.default_rng(3)
+    mask = rng.integers(0, 12, (2, 96, 96)).astype(np.int32)
+    image = np.clip(rng.integers(0, 256, (12, 3))[mask] + rng.integers(-30, 31, (2, 96, 96, 3)),
+                    0, 255).astype(np.uint8)
+    batch = {"image": image, "mask": mask}
+    start = SemanticSegModel(cfg, device="cpu").state_dict()
+    runs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            model = SemanticSegModel(cfg, device=dev)
+            model.load_state_dict(start)
+            opt = smart_optimizer(model, "SGD", {}, epochs=10, steps_per_epoch=3,
+                                  total_batch_size=2)
+            opt.count = 100
+            trainer = Trainer(model, SemanticSegLoss(12), opt, ModelEMA(model), task="semantic")
+            state, metrics = trainer.train_step(trainer.init_state(), batch)
+            runs[dev] = (metrics["items"].cpu(), {k: v.cpu() for k, v in model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (ci, cs), (gi, gs) = runs["cpu"], runs["cuda"]
+    torch.testing.assert_close(gi, ci, rtol=1e-4, atol=1e-6)
+    names = dict(SemanticSegModel(cfg, device="cpu").named_parameters())
+    for k, v in cs.items():
+        if k in names:
+            d_cpu, d_card = v - start[k], gs[k] - start[k]
+            assert (d_card - d_cpu).abs().max() <= 1e-2 * d_cpu.abs().max() + 1e-8, k
+        elif v.is_floating_point():
+            assert (gs[k] - v).abs().max() <= 1e-4 * v.abs().max(), k
+
+
+def test_semantic_train_cli_launches_k1_per_device_route_batch(cuda, tmp_path):
+    """semantic.train on the card: with --device-preprocess K1 fits every
+    training batch (one launch each; the val pass is the host route's), on
+    the host route it never launches; both write finite results."""
+    import json
+
+    from yolo_dual_tpu_torch.semantic import train as cli
+    rng = np.random.default_rng(5)
+    (tmp_path / "images").mkdir()
+    (tmp_path / "json").mkdir()
+    for i in range(9):
+        mask = rng.integers(0, 12, (45, 60)).astype(np.uint8)
+        np.save(tmp_path / "images" / f"f{i}.npy",
+                rng.integers(0, 256, (45, 60, 3), dtype=np.uint8))
+        (tmp_path / "json" / f"f{i}.json").write_text(json.dumps(
+            {"filename": f"f{i}.png", "shape": [45, 60], "dtype": "uint8", "class_names": [],
+             "mask_data": mask.reshape(-1).tolist()}))
+    (tmp_path / "narrow.json").write_text(json.dumps(narrow_resnet18()))
+    for route, flags, launches in (("device", ["--device-preprocess"], 2 * 2), ("host", [], 0)):
+        letterbox_normalize.launches = 0
+        cli.main(["--cfg", str(tmp_path / "narrow.json"), "--img-dir", str(tmp_path / "images"),
+                  "--json-dir", str(tmp_path / "json"), "--imgsz", "64", "--batch-size", "4",
+                  "--epochs", "2", "--nbs", "8", "--project", str(tmp_path / "runs"),
+                  "--name", route, "--device", "cuda"] + flags)
+        torch.cuda.synchronize()
+        assert letterbox_normalize.launches == launches, route
+        rows = (tmp_path / "runs" / route / "results.csv").read_text().splitlines()[1:]
+        assert len(rows) == 2 and np.isfinite([float(v) for r in rows for v in r.split(",")]).all()

@@ -529,11 +529,13 @@ def test_val_cli_visualize_and_refusals(json_set, tmp_path):
     with pytest.raises(NotImplementedError, match="A10"):
         evaluate_semantic(SemanticSegModel(d, device="cpu"), [], SEM_NC, mesh=object(),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        json_dataset.JSONSegmentDataset(json_set / "port" / "images", json_set / "json",
-                                        augment=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        json_dataset.batch_convert_masks_to_json(tmp_path, tmp_path)
+    # the host route's augmentation and the converters are ported (the training
+    # slice; tests/test_torch_port_semantic_train.py holds them against JAX)
+    aug = json_dataset.JSONSegmentDataset(json_set / "port" / "images", json_set / "json",
+                                          img_size=IMGSZ, augment=True)
+    assert aug[0]["image"].shape == (IMGSZ, IMGSZ, 3)
+    (tmp_path / "no_masks").mkdir()
+    assert json_dataset.batch_convert_masks_to_json(tmp_path / "no_masks", tmp_path / "json") == 0
     with pytest.raises(ValueError, match="semantic config"):
         SemanticSegModel("yolov5n-seg.json", device="cpu")
     assert val_cli.parse_opt(["--img-dir", "a", "--json-dir", "b"]).device == "cuda"

@@ -4,15 +4,19 @@ utils/segment/dataloaders.py:274-331): label and polygon transforms, the
 mosaic's perspective warp as a matrix (its pixels are warped on the device,
 kernels/augment.py), the host letterbox, and polygon -> mask rasterisation.
 
-The JAX package uses OpenCV for fillPoly, resize and getRotationMatrix2D. The
-card's machine has no OpenCV, so they are written here in numpy: `fill_poly`
-follows OpenCV's 8-connected edge drawing and scanline fill of a polygon with
-integer vertices, `resize_linear_u8` OpenCV's fixed-point INTER_LINEAR
-resize of a uint8 plane or frame, `resize_area_u8` its INTER_AREA. The
+The JAX package uses OpenCV for fillPoly, resize, getRotationMatrix2D,
+warpAffine and GaussianBlur. The card's machine has no OpenCV, so they are
+written here in numpy: `fill_poly` follows OpenCV's 8-connected edge drawing
+and scanline fill of a polygon with integer vertices, `resize_linear_u8`
+OpenCV's fixed-point INTER_LINEAR resize of a uint8 plane or frame,
+`resize_area_u8` its INTER_AREA, `warp_affine_u8` OpenCV 5's float32
+warpAffine (INTER_LINEAR, INTER_NEAREST, constant border) and
+`gaussian_blur5_u8` its fixed-point 5x5 GaussianBlur at sigma 0. The
 rasteriser is exact on axis-aligned rectangles with integer vertices, and on
-other polygons a few edge pixels may differ; INTER_LINEAR is exact;
-INTER_AREA may be off by one at non-integer ratios (ROADMAP.md §C, held by
-tests/test_torch_port_data.py and tests/test_torch_port_train_data.py).
+other polygons a few edge pixels may differ; INTER_LINEAR, the warps and the
+blur are exact; INTER_AREA may be off by one at non-integer ratios
+(ROADMAP.md §C, held by tests/test_torch_port_data.py,
+tests/test_torch_port_train_data.py and tests/test_torch_port_semantic_train.py).
 
 The pixel augmentations of the host path (random_perspective's warp,
 augment_hsv, mixup, copy_paste, cutout, Albumentations) are not ported: the
@@ -93,8 +97,9 @@ def resample_segments(segments, n: int = 1000):
 
 def get_rotation_matrix_2d(angle: float, center, scale: float) -> np.ndarray:
     """cv2.getRotationMatrix2D: the 2x3 rotation by `angle` degrees
-    (counter-clockwise) about `center`, scaled by `scale`."""
-    a = angle * math.pi / 180
+    (counter-clockwise) about `center`, scaled by `scale`, rounded as
+    OpenCV computes it."""
+    a = angle * (math.pi / 180)
     alpha, beta = math.cos(a) * scale, math.sin(a) * scale
     cx, cy = center
     return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
@@ -423,3 +428,86 @@ def polygons2masks_overlap(img_size, segments, downsample_ratio=1):
         mask = mask + m
         mask = np.clip(mask, a_min=0, a_max=i + 1)
     return mask, index
+
+
+# OpenCV 5's warpAffine computes each row in SIMD passes of this many pixels
+# (AVX-512 float32 lanes) and the row's remaining pixels in scalar code, whose
+# source coordinate the compiler contracts into another FMA.
+WARP_LANES = 16
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """The inverse of a 2x3 affine matrix as cv2.warpAffine computes it, in
+    float64 (flattened to 6 values)."""
+    m = np.asarray(m, np.float64).reshape(6).copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, -m[1] * d, -m[3] * d, a22
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    return m
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once, as an FMA instruction rounds it (the
+    product of two float32 values is exact in float64)."""
+    return (np.asarray(a, np.float64) * np.float64(b) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, linear: bool = True,
+                   border: int = 0) -> np.ndarray:
+    """cv2.warpAffine(img, m, dsize, flags=INTER_LINEAR or INTER_NEAREST,
+    borderValue=border) of a uint8 plane (h, w) or frame (h, w, c), as
+    OpenCV 5 computes it: the inverted matrix in float32, each destination
+    pixel's source point x·m0 + (y·m1 + m2) by FMA (the scalar tail of a row:
+    (x·m0 + y·m1) + m2), INTER_NEAREST rounding it half to even, INTER_LINEAR
+    blending the four neighbours in float32 by FMAs and rounding half to
+    even; neighbours outside the source take `border`."""
+    w_out, h_out = dsize
+    m = _invert_affine(m).astype(np.float32)
+    ys = np.arange(h_out, dtype=np.float32)[:, None]
+    xs = np.arange(w_out, dtype=np.float32)[None, :]
+    tail = np.arange(w_out) >= w_out // WARP_LANES * WARP_LANES
+
+    def source(r):
+        body = _fma32(xs, m[r], ys * m[r + 1] + m[r + 2])
+        scalar = _fma32(xs, m[r], ys * m[r + 1]) + m[r + 2]
+        return np.where(tail, scalar, body)
+    sx, sy = source(0), source(3)
+    h, w = img.shape[:2]
+    planes = img.reshape(h, w, -1)
+
+    def pick(yy, xx):
+        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        v = planes[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+        return np.where(inside[..., None], v, np.asarray(border, img.dtype))
+    if not linear:
+        out = pick(np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64))
+        return out.reshape((h_out, w_out) + img.shape[2:])
+    x0, y0 = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    p00, p01, p10, p11 = (pick(y0 + dy, x0 + dx).astype(np.float32)
+                          for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)))
+    top, bottom = _fma32(ax, p01 - p00, p00), _fma32(ax, p11 - p10, p10)
+    out = np.clip(np.rint(_fma32(ay, bottom - top, top)), 0, 255).astype(np.uint8)
+    return out.reshape((h_out, w_out) + img.shape[2:])
+
+
+def _reflect101(n: int, pad: int) -> np.ndarray:
+    """Source indices of -pad .. n + pad - 1 under BORDER_REFLECT_101."""
+    i = np.abs(np.arange(-pad, n + pad))
+    return np.where(i > n - 1, 2 * (n - 1) - i, i) if n > 1 else np.zeros_like(i)
+
+
+def gaussian_blur5_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.GaussianBlur(img, (5, 5), 0) of a uint8 plane or frame: OpenCV's
+    kernel [1, 4, 6, 4, 1] / 16 for ksize 5 at sigma 0, separable, with
+    BORDER_REFLECT_101; its fixed-point passes are exact, so the result is
+    the 5x5 sum S of weight·value (weights summing to 256) rounded half up,
+    (S + 128) >> 8."""
+    k = (1, 4, 6, 4, 1)
+    h, w = img.shape[:2]
+    x = img.astype(np.int32)[_reflect101(h, 2)][:, _reflect101(w, 2)]
+    rows = sum(k[j] * x[:, j:j + w] for j in range(5))
+    return ((sum(k[j] * rows[j:j + h] for j in range(5)) + 128) >> 8).astype(np.uint8)

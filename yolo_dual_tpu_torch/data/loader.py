@@ -24,17 +24,19 @@ class Loader:
     - deterministic per-epoch shuffling (set_epoch, reference seed_worker
       determinism utils/dataloaders.py:96-100)
     - the final batch padded to `batch_size` by repeating its last sample, with
-      the count of real samples in `n_valid`, so every batch has one shape
+      the count of real samples in `n_valid`, so every batch has one shape;
+      with `drop_last` a final partial batch is dropped instead
     - background thread prefetch (depth `prefetch`) overlapping host reads and
       rasterisation with device compute
     """
 
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False,
-                 seed: int = 0, prefetch: Optional[int] = 2):
+                 seed: int = 0, prefetch: Optional[int] = 2, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
         if prefetch and (os.cpu_count() or 1) < 2:
             # on a single-core host the thread overlaps nothing and fights the
             # consumer for the interpreter lock over the batch np.stack copies
@@ -52,12 +54,13 @@ class Loader:
         return idx
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batches(self):
         idx = self._indices()
         bs = self.batch_size
-        for s in range(0, len(idx), bs):
+        for s in range(0, len(self) * bs, bs):
             chunk = idx[s:s + bs]
             samples = [self.dataset[i] for i in chunk]
             samples += [samples[-1]] * (bs - len(chunk))
@@ -99,3 +102,12 @@ def normalize_image(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint8:
         return x.float() / 255.0
     return x
+
+
+def to_device(x, dev, pin: bool) -> torch.Tensor:
+    """A loader array on `dev`: through pinned memory to a CUDA device, so the
+    copy is one asynchronous DMA."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if pin:
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=pin)

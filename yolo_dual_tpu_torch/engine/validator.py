@@ -186,7 +186,8 @@ def evaluate_semantic(model, loader, nc: int, ignore_index: Optional[int] = 11, 
     ((miou, val_loss, 0, 0), per-class IoU, (ms per image,)).
 
     model: a SemanticSegModel; moved to `device`, put in eval mode and
-    conv+BN-folded in place. loader: batches of `image` uint8
+    conv+BN-folded in place, so a caller that trains on hands over a copy
+    (semantic.train does). loader: batches of `image` uint8
     (bs, s, s, 3) and `mask` (bs, s, s) from the host route, or `image_raw` /
     `mask_raw` at the frames' native size, which `semantic_preprocess` fits
     to `loader.dataset.img_size` on the device (on the card: K1, one launch

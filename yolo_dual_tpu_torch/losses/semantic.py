@@ -23,9 +23,14 @@ import torch
 import torch.nn.functional as F
 
 
-def _one_hot(target: torch.Tensor, nc: int) -> torch.Tensor:
-    """(b, h, w) class ids -> (b, nc, h, w) float32."""
-    return F.one_hot(target.long(), nc).permute(0, 3, 1, 2).float()
+def _one_hot(target: torch.Tensor, nc: int, dtype=torch.float32) -> torch.Tensor:
+    """(b, h, w) class ids -> (b, nc, h, w) of `dtype`."""
+    return F.one_hot(target.long(), nc).permute(0, 3, 1, 2).to(dtype)
+
+
+def _at_least_f32(pred: torch.Tensor) -> torch.Tensor:
+    """Scores in float32, or float64 where they are (bfloat16 ones are widened)."""
+    return pred.to(torch.promote_types(pred.dtype, torch.float32))
 
 
 def weighted_cross_entropy(pred: torch.Tensor, target: torch.Tensor,
@@ -33,7 +38,7 @@ def weighted_cross_entropy(pred: torch.Tensor, target: torch.Tensor,
     """torch F.cross_entropy(weight=w, label_smoothing=s) on (b, nc, h, w)
     scores, normalised by the sum of the target pixels' weights."""
     nc = pred.shape[1]
-    logp = torch.log_softmax(pred.float(), dim=1)
+    logp = torch.log_softmax(_at_least_f32(pred), dim=1)
     target = target.long()
     pix_w = class_weights[target]                                            # (b, h, w)
     main = -logp.gather(1, target[:, None])[:, 0] * pix_w
@@ -46,7 +51,7 @@ def weighted_cross_entropy(pred: torch.Tensor, target: torch.Tensor,
 def _overlaps(pred_prob, target, class_weights):
     """(intersection, prediction sum, target sum), each (b, nc), of the
     class-weighted prediction and the one-hot target."""
-    onehot = _one_hot(target, pred_prob.shape[1])
+    onehot = _one_hot(target, pred_prob.shape[1], pred_prob.dtype)
     wpred = pred_prob * class_weights[None, :, None, None]
     return (wpred * onehot).sum((2, 3)), wpred.sum((2, 3)), onehot.sum((2, 3))
 
@@ -92,7 +97,7 @@ class SemanticSegLoss:
             aux = torch.zeros((), device=pred.device)
             total = ce
         else:
-            prob = torch.softmax(pred.float(), dim=1)
+            prob = torch.softmax(_at_least_f32(pred), dim=1)
             fn = dice_loss if self.flavor == "dice" else jaccard_loss
             aux = fn(prob, target, w)
             total = ce + 0.5 * aux

@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import copy
 import csv
-import json
 import sys
 import time
 from pathlib import Path
@@ -34,14 +33,15 @@ import numpy as np
 import torch
 
 from yolo_dual_tpu_torch.data.dataset import create_dataloader
+from yolo_dual_tpu_torch.data.loader import to_device
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
 from yolo_dual_tpu_torch.io.weights import load_state_dict_file
 from yolo_dual_tpu_torch.kernels.augment import mosaic_warp_hsv
 from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
 from yolo_dual_tpu_torch.metrics.seg import fitness_seg
 from yolo_dual_tpu_torch.models.model import SegmentationModel
-from yolo_dual_tpu_torch.train.checkpoint import (load_checkpoint, load_weights, save_checkpoint,
-                                                  strip_optimizer)
+from yolo_dual_tpu_torch.train.checkpoint import (load_checkpoint, load_weights, resume_run,
+                                                  save_checkpoint, strip_optimizer)
 from yolo_dual_tpu_torch.train.ema import ModelEMA
 from yolo_dual_tpu_torch.train.optim import freeze_layers, smart_optimizer
 from yolo_dual_tpu_torch.train.trainer import EarlyStopping, Trainer
@@ -52,8 +52,6 @@ from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_
 ROOT = Path(__file__).resolve().parents[2]
 CSV_HEADER = ["epoch", "box_loss", "seg_loss", "obj_loss", "cls_loss",
               "mAP50_B", "mAP_B", "mAP50_M", "mAP_M", "fitness"]
-# opt keys a resumed run takes from the invocation, never from the run's opt.json
-_NOT_RESTORED = ("resume", "device", "workers", "project", "name", "exist_ok", "explicit")
 
 
 def _refuse_unported(opt):
@@ -70,35 +68,14 @@ def _refuse_unported(opt):
                                       f"(ROADMAP A item {item})")
 
 
-def _resume_dir(opt):
-    """(run directory, checkpoint) of --resume: the given checkpoint, or the
-    newest run under project/name* with a last.pt (JAX segment/train.py:62-79)."""
-    if isinstance(opt.resume, str) and Path(opt.resume).is_file():
-        ckpt = Path(opt.resume)
-        return ckpt.parent, ckpt
-    runs = sorted((p for p in Path(opt.project).glob(f"{opt.name}*") if (p / "last.pt").exists()),
-                  key=lambda p: (p / "last.pt").stat().st_mtime)
-    if not runs:
-        raise FileNotFoundError(f"--resume: no run with a last.pt under {opt.project}/{opt.name}*")
-    return runs[-1], runs[-1] / "last.pt"
-
-
 def train(opt):
     """Train as JAX segment/train.py:train does; returns the best fitness."""
     dev = select_device(opt.device)
     init_seeds(opt.seed)
     resume_ckpt = None
     if opt.resume:
-        save_dir, resume_ckpt = _resume_dir(opt)
-        # the run's own settings come back; flags typed on this command line win
-        explicit = set(getattr(opt, "explicit", []) or [])
-        if (save_dir / "opt.json").exists():
-            for k, v in json.loads((save_dir / "opt.json").read_text()).items():
-                if k not in _NOT_RESTORED and k not in explicit and hasattr(opt, k):
-                    setattr(opt, k, v)
-        hyp_file = save_dir / "hyp.json"
-        hyp = json.loads(hyp_file.read_text()) if hyp_file.exists() and "hyp" not in explicit \
-            else load_config(find_cfg(opt.hyp))
+        save_dir, resume_ckpt, hyp = resume_run(opt)
+        hyp = hyp or load_config(find_cfg(opt.hyp))
     else:
         save_dir = increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok, mkdir=True)
         hyp = load_config(find_cfg(opt.hyp))
@@ -225,15 +202,6 @@ def train(opt):
         LOGGER.info("results plot skipped: plots are not ported (ROADMAP A item 7)")
     LOGGER.info(f"Done in {(time.time() - t0) / 3600:.2f}h; results in {save_dir}")
     return best_fitness
-
-
-def to_device(x, dev, pin: bool) -> torch.Tensor:
-    """A loader array on `dev`: through pinned memory to a CUDA device, so the
-    copy is one asynchronous DMA."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if pin:
-        t = t.pin_memory()
-    return t.to(dev, non_blocking=pin)
 
 
 def parse_opt(argv=None):

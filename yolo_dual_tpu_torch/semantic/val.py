@@ -62,6 +62,7 @@ def run(weights="", cfg="resnet50.json", img_dir="", json_dir="", imgsz=640, bat
         model.load_state_dict(load_state_dict_file(weights), strict=True)
     loader, _ = create_json_segment_dataloader(img_dir, json_dir, imgsz, batch_size,
                                                augment=False, num_classes=nc,
+                                               drop_last=False,
                                                device_preprocess=device_preprocess)
     result = evaluate_semantic(model, loader, nc, ignore_index=ignore_index,
                                loss_fn=SemanticSegLoss(nc, flavor=loss), verbose=True,

@@ -14,6 +14,7 @@ dict of those: checkpoints load with `torch.load(weights_only=True)`.
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
 from typing import Optional
@@ -74,3 +75,36 @@ def strip_optimizer(path, out: Optional[str] = None):
     ckpt.update(ema=None, updates=None, optimizer=None, epoch=-1)
     save_checkpoint(out or path, ckpt)
     LOGGER.info(f"Optimizer stripped from {path}")
+
+
+# opt keys a resumed run takes from the invocation, never from the run's opt.json
+NOT_RESTORED = ("resume", "device", "workers", "project", "name", "exist_ok", "explicit")
+
+
+def resume_run(opt):
+    """--resume, as the JAX CLIs resolve it (segment/train.py:62-99,
+    semantic/train.py:81-111): the run directory and its checkpoint (the
+    given checkpoint file, or the newest run under project/name* with a
+    last.pt), the run's settings put back on `opt` from its opt.json with the
+    flags typed on this command line (`opt.explicit`) winning. Returns (run
+    directory, checkpoint, the run's hyp.json as a dict, or None where --hyp
+    was typed or the run has none)."""
+    if isinstance(opt.resume, str) and Path(opt.resume).is_file():
+        ckpt = Path(opt.resume)
+        save_dir = ckpt.parent
+    else:
+        runs = sorted((p for p in Path(opt.project).glob(f"{opt.name}*")
+                       if (p / "last.pt").exists()),
+                      key=lambda p: (p / "last.pt").stat().st_mtime)
+        if not runs:
+            raise FileNotFoundError(f"--resume: no run with a last.pt under "
+                                    f"{opt.project}/{opt.name}*")
+        save_dir, ckpt = runs[-1], runs[-1] / "last.pt"
+    explicit = set(getattr(opt, "explicit", []) or [])
+    if (save_dir / "opt.json").exists():
+        for k, v in json.loads((save_dir / "opt.json").read_text()).items():
+            if k not in NOT_RESTORED and k not in explicit and hasattr(opt, k):
+                setattr(opt, k, v)
+    hyp_file = save_dir / "hyp.json"
+    hyp = json.loads(hyp_file.read_text()) if hyp_file.exists() and "hyp" not in explicit else None
+    return save_dir, ckpt, hyp

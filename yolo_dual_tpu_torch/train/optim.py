@@ -14,25 +14,38 @@ incremented, times `accumulate`, as there.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Collection, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from yolo_dual_tpu_torch.utils.general import LOGGER
 
 f32 = np.float32
 
 
-def param_group_label(name: str) -> str:
-    """g0: weights with decay; g1: BatchNorm weights; g2: biases (torch names:
-    `model.2.cv1.bn.weight` is g1, every `*.bias` is g2)."""
+def batchnorm_weights(model: nn.Module) -> set:
+    """The names of the weights of `model`'s BatchNorm layers, whatever the
+    layers are called (a Conv's `bn`, a bare BatchNorm row): the torch side of
+    JAX's BatchNorm `scale` leaves."""
+    return {f"{n}.weight" for n, m in model.named_modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.weight is not None}
+
+
+def param_group_label(name: str, bn_weights: Optional[Collection[str]] = None) -> str:
+    """g0: weights with decay; g1: BatchNorm weights; g2: biases (JAX
+    optim.py:26: `bias` -> g2, a BatchNorm's `scale` -> g1, the rest g0). The
+    BatchNorm weights are `bn_weights` where given (batchnorm_weights of the
+    model), else the weights of modules named `bn` (`model.2.cv1.bn.weight`)."""
     parts = name.split(".")
     if parts[-1] == "bias":
         return "g2"
-    if parts[-1] == "weight" and "bn" in parts[:-1]:
-        return "g1"
-    return "g0"
+    if bn_weights is None:
+        is_bn = parts[-1] == "weight" and "bn" in parts[:-1]
+    else:
+        is_bn = name in bn_weights
+    return "g1" if is_bn else "g0"
 
 
 def one_cycle(y1: float, y2: float, steps: int) -> Callable[[float], float]:
@@ -97,7 +110,7 @@ class SmartOptimizer:
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], name: str, hyp: Dict,
                  decay: float, epochs: int, steps_per_epoch: int, cos_lr: bool = False,
-                 accumulate: int = 1):
+                 accumulate: int = 1, bn_weights: Optional[Collection[str]] = None):
         self.kind = {"sgd": "sgd", "adam": "adam", "adamw": "adam", "rmsprop": "rms"}.get(name.lower())
         if self.kind is None:
             raise NotImplementedError(f"Optimizer {name} not implemented")
@@ -105,8 +118,9 @@ class SmartOptimizer:
         self.names: Dict[str, list] = {"g0": [], "g1": [], "g2": []}
         for n, p in named_params:
             if p.requires_grad:
-                self.groups[param_group_label(n)].append(p)
-                self.names[param_group_label(n)].append(n)
+                g = param_group_label(n, bn_weights)
+                self.groups[g].append(p)
+                self.names[g].append(n)
         self.frozen: Dict[str, list] = {g: [False] * len(ps) for g, ps in self.groups.items()}
         self.decay = float(decay)
         self.accumulate = int(accumulate)
@@ -211,17 +225,20 @@ def smart_optimizer(model_or_params, name: str = "SGD", hyp: Optional[Dict] = No
                     epochs: int = 100, steps_per_epoch: int = 100, cos_lr: bool = False,
                     accumulate: int = 1, total_batch_size: Optional[int] = None,
                     nominal_batch_size: int = 64) -> SmartOptimizer:
-    """The three-group optimizer over a module's named parameters (or an
-    iterable of (name, parameter)). Weight decay is scaled by
+    """The three-group optimizer over a module's named parameters, its
+    BatchNorm weights in g1 (or over an iterable of (name, parameter), g1 then
+    being the weights of modules named `bn`). Weight decay is scaled by
     total_batch_size · accumulate / nominal_batch_size when the batch size is
     given (reference segment/train.py:444-446)."""
     hyp = dict(hyp or {})
     decay = hyp.get("weight_decay", 5e-4)
     if total_batch_size is not None:
         decay = decay * total_batch_size * accumulate / nominal_batch_size
-    named = model_or_params.named_parameters() if isinstance(model_or_params, torch.nn.Module) \
-        else model_or_params
-    opt = SmartOptimizer(named, name, hyp, decay, epochs, steps_per_epoch, cos_lr, accumulate)
+    if isinstance(model_or_params, nn.Module):
+        named, bn = model_or_params.named_parameters(), batchnorm_weights(model_or_params)
+    else:
+        named, bn = model_or_params, None
+    opt = SmartOptimizer(named, name, hyp, decay, epochs, steps_per_epoch, cos_lr, accumulate, bn)
     LOGGER.info(f"optimizer: {name}(lr={hyp.get('lr0', 0.01)}) with groups "
                 f"{len(opt.groups['g0'])} weight(decay={decay:.5g}), {len(opt.groups['g1'])} "
                 f"weight(decay=0.0), {len(opt.groups['g2'])} bias; accumulate {accumulate}")

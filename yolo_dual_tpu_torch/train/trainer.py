@@ -1,11 +1,16 @@
 """Training engine: one train step (forward, loss, backward, optimizer, EMA),
 the eval step and early stopping (port of yolo_dual_tpu/train/trainer.py;
-reference segment/train.py:348-589), for the detect and segment tasks.
+reference segment/train.py:348-589, seg_diceloss_Resnet50.py:875-1215), for
+the detect, segment and semantic tasks.
 
-A batch is a dict in the format the JAX package's loader yields: `image`
-(bs, H, W, 3) uint8 or float, `targets` (bs, M, 5) normalised [cls, x, y, w, h],
-`tmask` (bs, M) bool, and for segment `masks` ((bs, h, w) overlap-indexed, or
-(bs, M, h, w)). Arrays or tensors on any device; they are moved to the model's.
+A batch is a dict in the format the JAX package's loader yields. Detect and
+segment: `image` (bs, H, W, 3) uint8 or float, `targets` (bs, M, 5)
+normalised [cls, x, y, w, h], `tmask` (bs, M) bool, and for segment `masks`
+((bs, h, w) overlap-indexed, or (bs, M, h, w)). Semantic: `mask` (bs, H, W)
+class ids and `image` either uint8 (bs, H, W, 3) (the host route) or
+float32 (bs, 3, H, W) in [0, 1], as kernels/preprocess.py:semantic_preprocess
+returns it (the device route). Arrays or tensors on any device; they are
+moved to the model's.
 """
 
 from __future__ import annotations
@@ -70,32 +75,48 @@ class Trainer:
     loss_fn: Any                     # ComputeLoss (detect) or ComputeSegmentLoss (segment)
     optimizer: SmartOptimizer
     ema: Optional[ModelEMA] = None
-    task: str = "segment"            # detect | segment
+    task: str = "segment"            # detect | segment | semantic
     amp_dtype: Optional[torch.dtype] = None  # torch.bfloat16: forward and loss under autocast
 
     def __post_init__(self):
-        if self.task not in ("detect", "segment"):
-            raise ValueError(f"task {self.task!r}: the port trains detect and segment models")
+        if self.task not in ("detect", "segment", "semantic"):
+            raise ValueError(f"task {self.task!r}: the port trains detect, segment and "
+                             "semantic models")
 
     def init_state(self) -> TrainState:
         return TrainState(self.model, self.optimizer, self.ema)
 
+    def model_input(self, image: torch.Tensor) -> torch.Tensor:
+        """The model's NCHW float input: uint8 (bs, H, W, 3) is scaled to [0, 1]
+        and moved to NCHW; a float semantic batch is semantic_preprocess's
+        NCHW output in [0, 1] and is taken as it is; a float detect or
+        segment batch is NHWC."""
+        if self.task == "semantic" and image.dtype != torch.uint8:
+            return image.contiguous()
+        return normalize_image(image).permute(0, 3, 1, 2).contiguous()
+
     def forward_loss(self, model: nn.Module, batch: Dict[str, Any]):
         """Train-mode forward of the normalised NCHW batch and the task loss:
-        (loss · bs, loss items). With `amp_dtype` both run under
-        torch.autocast (the JAX model's bf16 compute dtype: convolutions and
-        matmuls in bfloat16, parameters, BatchNorm statistics and the DCNv3
-        sampling in float32); the loss and its items then come back in float32."""
+        (loss · bs, loss items) for detect and segment, (loss, (total, ce,
+        aux)) for semantic, whose loss is a mean (JAX trainer.py:107-114; the
+        model's scores already come at the input's size). With `amp_dtype` both
+        run under torch.autocast (the JAX model's bf16 compute dtype:
+        convolutions and matmuls in bfloat16, parameters, BatchNorm statistics
+        and the DCNv3 sampling in float32); the loss and its items then come
+        back in float32."""
         dev = next(model.parameters()).device
         b = _on(batch, dev)
-        x = normalize_image(b["image"]).permute(0, 3, 1, 2).contiguous()
+        x = self.model_input(b["image"])
         with torch.autocast(dev.type, dtype=self.amp_dtype or torch.float32,
                             enabled=self.amp_dtype is not None):
-            out = model(x, decode=False)
-            if self.task == "segment":
-                loss, items = self.loss_fn(out, b["targets"], b["tmask"], b["masks"])
+            if self.task == "semantic":
+                loss, items = self.loss_fn(model(x), b["mask"])
+                items = torch.stack(items).detach()
+            elif self.task == "segment":
+                loss, items = self.loss_fn(model(x, decode=False), b["targets"], b["tmask"],
+                                           b["masks"])
             else:
-                loss, items = self.loss_fn(out, b["targets"], b["tmask"])
+                loss, items = self.loss_fn(model(x, decode=False), b["targets"], b["tmask"])
         if self.amp_dtype is not None:
             loss, items = loss.float(), items.float()
         return loss, items
@@ -112,7 +133,8 @@ class Trainer:
     def train_step(self, state: TrainState, batch: Dict[str, Any]):
         """One micro-step: forward, loss, backward, optimizer, EMA. The
         parameters keep this step's gradients in `.grad` afterwards. Returns
-        (state, {"loss": loss · bs, "items": loss items})."""
+        (state, {"loss": the loss (· bs for detect and segment), "items": loss
+        items})."""
         state.model.train()
         state.model.zero_grad(set_to_none=True)
         loss, items = self.forward_loss(state.model, batch)
@@ -122,7 +144,8 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, Any]):
-        """Decoded eval-mode output of the EMA model (of the model without an EMA)."""
+        """Eval-mode output of the EMA model (of the model without an EMA):
+        decoded detections, or the semantic scores."""
         model = (state.ema.ema if state.ema is not None else state.model).eval()
         b = _on({"image": batch["image"]}, next(model.parameters()).device)
-        return model(normalize_image(b["image"]).permute(0, 3, 1, 2).contiguous())
+        return model(self.model_input(b["image"]))
