@@ -15,6 +15,8 @@ memory, by float atomics in an order that changes from run to run, and doffset
 sums over the group's channels.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,8 @@ from yolo_dual_tpu_torch.kernels.preprocess import (
     semantic_preprocess, semantic_preprocess_reference)
 
 pytestmark = pytest.mark.cuda
+# cuBLAS takes a fixed workspace, read at its first use, for the deterministic test below
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -437,6 +441,94 @@ def test_dcnv3_under_autocast_samples_in_float32(cuda):
     with torch.no_grad():
         want = m(x)
     assert (out.float() - want).abs().max() <= 5e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "ones_mask"])
+def test_deform_conv2d_v2_on_the_card_equals_cpu(cuda, with_mask):
+    """DCNv2's deformable conv (torch ops: JAX's is lax, no Pallas kernel)
+    on the card against the CPU, offsets of up to ±3 px past the border, with
+    a mask and with C2f_DCN's all-ones one: the output and every gradient
+    within 1e-5 of its largest magnitude (dx sums by index_add_, float atomics
+    on the card)."""
+    from yolo_dual_tpu_torch.nn.dcn import deform_conv2d_v2
+    gen = torch.Generator().manual_seed(0)
+    b, c, h, w, co = 2, 32, 20, 24, 16
+    x = torch.randn(b, c, h, w, generator=gen)
+    off = torch.rand(b, 18, h, w, generator=gen) * 6 - 3
+    mask = torch.rand(b, 9, h, w, generator=gen) if with_mask else None
+    weight = torch.randn(co, c, 3, 3, generator=gen) / 17
+    bias = torch.randn(co, generator=gen)
+
+    def run(dev):
+        ins = [t.to(dev).requires_grad_(True) if t is not None else None
+               for t in (x, off, mask, weight, bias)]
+        out = deform_conv2d_v2(*ins, 1, 1, 1, 1, 1)
+        (out * torch.linspace(-1, 1, out.numel(), device=dev).view(out.shape)).sum().backward()
+        return [out.detach()] + [t.grad for t in ins if t is not None]
+    for got, want in zip(run(cuda), run("cpu")):
+        assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.fixture
+def deterministic():
+    """torch.use_deterministic_algorithms(True), strict, and cuDNN's
+    deterministic algorithms without TF32; the settings restored after."""
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
+    yield
+    torch.use_deterministic_algorithms(saved[0])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = saved[1:]
+
+
+@pytest.mark.parametrize("shape,size,align_corners,antialias", [
+    ((48, 48), (96, 96), False, True), ((41, 37), (20, 19), False, True),
+    ((17, 23), (40, 40), True, False)])
+def test_resize_backward_under_deterministic_algorithms(cuda, deterministic, shape, size,
+                                                        align_corners, antialias):
+    """The semantic resizes (common.interpolate_bilinear) under deterministic
+    algorithms on the card: the forward equals F.interpolate's on the CPU and
+    the gradient, two matrix products instead of CUDA's atomics, is within
+    1e-5 of the CPU's and the same in two runs."""
+    import torch.nn.functional as F
+    from yolo_dual_tpu_torch.nn.common import interpolate_bilinear
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, *shape, generator=gen)
+    g = torch.randn(2, 3, *size, generator=gen)
+
+    def run(dev, fn):
+        xr = x.to(dev, copy=True).requires_grad_(True)
+        out = fn(xr, size, align_corners=align_corners, antialias=antialias)
+        out.backward(g.to(dev))
+        return out.detach().cpu(), xr.grad.cpu()
+    cpu = run("cpu", lambda t, s, **k: F.interpolate(t, size=s, mode="bilinear", **k))
+    first, second = run(cuda, interpolate_bilinear), run(cuda, interpolate_bilinear)
+    assert torch.equal(first[1], second[1])
+    for got, want in zip(first, cpu):
+        assert (got - want).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("cfg", ["resnet50.json", "yolov5_seg.json"])
+def test_semantic_backward_is_deterministic_on_the_card(cuda, deterministic, cfg):
+    """Under deterministic algorithms a semantic model's forward and backward
+    run on the card (no op refuses: the output resize goes through
+    common._DeterministicResize, DCNv2's index_add_ through torch's
+    deterministic variant) and two runs give bit-identical, finite gradients:
+    the learning proofs of chip_smoke.py run so."""
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+
+    def grads():
+        model = SemanticSegModel(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+        model.train()
+        out = model(x.to(cuda))
+        (out * torch.linspace(-1, 1, out.numel(), device=cuda).view(out.shape)).sum().backward()
+        return [p.grad.cpu() for p in model.parameters() if p.grad is not None]  # dead rows: None
+    first, second = grads(), grads()
+    assert len(first) == len(second) > 0
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 def test_mosaic_warp_hsv_on_the_card_equals_cpu(cuda):

@@ -58,8 +58,10 @@ from yolo_dual_tpu_torch.utils import plots
 cv2 = pytest.importorskip("cv2")
 
 PORT_CFG = SEM_CFG.parents[1].parent / "yolo_dual_tpu_torch" / "configs" / "semantic"
-CONFIGS = ("resnet18", "resnet34", "resnet50", "resnet18_unet", "resnet34_unet", "vgg16")
-NARROW = {"resnet50": 16, "resnet18": 8, "vgg16": 16}  # config: width divisor
+CONFIGS = ("resnet18", "resnet34", "resnet50", "resnet18_unet", "resnet34_unet", "vgg16",
+           "yolov5_seg", "yolov8_seg", "yolov9_seg")
+NARROW = {"resnet50": 16, "resnet18": 8, "vgg16": 16,  # config: width divisor
+          "yolov5_seg": 16, "yolov8_seg": 16, "yolov9_seg": 16}
 IMGSZ = 64
 NEAR_TIE = 1e-3  # two best scores closer than this may swap between float32 runs
 N_PREDICT = 3  # frames through both predict CLIs
@@ -170,6 +172,34 @@ def test_resizes_and_aligning_concat_match_jax(shape, size):
     want = np.asarray(jax_backbones.resize_bilinear_ac(jnp.asarray(b), size))
     np.testing.assert_allclose(nhwc(backbones.resize_bilinear_ac(to_nchw(b), size)), want,
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("align_corners,antialias", [(False, True), (True, False)])
+@pytest.mark.parametrize("shape,size", [((41, 37), (20, 19)), ((17, 23), (40, 40)),
+                                        ((48, 48), (96, 96))])
+def test_deterministic_resize_backward(shape, size, align_corners, antialias):
+    """The resize taken under torch.use_deterministic_algorithms on the card
+    (common._DeterministicResize), run here on the CPU: its forward is
+    F.interpolate's, its matrix-product backward equals F.interpolate's
+    backward, and float64 gradcheck holds."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3, *shape)).astype(np.float64))
+    g = torch.from_numpy(rng.standard_normal((2, 3, *size)).astype(np.float64))
+    grads = []
+    for resize in (lambda t: F.interpolate(t, size=size, mode="bilinear",
+                                           align_corners=align_corners, antialias=antialias),
+                   lambda t: common._DeterministicResize.apply(t, size, align_corners,
+                                                               antialias)):
+        xr = x.float().requires_grad_(True)
+        out = resize(xr)
+        out.backward(g.float())
+        grads.append((out.detach().numpy(), xr.grad.numpy()))
+    np.testing.assert_array_equal(grads[1][0], grads[0][0])
+    np.testing.assert_allclose(grads[1][1], grads[0][1], rtol=1e-5, atol=1e-5)
+    x64 = x[:1, :1].clone().requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda t: common._DeterministicResize.apply(t, size, align_corners, antialias), (x64,))
 
 
 # ---------------------------------------------------------------------------
@@ -376,24 +406,42 @@ def test_semantic_panel_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def narrow_resnet50(json_set, tmp_path_factory):
-    """JAX's narrow resnet50 and its variables, BatchNorm calibrated on the
-    set's first 8 frames (host route), and the same weights as a `.pt`
-    state_dict for the port's CLIs."""
-    d = narrow_semantic("resnet50", NARROW["resnet50"])
+def narrow_calibrated_cli(name, json_set, tmp_path_factory, jax_orbax=False):
+    """JAX's narrow `name` and its variables, BatchNorm calibrated on the
+    set's first 8 frames (host route), the same weights as a `.pt`
+    state_dict for the port's CLIs, and the weights JAX's CLIs read: the
+    `.pt` too, or with `jax_orbax` an orbax checkpoint of the variables (JAX's
+    own `.pt` import fills C2f_DCN's `m_{i}_...` leaves from none of them)."""
+    d = narrow_semantic(name, NARROW[name])
     jm, v = jax_model_and_variables(d, seed=12)
     ds = json_dataset.JSONSegmentDataset(json_set / "port" / "images", json_set / "json",
                                          img_size=IMGSZ)
     v = calibrated_semantic(jm, v, d, to_nchw(np.stack([ds[i]["image"] for i in range(8)]))
                             .float() / 255)
     root = tmp_path_factory.mktemp("sem_cli")
-    cfg = root / "resnet50_narrow.json"
+    cfg = root / f"{name}_narrow.json"
     cfg.write_text(json.dumps(d))
-    weights = root / "resnet50_narrow.pt"
+    weights = root / f"{name}_narrow.pt"
     torch.save(state_dict_from_flax(v), weights)
+    jax_weights = weights
+    if jax_orbax:
+        from yolo_dual_tpu.train.checkpoint import save_checkpoint
+        jax_weights = root / f"{name}_narrow_orbax"
+        save_checkpoint(jax_weights, {"variables": v})
     scores = jax.jit(lambda x: jm.apply(v, x))  # JAX's scores of (b, s, s, 3) images
-    return jm, scores, v, cfg, weights
+    return jm, scores, v, cfg, weights, jax_weights
+
+
+@pytest.fixture(scope="module")
+def narrow_resnet50(json_set, tmp_path_factory):
+    return narrow_calibrated_cli("resnet50", json_set, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def narrow_yolov8(json_set, tmp_path_factory):
+    """The narrow yolov8_seg (C2f, C2f_DCN; its backbone ends in an Upsample
+    row), calibrated as narrow_resnet50."""
+    return narrow_calibrated_cli("yolov8_seg", json_set, tmp_path_factory, jax_orbax=True)
 
 
 def near_tie_pixels(scores):
@@ -408,7 +456,7 @@ def test_val_cli_matches_jax_evaluate_semantic(json_set, narrow_resnet50, device
     loader, same weights: the argmax maps of every batch agree except at near
     ties (counted), so the confusion matrices do; mIoU, per-class IoU and the
     val loss agree; the maps hold several classes."""
-    jm, jax_scores, v, cfg, weights = narrow_resnet50
+    jm, jax_scores, v, cfg, weights, _ = narrow_resnet50
     kw = dict(img_size=IMGSZ, num_classes=SEM_NC, device_preprocess=device_preprocess)
     jloader = JaxLoader(JaxJSONDataset(json_set / "jax" / "images", json_set / "json", **kw),
                         batch_size=4, prefetch=0)
@@ -471,9 +519,18 @@ def test_predict_cli_writes_jax_masks(json_set, narrow_resnet50, tmp_path, monke
     frames), and its mIoU / pixel accuracy against the JSON masks. JAX's CLI
     starts from a zero tree in place of its eager random init (~30 s on the
     CPU), which the `.pt` import then fills."""
+    predict_cli_matches_jax(json_set, narrow_resnet50, tmp_path, monkeypatch)
+
+
+def test_predict_cli_writes_jax_masks_yolov8_seg(json_set, narrow_yolov8, tmp_path, monkeypatch):
+    """As test_predict_cli_writes_jax_masks, with the narrow yolov8_seg."""
+    predict_cli_matches_jax(json_set, narrow_yolov8, tmp_path, monkeypatch)
+
+
+def predict_cli_matches_jax(json_set, narrow, tmp_path, monkeypatch):
     import importlib.util
     import shutil
-    _, jax_scores, v, cfg, weights = narrow_resnet50
+    _, jax_scores, v, cfg, weights, jax_weights = narrow
     monkeypatch.setattr(JaxSemanticSegModel, "init", lambda self, *a, **k: jax.tree_util.tree_map(
         np.zeros_like, v))
     for side, ext in (("jax", "png"), ("port", "npy")):
@@ -484,9 +541,10 @@ def test_predict_cli_writes_jax_masks(json_set, narrow_resnet50, tmp_path, monke
         "jax_semantic_predict", SEM_CFG.parents[2] / "semantic" / "predict.py")
     jax_predict = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_predict)
-    want, jdir = jax_predict.run(weights=str(weights), cfg=str(cfg), source=str(tmp_path / "jax"),
-                                 imgsz=IMGSZ, gt_json_dir=str(json_set / "json"),
-                                 project=str(tmp_path), name="jax_out")
+    want, jdir = jax_predict.run(weights=str(jax_weights), cfg=str(cfg),
+                                 source=str(tmp_path / "jax"), imgsz=IMGSZ,
+                                 gt_json_dir=str(json_set / "json"), project=str(tmp_path),
+                                 name="jax_out")
     got, pdir, speed = predict_cli.run(weights=str(weights), cfg=str(cfg),
                                        source=str(tmp_path / "port"), imgsz=IMGSZ,
                                        gt_json_dir=str(json_set / "json"), project=str(tmp_path),

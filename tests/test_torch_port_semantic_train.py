@@ -67,7 +67,8 @@ from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
 
 HYP = load_config(find_cfg("hyp.scratch-seg.yaml"))
 IMGSZ = 64
-NARROW = {"resnet50": 16, "resnet18": 8, "resnet18_unet": 8, "vgg16": 16}
+NARROW = {"resnet50": 16, "resnet18": 8, "resnet18_unet": 8, "vgg16": 16,
+          "yolov5_seg": 16, "yolov8_seg": 16, "yolov9_seg": 16}
 STEP_RTOL, CYCLE_RTOL, FLOAT64_RTOL = 3e-2, 7e-2, 2e-2
 ELEMENT_TOL = dict(rtol=1e-3, atol=1e-4)
 

@@ -15,9 +15,10 @@ SEG_CFG = ROOT / "yolo_dual_tpu" / "configs" / "segment"
 def random_variables(init_fn, x_shape, seed):
     """Numpy variables shaped like `init_fn(key, x)` (traced with eval_shape,
     never compiled), filled from `np.random.default_rng(seed)`: conv kernels
-    N(0, 1/fan_in), conv biases N(0, 0.5), BN scale U(0.5, 1.5), BN bias
-    N(0, 0.2), running mean N(0, 0.2), running var U(0.5, 1.5). Non-trivial BN
-    statistics make the conv+BN fold a real test."""
+    and the raw deformable weights (DCNv2's `weight`, C2f_DCN's
+    `m_{i}_dcn_weight`) N(0, 1/fan_in), conv biases N(0, 0.5), BN scale
+    U(0.5, 1.5), BN bias N(0, 0.2), running mean N(0, 0.2), running var
+    U(0.5, 1.5). Non-trivial BN statistics make the conv+BN fold a real test."""
     rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(init_fn, jax.random.PRNGKey(0), jax.ShapeDtypeStruct(x_shape, jnp.float32))
 
@@ -26,7 +27,7 @@ def random_variables(init_fn, x_shape, seed):
             return {k: fill(v, path + (k,)) for k, v in tree.items()}
         shape, leaf = tuple(tree.shape), path[-1]
         in_bn = "bn" in path
-        if leaf == "kernel":
+        if leaf in ("kernel", "weight") or leaf.endswith("_dcn_weight"):
             v = rng.normal(0, 1 / np.sqrt(np.prod(shape[:-1])), shape)
         elif leaf == "scale" or leaf == "var":
             v = rng.uniform(0.5, 1.5, shape)
@@ -152,16 +153,45 @@ SEM_NC = 12
 def narrow_semantic(name, div):
     """The JAX semantic config `name` with the same rows and every width but
     the class count divided by `div` (at least 4; a SegmentHead's width at
-    least 2)."""
+    least 2). Rows without a width (Softmax, Concat, both spellings of
+    Upsample) and GAM, whose width the compiler takes from its input, keep
+    their args, and so does every repeat argument (args[1] of C3, C3_DCN,
+    C2f, C2f_DCN, C3k2)."""
     import yaml
     d = yaml.safe_load((SEM_CFG / f"{name}.yaml").read_text())
     for row in d["backbone"] + d["head"]:
         args = row[3]
         if row[2] == "SegmentHead":
             args[1] = max(args[1] // div, 2)
-        elif row[2] not in ("nn.Softmax", "Concat", "Upsample") and args[0] != d["nc"]:
+        elif row[2] not in ("nn.Softmax", "Concat", "Upsample", "nn.Upsample", "GAM") \
+                and args[0] != d["nc"]:
             args[0] = max(args[0] // div, 4)
     return d
+
+
+def flax_from_state_dict(v, sd):
+    """The inverse of the port's `state_dict_from_flax`: JAX variables shaped
+    as `v` holding the tensors of the port's state_dict `sd` (OIHW -> HWIO for
+    conv kernels and the raw deformable weights, Linear -> Dense kernels).
+    JAX's own torch import (`import_torch_state_dict`) reads neither DCNv2's
+    `weight` nor C2f_DCN's `m_{i}_...` leaves."""
+    from yolo_dual_tpu_torch.io.weights import _flatten, state_dict_from_flax
+    keys = [k for k in state_dict_from_flax(v) if not k.endswith("num_batches_tracked")]
+    leaves = [(coll, path, leaf) for coll in ("params", "batch_stats")
+              for path, leaf in _flatten(v.get(coll, {}))]
+    assert len(keys) == len(leaves)
+    out = {}
+    for key, (coll, path, leaf) in zip(keys, leaves):
+        t = sd[key].detach().cpu().numpy()
+        name = path[-1]
+        if coll == "params" and (name in ("kernel", "weight") or name.endswith("_dcn_weight")):
+            t = t.transpose(2, 3, 1, 0) if t.ndim == 4 else (t.T if t.ndim == 2 else t)
+        assert t.shape == np.shape(leaf), (key, t.shape, np.shape(leaf))
+        node = out.setdefault(coll, {})
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[name] = np.ascontiguousarray(t, dtype=np.asarray(leaf).dtype)
+    return out
 
 
 def write_json_set(root, n, shape, seed, nc=SEM_NC):
@@ -197,12 +227,11 @@ def calibrated_semantic(jm, v, cfg, images):
     """JAX variables `v` of the semantic model `jm` with every BatchNorm's
     running statistics replaced by those of `images` ((b, 3, h, w) float in
     [0, 1]), taken through the port's model of `cfg` in train mode and carried
-    back with JAX's own torch import. With identity or random statistics a
+    back (`flax_from_state_dict`). With identity or random statistics a
     random network's scores collapse onto one class; calibrated, the argmax
     map holds several."""
     import torch
 
-    from yolo_dual_tpu.io.torch_import import import_torch_state_dict
     from yolo_dual_tpu_torch.io.weights import state_dict_from_flax
     from yolo_dual_tpu_torch.models.model import SemanticSegModel
     model = SemanticSegModel(cfg, device="cpu")
@@ -213,4 +242,41 @@ def calibrated_semantic(jm, v, cfg, images):
             bn.momentum = None  # a cumulative average: one batch sets its own statistics
     with torch.no_grad():
         model.train()(images)
-    return import_torch_state_dict(v, model.state_dict(), spec=jm.spec, strict=True)
+    return flax_from_state_dict(v, model.state_dict())
+
+
+def spread_offsets(v, seed, gain):
+    """`v` with every DCNv2 offset head (`conv_offset_mask`) drawn so its
+    offsets span ±2-3 px: biases U(−2, 2), a fixed shift of each kernel
+    point, and the kernel × `gain`, the part that follows the features. JAX
+    initialises these heads to zero, where every sample is a grid point. In a
+    whole calibrated network offsets that follow the features steeply make it
+    chaotic: at gain 1 the narrow yolov5_seg's float32 forward stands ~0.8
+    from its float64 one, in JAX as in the port; at gain 0.1, 3e-5."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t, path=()):
+        if not hasattr(t, "items"):
+            if "conv_offset_mask" not in path:
+                return t
+            if path[-1] == "kernel":
+                return t * gain
+            return rng.uniform(-2, 2, t.shape).astype(t.dtype)
+        return {k: walk(x, path + (k,)) for k, x in t.items()}
+    return {**v, "params": walk(v["params"])}
+
+
+def narrow_calibrated(name, div, seed, images):
+    """The narrow semantic config `name` (narrow_semantic), JAX's model of it
+    and seeded variables (random_variables) with the DCNv2 offset heads
+    spread at gain 0.1 (spread_offsets) and BatchNorm calibrated on `images`
+    ((b, h, w, 3) uint8)."""
+    import torch
+
+    from yolo_dual_tpu.models.model import SemanticSegModel as JaxSemanticSegModel
+    d = narrow_semantic(name, div)
+    jm = JaxSemanticSegModel(d)
+    v = random_variables(lambda k, x: jm.module.init(k, x, train=False),
+                         (1, *images.shape[1:3], 3), seed=seed)
+    x = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2).float() / 255
+    return d, jm, calibrated_semantic(jm, spread_offsets(v, seed + 1, gain=0.1), d, x)

@@ -31,7 +31,9 @@ def state_dict_from_flax(variables) -> dict:
       a ResNet stage's `block{j}` -> `layer.{j}` (JAX train/checkpoint.py:122-128);
     - the Segment head's `detect` level is dropped (the torch Segment subclasses Detect);
     - conv `kernel` HWIO -> `weight` OIHW; Dense `kernel` (in, out) ->
-      Linear `weight` (out, in); BN `scale` -> `weight`;
+      Linear `weight` (out, in); BN `scale` -> `weight`; the raw deformable
+      weights (DCNv2's `weight`, C2f_DCN's `m_{i}_dcn_weight`) HWIO -> OIHW
+      under their own names;
       `mean`/`var` -> `running_mean`/`running_var`;
     - every BatchNorm gets the `num_batches_tracked` buffer the JAX tree lacks.
     """
@@ -62,6 +64,8 @@ def state_dict_from_flax(variables) -> dict:
                     v = v.T
             elif leaf == "scale":
                 leaf = "weight"
+            elif (leaf == "weight" or leaf.endswith("_dcn_weight")) and v.ndim == 4:
+                v = v.transpose(3, 2, 0, 1)
             out[".".join(new + [leaf])] = torch.from_numpy(np.array(v, copy=True))
     return out
 

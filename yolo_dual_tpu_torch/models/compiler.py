@@ -4,10 +4,11 @@ Compiles a config dict (`nc / depth_multiple / width_multiple / anchors /
 backbone / head`, rows `[from, number, module, args]`, reference
 models/yolo.py:299-382 parse_model) into a static `ModelSpec`, and builds torch
 modules from it through an explicit registry. Both dialects of the JAX
-compiler are ported: 'detect' (the yolov5{n,s,m,l,x}-seg configs and the
-DCNv3 blocks `C3_DCNV3`, `DCNV3_YoLo`) and 'semantic' (the ResNet, ResNet
-U-Net and VGG16 configs: the `number` column ignored, C3 rows read their
-repeat from args[1], no width scaling, relu by default, aligning Concats).
+compiler are ported: 'detect' (the yolov5{n,s,m,l,x}-seg configs, the DCNv3
+blocks `C3_DCNV3`, `DCNV3_YoLo` and the DCNv2 ones of yolov5n-DCN) and
+'semantic' (the ResNet, ResNet U-Net, VGG16 and YOLO configs: the `number`
+column ignored, C3 rows read their repeat from args[1], C2f / C2f_DCN / C3k2
+rows from int(args[1]), no width scaling, relu by default, aligning Concats).
 
 Unlike the JAX spec, each layer records its input channels `c1`, because torch
 modules are built with them.
@@ -85,6 +86,8 @@ def _populate_registry():
 
     for nm, cls in {"Conv": C.Conv, "Bottleneck": C.Bottleneck, "C3": C.C3,
                     "C3Conv": C.C3Conv, "SPPF": C.SPPF, "Proto": C.Proto,
+                    "C2f": C.C2f, "C3k2": C.C3k2, "GAM": C.GAM,
+                    "DCNv2": D.DCNv2, "C3_DCN": D.C3_DCN, "C2f_DCN": D.C2f_DCN,
                     "DCNV3_YoLo": D.DCNV3_YoLo, "C3_DCNV3": D.C3_DCNV3,
                     "ResNetStem": B.ResNetStem, "ResNetLayer": B.ResNetLayer,
                     "VGGBlock": B.VGGBlock, "SegmentHead": B.SegmentHead}.items():
@@ -110,12 +113,14 @@ def build_module(layer: LayerSpec) -> nn.Module:
 
 
 # Modules whose first arg is c2 (width-scaled on the detect path).
-_CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3", "C3Conv", "DCNV3_YoLo", "C3_DCNV3"}
+_CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3", "C3Conv", "C2f", "C3k2", "DCNv2", "C3_DCN",
+             "C2f_DCN", "DCNV3_YoLo", "C3_DCNV3"}
 # Modules whose repeat is an `n` kwarg (on the detect path the compiler
 # inserts the row's repeat). As in the JAX compiler, C3_DCNV3 is not one of
 # them: its row repeat stays a repeat of whole C3_DCNV3 modules, each with one
-# inner bottleneck.
-_REPEAT_AS_N = {"C3", "C3Conv"}
+# inner bottleneck. On the semantic path C3_DCN keeps its args as they are
+# ([c2, n], shortcut True); C2f, C2f_DCN and C3k2 take n = int(args[1]).
+_REPEAT_AS_N = {"C3", "C3Conv", "C3_DCN", "C2f", "C2f_DCN", "C3k2"}
 # Modules whose output width is their first arg.
 _C2_FIRST = {"ResNetStem", "ResNetLayer", "VGGBlock", "SegmentHead"}
 _RESNET_LAYERS = {"ResNet50Layer": "bottleneck", "ResNet18Layer": "basic",
@@ -156,7 +161,7 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
             kw["act"] = act
         return kw
 
-    if name in ("Conv", "DCNV3_YoLo"):
+    if name in ("Conv", "DCNV3_YoLo", "DCNv2"):
         return actkw(dict(zip(["c2", "k", "s", "p", "g", "d", "act"], a))), n
     if name == "Bottleneck":
         return actkw(dict(zip(["c2", "shortcut", "g", "e"], a))), n
@@ -172,6 +177,8 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
         return dict(zip(["c2"], a)), n
     if name == "nn.Softmax":
         return {"dim": a[0] if a else 1}, n
+    if name == "GAM":
+        return dict(zip(["c", "k", "s", "e"], a)), n
     keys = {"ResNetStem": ["c2"], "ResNetLayer": ["c2", "n", "stride", "block"],
             "VGGBlock": ["c2", "n", "pool"], "SegmentHead": ["nc", "width"]}.get(name)
     if keys is not None:
@@ -180,19 +187,26 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
             kw["act"] = act
         return kw, n
     raise KeyError(f"Module {name!r} is not ported. Known: "
-                   f"{sorted(_CONVLIKE | _C2_FIRST | set(_RESNET_LAYERS) | {'Concat', 'Upsample', 'nn.Upsample', 'nn.Softmax', 'Detect', 'Segment'})}")
+                   f"{sorted(_CONVLIKE | _C2_FIRST | set(_RESNET_LAYERS) | {'Concat', 'Upsample', 'nn.Upsample', 'nn.Softmax', 'GAM', 'Detect', 'Segment'})}")
 
 
 def _semantic_row(name: str, args: list, n: int):
-    """The semantic dialect's row rewrites (JAX models/compiler.py:346-365):
+    """The semantic dialect's row rewrites (JAX models/compiler.py:346-389):
     C3 becomes C3Conv with its repeat from args[1] (False -> 0 inner blocks),
+    C2f, C2f_DCN and C3k2 take their repeat from int(args[1]) (True -> 1),
     ResNet{18,34,50}Layer become ResNetLayer with their block kind, and the
     `number` column is ignored, except on the ResNet rows, which keep it
-    as JAX does. Returns (name, args, n)."""
+    as JAX does. Every other row keeps its args: a C3_DCN row's [c2, n] zips
+    to c2 and n with JAX's default shortcut=True. Returns (name, args, n)."""
     if name == "C3":
         inner = int(args[1]) if len(args) > 1 else 1
         shortcut = bool(args[2]) if len(args) > 2 else False
         return "C3Conv", [args[0], inner, shortcut] + list(args[3:]), 1
+    if name in ("C2f", "C2f_DCN", "C3k2"):
+        args = list(args)
+        if len(args) > 1:
+            args[1] = int(args[1])
+        return name, args, 1
     if name in _RESNET_LAYERS:
         if len(args) != 3:
             raise ValueError(f"{name} args {args}: expected [c2, blocks, stride]")
@@ -248,6 +262,9 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
             c2 = sum(c1)
         elif name in ("Detect", "Segment"):
             c2 = 0
+        elif name == "GAM":  # its width is the input's (JAX models/compiler.py:430-432)
+            c2 = c1
+            args = [c2, *args[1:]]
         else:
             c2 = c1 if isinstance(c1, int) else c1[0]
 

@@ -17,7 +17,7 @@ import torch.nn as nn
 from yolo_dual_tpu_torch.models.compiler import ModelSpec, build_module, parse_config, with_strides
 from yolo_dual_tpu_torch.models.heads import Detect
 from yolo_dual_tpu_torch.nn.common import Conv, resize_bilinear
-from yolo_dual_tpu_torch.nn.dcn import DCNv3
+from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
 from yolo_dual_tpu_torch.utils.general import find_cfg, load_config, select_device
 
 _HEADS = ("Detect", "Segment")
@@ -88,23 +88,37 @@ def _probe_strides(spec: ModelSpec) -> ModelSpec:
 
 def init_weights(model: nn.Module, generator: torch.Generator):
     """Random weights from `generator` (a CPU generator): conv and linear
-    weights N(0, 1/fan_in), as flax's lecun_normal init; zero biases; identity
-    BatchNorms with fresh running stats; zero DCNv3 offset and mask heads, as
-    the JAX DCNv3 initializes them (every sample on its grid point, uniform mask)."""
+    weights N(0, 1/fan_in), as flax's lecun_normal init, and so C2f_DCN's
+    deformable weights; DCNv2's weight U(±1/sqrt(cin·k²)) (JAX
+    nn/dcn.py:289-295); zero biases; identity BatchNorms with fresh running
+    stats; zero DCNv3 offset and mask heads and zero DCNv2 `conv_offset_mask`,
+    as JAX initializes them (every sample on its grid point, uniform mask)."""
+    def lecun(w):
+        w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(w[0].numel()))
+
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in))
+                lecun(m.weight)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
+            elif isinstance(m, DCNv2):  # JAX: std over the input's channels, not a group's
+                std = 1 / math.sqrt(m.weight[0].numel() * m.g)
+                m.weight.copy_((torch.rand(m.weight.shape, generator=generator) * 2 - 1) * std)
+                m.bias.zero_()
+            elif isinstance(m, C2f_DCN):
+                for i in range(m.n):
+                    lecun(getattr(m, f"m_{i}_dcn_weight"))
         for m in model.modules():
             if isinstance(m, DCNv3):
                 for head in (m.offset, m.mask):
                     head.weight.zero_()
                     head.bias.zero_()
+            elif isinstance(m, DCNv2):
+                m.conv_offset_mask.weight.zero_()
+                m.conv_offset_mask.bias.zero_()
 
 
 def initialize_detect_biases(model: GraphModel):

@@ -13,10 +13,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from yolo_dual_tpu_torch.nn.activations import resolve_act
-from yolo_dual_tpu_torch.nn.common import Conv
+from yolo_dual_tpu_torch.nn.common import Conv, interpolate_bilinear
 
 
 class ResNetStem(nn.Module):
@@ -92,7 +91,7 @@ def resize_bilinear_ac(x: torch.Tensor, size) -> torch.Tensor:
     antialias (JAX backbones.py:118, which SegmentHead uses)."""
     if tuple(x.shape[-2:]) == tuple(size):
         return x
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+    return interpolate_bilinear(x, size, align_corners=True)
 
 
 class SegmentHead(nn.Module):

@@ -60,12 +60,23 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         self.num_batches_tracked.add_(1)
         m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            # one value a channel (GAM's pooled maps at batch 1): F.batch_norm refuses
+            # it; flax normalises with the batch mean and a variance of 0, so the
+            # output is the bias and the running variance decays toward 0
+            mean = x.mean((0, 2, 3))
+            y = (x - mean[:, None, None]) * torch.rsqrt(torch.full_like(mean, self.eps))[
+                :, None, None] * self.weight[:, None, None] + self.bias[:, None, None]
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m)
+            return y
         # momentum 1 makes F.batch_norm write the batch mean and unbiased variance
         # into these scratch buffers, so no second pass over x is needed
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.running_mean.mul_(1 - m).add_(mean, alpha=m)
             self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
@@ -149,6 +160,48 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat([x, y1, y2, y3], 1))
 
 
+def _resize_matrix(n_in: int, n_out: int, align_corners: bool, antialias: bool,
+                   like: torch.Tensor) -> torch.Tensor:
+    """(n_out, n_in) weights of F.interpolate's bilinear resize along one
+    axis: the resize of an identity along its rows (its columns keep their
+    size, which that resize leaves exactly as they are)."""
+    eye = torch.eye(n_in, dtype=like.dtype, device=like.device)[None, None]
+    return F.interpolate(eye, size=(n_out, n_in), mode="bilinear", align_corners=align_corners,
+                         antialias=antialias)[0, 0]
+
+
+class _DeterministicResize(torch.autograd.Function):
+    """F.interpolate's bilinear resize whose backward is two matrix products,
+    Ayᵀ·g·Ax, with each axis' weights from `_resize_matrix`. CUDA's own
+    backward scatters with atomics, so its sums change order from run to run
+    and torch.use_deterministic_algorithms(True) refuses it."""
+
+    @staticmethod
+    def forward(ctx, x, size, align_corners, antialias):
+        ctx.resize = (tuple(x.shape[-2:]), tuple(size), align_corners, antialias)
+        return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=align_corners,
+                             antialias=antialias)
+
+    @staticmethod
+    def backward(ctx, g):
+        (hi, wi), (ho, wo), align_corners, antialias = ctx.resize
+        ay = _resize_matrix(hi, ho, align_corners, antialias, g)
+        ax = _resize_matrix(wi, wo, align_corners, antialias, g)
+        return ay.T @ g @ ax, None, None, None
+
+
+def interpolate_bilinear(x: torch.Tensor, size, align_corners: bool,
+                         antialias: bool = False) -> torch.Tensor:
+    """F.interpolate(mode="bilinear"); under torch.use_deterministic_algorithms
+    a CUDA tensor that needs a gradient goes through `_DeterministicResize`,
+    as torch's own ops take their deterministic variants there."""
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled() \
+            and torch.are_deterministic_algorithms_enabled():
+        return _DeterministicResize.apply(x, tuple(size), align_corners, antialias)
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=align_corners,
+                         antialias=antialias)
+
+
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor with half-pixel centers, as JAX's
     `resize_bilinear` (`jax.image.resize(..., "bilinear")`, JAX
@@ -156,8 +209,7 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     does too (antialias=True; on an enlargement the flag changes nothing)."""
     if tuple(x.shape[-2:]) == tuple(size):
         return x
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
-                         antialias=True)
+    return interpolate_bilinear(x, size, align_corners=False, antialias=True)
 
 
 class C3Conv(C3):
@@ -167,6 +219,71 @@ class C3Conv(C3):
 
     def inner(self, c_, n, shortcut, g, act):
         return [Conv(c_, c_, 3, 1, g=g, act=act) for _ in range(n)]
+
+
+class C2f(nn.Module):
+    """This fork's C2f (JAX nn/common.py:619; reference
+    yolov8/seg_jaccardloss_yolov8.py:401-414): split, n plain 3x3 Convs each
+    on the last piece, merge, and a residual when c1 == c2. Upstream
+    ultralytics' C2f uses Bottlenecks instead."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, act=True):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1, act=act)
+        self.m = nn.ModuleList(Conv(self.c, self.c, 3, 1, g=g, act=act) for _ in range(n))
+        self.cv2 = Conv((2 + n) * self.c, c2, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, :self.c], y[:, self.c:]]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        out = self.cv2(torch.cat(ys, 1))
+        return out + x if self.add else out
+
+
+class C3k2(nn.Module):
+    """This fork's C3k2 (JAX nn/common.py:645; reference
+    yolo9-seg/seg_diceloss_yolov9.py:451-472): the C3 skeleton with a stack of
+    n plain 3x3 Convs and a residual when c1 == c2."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, act=True):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1, act=act)
+        self.m = nn.ModuleList(Conv(c_, c_, 3, 1, g=g, act=act) for _ in range(n))
+        self.cv2 = Conv(c1, c_, 1, 1, act=act)
+        self.cv3 = Conv(2 * c_, c2, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for m in self.m:
+            y1 = m(y1)
+        out = self.cv3(torch.cat([y1, self.cv2(x)], 1))
+        return out + x if self.add else out
+
+
+class GAM(nn.Module):
+    """Global aggregation channel attention (JAX nn/common.py:670; reference
+    yolo9-seg/seg_diceloss_yolov9.py:475-510): x gated by the sigmoid of
+    conv2(mean pool of conv1(x)) + conv3(max pool of conv1(x)). `conv1` is
+    one module called twice, as in JAX: in training its BatchNorm's running
+    statistics move twice a forward."""
+
+    def __init__(self, c1, c, k=1, s=1, e=0.25):
+        super().__init__()
+        c_ = int(c * e)
+        self.conv1 = Conv(c1, c_, k, s)
+        self.conv2 = Conv(c_, c, k, s, act=False)
+        self.conv3 = Conv(c_, c, k, s, act=False)
+
+    def forward(self, x):
+        y1 = self.conv2(self.conv1(x).mean((2, 3), keepdim=True))
+        y2 = self.conv3(self.conv1(x).amax((2, 3), keepdim=True))
+        return x * torch.sigmoid(y1 + y2)
 
 
 class Concat(nn.Module):

@@ -21,8 +21,11 @@ at the end. The run's settings are saved as `opt.json` and `hyp.json`;
 `--resume` continues the newest run with a `last.pt` (or the given
 checkpoint) with them, flags typed on the command line winning.
 
-Without --weights the model has random weights drawn from a generator seeded
-with 0. The device defaults to cuda; pass --device cpu to run on the CPU.
+The model starts from the JAX package's initial weights (`model.init()`,
+flax's initializers under PRNGKey(0), drawn again by
+models/flax_init.py:flax_init_), as JAX's trainer does, and --weights then
+replaces the entries whose names and shapes match. The device defaults to
+cuda; pass --device cpu to run on the CPU.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from yolo_dual_tpu_torch.data.loader import to_device
 from yolo_dual_tpu_torch.engine.validator import evaluate_semantic
 from yolo_dual_tpu_torch.kernels.preprocess import semantic_preprocess
 from yolo_dual_tpu_torch.losses.semantic import SemanticSegLoss, parse_class_weights
+from yolo_dual_tpu_torch.models.flax_init import flax_init_
 from yolo_dual_tpu_torch.models.model import SemanticSegModel
 from yolo_dual_tpu_torch.train.checkpoint import (load_checkpoint, partial_load, resume_run,
                                                   save_checkpoint, strip_optimizer)
@@ -84,8 +88,7 @@ def train(opt):
     if not ok and opt.mask_dir:
         LOGGER.info(f"{len(missing)} JSON masks missing; converting from {opt.mask_dir}")
         batch_convert_masks_to_json(opt.mask_dir, opt.json_dir, CLASS_NAMES)
-    model = SemanticSegModel(opt.cfg, nc=opt.nc, device=dev,
-                             generator=torch.Generator().manual_seed(0))
+    model = flax_init_(SemanticSegModel(opt.cfg, nc=opt.nc, device=dev))
     if opt.weights and resume_ckpt is None:
         partial_load(model, opt.weights)  # shape-matching entries (reference intersect_dicts)
 
