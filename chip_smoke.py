@@ -113,6 +113,17 @@ which raises on failure:
    RESUME_TOL (atomics); (d) each config's learning proof, as 6d (c), at or
    above its controlled golden (tests/test_semantic_golden.py:54-63) less
    0.05;
+6f. the detect zoo (detect_zoo_path): the 17 configs of the SPP, attention,
+   Ghost, Transformer and YOLOv3 modules and yolov5s as the control, each at
+   its published width and depth, nc 80, 640 px, built by `build_model` on
+   cuda (seeded weights, BatchNorm calibrated on 4 seeded frames) behind
+   `AutoShape(fuse=True)`: 4 seeded frames of the MAIN_SHAPES sizes on the
+   card and on the CPU (TF32 off): raw head maps within 1e-3 of each map's
+   largest magnitude, detections at conf 0.05 paired (boxes within 0.05 px,
+   confidences within 1e-4; near ties counted); the bs-32 fused forward +
+   nms_from_raw in img/s and its peak memory, AutoShape at batch 1 and 8 in
+   ms a call split into host letterbox / forward + NMS / rescale; no kernel
+   launch on this path (AutoShape letterboxes on the host);
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -195,6 +206,9 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+
+# tests/detection_matching.py pairs two runs' detections (phases 6 and 6f)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 rate (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
@@ -736,7 +750,7 @@ def model_path(cfg: str, frames, card: str) -> dict:
     from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling
     from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
     from yolo_dual_tpu_torch.models.model import SegmentationModel
-    from yolo_dual_tpu_torch.ops.boxes import match_detections
+    from detection_matching import match_detections
     from yolo_dual_tpu_torch.ops.nms import nms_from_raw
 
     # 4. slice: prediction on cuda
@@ -2030,6 +2044,133 @@ def yolo_semantic_path(card: str):
     return launches, {"eval": k1["val"], "train": k1["train"] + k1["proof"]}
 
 
+# Phase 6f: the detect zoo through build_model (DetectionModel) and AutoShape, nc 80, 640 px,
+# each config at its own published width and depth: the 17 configs of the SPP, attention, Ghost,
+# Transformer and YOLOv3 modules, and yolov5s as the control.
+DETECT_ZOO = ("yolov5s.json", "yolov5n-ASPP.json", "yolov5n-RFB.json", "yolov5n-SPP.json",
+              "yolov5n-SPPCSPC.json", "yolov5n-SPPCSPC_group.json", "yolov5n-SimCSPSPPF.json",
+              "yolov5n-SimSPPF.json", "yolov5n-FPN+PAN-AC.json", "yolov5n-FPN+PAN-AS.json",
+              "yolov5n-FPN-AC.json", "yolov5n-FPN-AS.json", "yolov5n-PAN-AC.json",
+              "yolov5n-PAN-AS.json", "yolov3-spp.json", "yolov3-tiny.json", "yolov5s-ghost.json",
+              "yolov5s-transformer.json")
+ZOO_CONF = 0.05  # checks and timed calls: a random network keeps few or no rows at 0.25
+ZOO_CHECK_MAX_DET = 1000  # card vs CPU: no max_det cut
+ZOO_RAW_TOL = 1e-3  # card vs CPU, TF32 off: raw head maps within this share of a map's largest
+ZOO_BOX_TOL, ZOO_CONF_TOL, ZOO_NEAR = 0.05, 1e-4, 1e-4  # px; confidence; a near tie
+ZOO_FRAMES, ZOO_BATCH = 4, 8
+
+
+def detect_zoo_path(card: str) -> dict:
+    """Phase 6f: each config of DETECT_ZOO built by `build_model` on the card
+    (seeded weights with the bias prior, BatchNorm calibrated on 4 seeded
+    frames: identity statistics make random scores tie) behind
+    `AutoShape(fuse=True)` at 640 px and conf ZOO_CONF (a random network keeps
+    few or no rows at AutoShape's default 0.25), on ZOO_FRAMES seeded frames
+    of the MAIN_SHAPES sizes. Card against CPU with TF32 off: the raw head maps
+    of the host-letterboxed frames within ZOO_RAW_TOL of each map's largest
+    magnitude, and AutoShape's detections paired (tests/detection_matching.py:
+    the same classes, boxes within ZOO_BOX_TOL px, confidences within
+    ZOO_CONF_TOL; near ties counted and printed, not compared). Timed with
+    TF32 convolutions (torch's default), each beside the rows its last call
+    returned: the bs-32 fused forward + nms_from_raw over the letterboxed
+    frames in img/s (CUDA events) and its peak memory; AutoShape at batch 1
+    on each frame and at ZOO_BATCH, ms a call split into host letterbox /
+    forward + NMS / rescale (host clock). Every config's
+    failure fails the phase. The
+    path launches none of K1-K3 (AutoShape letterboxes on the host): the
+    counts, set to 0 before each config's AutoShape calls and read after them,
+    are returned. Every config runs at nc 80 (the spp/ and attention/ files
+    say 2)."""
+    from yolo_dual_tpu_torch.data.augment import letterbox
+    from yolo_dual_tpu_torch.engine.autoshape import AutoShape
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import build_model
+    from detection_matching import pair_detections
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    kernels = (letterbox_normalize, dcnv3_sampling, dcnv3_sampling_backward)
+    print(f"detect zoo (6f) on {card}: {len(DETECT_ZOO)} configs, nc 80, 640 px, conf {ZOO_CONF}",
+          flush=True)
+    frames = make_frames(ZOO_FRAMES, seed=5)
+    calib = make_frames(4, seed=6)
+    x = torch.from_numpy(np.stack([letterbox(f, 640)[0] for f in frames])).permute(0, 3, 1, 2)
+    x32 = x.repeat(32 // len(frames), 1, 1, 1).cuda().float() / 255
+    launches = {k.__name__: 0 for k in kernels}
+    failures = []
+    for cfg in DETECT_ZOO:
+        t0 = time.perf_counter()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        model = build_model(cfg, nc=80, device="cuda", generator=torch.Generator().manual_seed(0))
+        assert type(model).__name__ == "DetectionModel" and model.nc == 80, cfg
+        calibrate_bn(model, calib)
+        api = AutoShape(model, imgsz=640, conf=ZOO_CONF)
+        head = model.model[-1]
+        row = {"cfg": cfg, "params": sum(p.numel() for p in model.parameters()),
+               "strides": list(head.strides), "build_s": time.perf_counter() - t0}
+
+        # card against CPU, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        cpu_model = copy.deepcopy(model).cpu()
+        with torch.inference_mode():
+            raw_g = model(x.cuda().float() / 255, decode=False)
+            raw_c = cpu_model(x.float() / 255, decode=False)
+        raw = [((g.cpu() - c).abs().max() / c.abs().max()).item() for g, c in zip(raw_g, raw_c)]
+        for k in kernels:
+            k.launches = 0
+        check = dict(imgsz=640, conf=ZOO_CONF, max_det=ZOO_CHECK_MAX_DET)
+        got = AutoShape(model, **check)(frames)
+        want = AutoShape(cpu_model, **check)(frames)
+        pairs = ties = 0
+        left = []
+        for w, g in zip(want.dets, got.dets):
+            n, t, lw, lg = pair_detections(w, g, ZOO_CONF, box_tol=ZOO_BOX_TOL,
+                                           conf_tol=ZOO_CONF_TOL, near=ZOO_NEAR)
+            pairs, ties = pairs + n, ties + t
+            left += [r.tolist() for r in (*lw, *lg)]
+        row["card_vs_cpu"] = {"raw_max_rel_diff": raw, "detections": [len(d) for d in got.dets],
+                              "cpu_detections": [len(d) for d in want.dets], "pairs": pairs,
+                              "near_ties": ties}
+        if max(raw) > ZOO_RAW_TOL or left or not all(np.isfinite(d).all() for d in got.dets):
+            failures.append(f"{cfg}: raw {raw}, unpaired rows {left[:4]}")
+        del cpu_model
+
+        # timing, TF32 convolutions
+        torch.backends.cudnn.allow_tf32 = True
+
+        def step():
+            with torch.inference_mode():
+                return nms_from_raw(model(x32, decode=False), head.anchors, head.strides,
+                                    conf_thres=ZOO_CONF, max_det=300)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row["bs32_img_per_s"] = 32 / (cuda_ms(step, 10) / 1e3)
+        row["bs32_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        row["bs32_rows"] = int(step()[1].sum())
+
+        def autoshape_ms(batch):
+            api(batch)  # warm-up at this batch
+            parts = np.zeros(3)
+            for _ in range(3):
+                out = api(batch)
+                parts += np.array(out.t) * len(batch) / 3
+            return {"letterbox": parts[0], "forward_nms": parts[1], "rescale": parts[2],
+                    "call": float(parts.sum()), "rows": sum(len(d) for d in out.dets)}
+        row["autoshape_bs1_ms"] = [{"frame": "x".join(map(str, f.shape[:2])), **autoshape_ms([f])}
+                                   for f in frames]
+        row[f"autoshape_bs{ZOO_BATCH}_ms"] = autoshape_ms(
+            [frames[i % len(frames)] for i in range(ZOO_BATCH)])
+        for k in kernels:
+            launches[k.__name__] += k.launches
+        row["phase_s"] = time.perf_counter() - t0
+        print("detect zoo " + json.dumps(row), flush=True)
+        del model, api, step, raw_g, raw_c
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("detect zoo card vs CPU: " + "; ".join(failures))
+    return launches
+
+
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
     """One seeded synthetic batch as the JAX package's loader yields it: uint8
     NHWC images, targets (bs, M, 5) normalised [cls, x, y, w, h] with 1..M
@@ -2609,6 +2750,8 @@ def main(argv=None) -> int:
     yolo_k1, yolo_paths = yolo_semantic_path(card)
     by_path["eval semantic yolo"] = {"letterbox_normalize": yolo_paths["eval"]}
     by_path["train semantic yolo"] = {"letterbox_normalize": yolo_paths["train"]}
+    # 6f. the detect zoo through build_model and AutoShape (no kernel on its path)
+    by_path["detect zoo"] = detect_zoo_path(card)
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
     # 10. the train CLI on a dataset on disk

@@ -28,7 +28,7 @@ from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_core, dcnv3_sampling
 from yolo_dual_tpu_torch.models.compiler import parse_config
 from yolo_dual_tpu_torch.models.model import SegmentationModel
 from yolo_dual_tpu_torch.nn import dcn as PD
-from yolo_dual_tpu_torch.ops.boxes import match_detections
+from detection_matching import match_detections
 from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
 
 TOL = dict(rtol=1e-4, atol=1e-4)

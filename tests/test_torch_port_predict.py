@@ -19,7 +19,7 @@ from yolo_dual_tpu.models.model import SegmentationModel as JaxSegmentationModel
 from yolo_dual_tpu_torch.engine.predictor import predict_images
 from yolo_dual_tpu_torch.io.weights import state_dict_from_flax
 from yolo_dual_tpu_torch.models.model import SegmentationModel
-from yolo_dual_tpu_torch.ops.boxes import match_detections
+from detection_matching import match_detections
 from yolo_dual_tpu_torch.segment import predict as predict_cli
 
 cv2 = pytest.importorskip("cv2")

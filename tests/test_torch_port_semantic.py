@@ -10,12 +10,18 @@ Tolerances: forwards rtol 1e-4 / atol 1e-5 (float32, other summation orders);
 preprocessed images 1e-6, masks exact; dataset samples and batches exact;
 losses 1e-6 relative; the confusion matrix exact. End to end the narrow
 ResNet50 carries BatchNorm statistics calibrated on the frames (random ones
-collapse its argmax onto one class), and then its float32 scores stand up to
-~5e-4 from a float64 forward's, in JAX as in the port (measured; the deep,
-narrow random graph is ill-conditioned): the argmax maps agree except at
-pixels whose two best scores lie within NEAR_TIE = 1e-3, which are counted,
-and the metrics to what those pixels can move (mIoU and per-class IoU 1e-4
-when none flips, the val loss 1e-5 relative).
+collapse its argmax onto one class), and then its float32 scores stand far
+from a float64 forward's, in JAX as in the port: the random graph with
+calibrated BatchNorm amplifies rounding ~1.15x a layer, from 6e-7 relative
+after the stem to 1.2e-3 at the softmax (measured with the port's float32
+and float64 forwards). JAX's float32 scores stand 1.18e-3 from float64, the
+port's fused ones 6.6e-4-7.7e-4, and the two 4e-4-1.28e-3 apart on a batch
+at one to eight torch threads. So the scores must agree within SCORE_GAP =
+2e-3, and the argmax maps except at pixels whose two best scores lie within
+NEAR_TIE = 2 * SCORE_GAP, the most a gap can move when every score moves by
+less than SCORE_GAP; those are counted, and the metrics agree to what they
+can move (mIoU and per-class IoU 1e-4 when none flips, the val loss 1e-5
+relative).
 """
 
 import json
@@ -63,7 +69,8 @@ CONFIGS = ("resnet18", "resnet34", "resnet50", "resnet18_unet", "resnet34_unet",
 NARROW = {"resnet50": 16, "resnet18": 8, "vgg16": 16,  # config: width divisor
           "yolov5_seg": 16, "yolov8_seg": 16, "yolov9_seg": 16}
 IMGSZ = 64
-NEAR_TIE = 1e-3  # two best scores closer than this may swap between float32 runs
+SCORE_GAP = 2e-3  # port and JAX float32 scores of the calibrated narrow ResNet50
+NEAR_TIE = 2 * SCORE_GAP  # two best scores closer than this may swap between them
 N_PREDICT = 3  # frames through both predict CLIs
 
 
@@ -198,8 +205,15 @@ def test_deterministic_resize_backward(shape, size, align_corners, antialias):
     np.testing.assert_array_equal(grads[1][0], grads[0][0])
     np.testing.assert_allclose(grads[1][1], grads[0][1], rtol=1e-5, atol=1e-5)
     x64 = x[:1, :1].clone().requires_grad_(True)
-    assert torch.autograd.gradcheck(
-        lambda t: common._DeterministicResize.apply(t, size, align_corners, antialias), (x64,))
+    # one torch thread: the gradcheck is thousands of tiny ops, and beside other
+    # busy test workers torch's default of a thread a core made it ~100x slower
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert torch.autograd.gradcheck(
+            lambda t: common._DeterministicResize.apply(t, size, align_corners, antialias), (x64,))
+    finally:
+        torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +503,9 @@ def test_val_cli_matches_jax_evaluate_semantic(json_set, narrow_resnet50, device
             pim, pmk = to_nchw(pb["image"]).float() / 255, torch.from_numpy(pb["mask"])
         scores = np.asarray(jax_scores(jim))[:n]
         with torch.no_grad():
-            pred = model(pim).argmax(1).numpy()[:n]
-        jpred = scores.argmax(-1)
+            pscores = nhwc(model(pim))[:n]
+        np.testing.assert_allclose(pscores, scores, rtol=0, atol=SCORE_GAP)
+        pred, jpred = pscores.argmax(-1), scores.argmax(-1)
         tie = near_tie_pixels(scores)
         ties += int(tie.sum())
         flips += int((pred != jpred).sum())

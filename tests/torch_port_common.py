@@ -2,13 +2,23 @@
 variables for a flax module, so the JAX package and the port run on the same
 weights without a compiled JAX init, and seeded DCNv3 sampling inputs."""
 
+import os
 from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# Under pytest-xdist each worker takes its share of the cores for torch's
+# intra-op threads: 6 workers at torch's default of a thread a core
+# oversubscribe an 8-core box, and the port's tests ran ~2x slower in a
+# whole run (a float64 gradcheck of tiny ops ~100x).
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 SEG_CFG = ROOT / "yolo_dual_tpu" / "configs" / "segment"
 
 

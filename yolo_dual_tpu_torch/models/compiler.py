@@ -4,8 +4,9 @@ Compiles a config dict (`nc / depth_multiple / width_multiple / anchors /
 backbone / head`, rows `[from, number, module, args]`, reference
 models/yolo.py:299-382 parse_model) into a static `ModelSpec`, and builds torch
 modules from it through an explicit registry. Both dialects of the JAX
-compiler are ported: 'detect' (the yolov5{n,s,m,l,x}-seg configs, the DCNv3
-blocks `C3_DCNV3`, `DCNV3_YoLo` and the DCNv2 ones of yolov5n-DCN) and
+compiler are ported: 'detect' (the yolov5{n,s,m,l,x}-seg configs, the detect
+zoo of `models/`, `hub/`, `spp/` and `attention/`, the DCNv3 blocks
+`C3_DCNV3`, `DCNV3_YoLo` and the DCNv2 ones of yolov5n-DCN) and
 'semantic' (the ResNet, ResNet U-Net, VGG16 and YOLO configs: the `number`
 column ignored, C3 rows read their repeat from args[1], C2f / C2f_DCN / C3k2
 rows from int(args[1]), no width scaling, relu by default, aligning Concats).
@@ -80,20 +81,31 @@ def _populate_registry():
     if REGISTRY:
         return
     from yolo_dual_tpu_torch.models import heads as H
+    from yolo_dual_tpu_torch.nn import attention as A
     from yolo_dual_tpu_torch.nn import backbones as B
     from yolo_dual_tpu_torch.nn import common as C
     from yolo_dual_tpu_torch.nn import dcn as D
+    from yolo_dual_tpu_torch.nn import spp as S
 
     for nm, cls in {"Conv": C.Conv, "Bottleneck": C.Bottleneck, "C3": C.C3,
                     "C3Conv": C.C3Conv, "SPPF": C.SPPF, "Proto": C.Proto,
                     "C2f": C.C2f, "C3k2": C.C3k2, "GAM": C.GAM,
+                    "SPP": C.SPP, "GhostConv": C.GhostConv,
+                    "GhostBottleneck": C.GhostBottleneck, "C3Ghost": C.C3Ghost,
+                    "TransformerBlock": C.TransformerBlock, "C3TR": C.C3TR,
+                    "SimConv": S.SimConv, "SimSPPF": S.SimSPPF, "ASPP": S.ASPP, "RFB": S.RFB,
+                    "SPPCSPC": S.SPPCSPC, "SPPCSPC_group": S.SPPCSPC_group,
+                    "SimCSPSPPF": S.SimCSPSPPF,
+                    "AttentionConv": A.AttentionConv, "AttentionStem": A.AttentionStem,
                     "DCNv2": D.DCNv2, "C3_DCN": D.C3_DCN, "C2f_DCN": D.C2f_DCN,
                     "DCNV3_YoLo": D.DCNV3_YoLo, "C3_DCNV3": D.C3_DCNV3,
                     "ResNetStem": B.ResNetStem, "ResNetLayer": B.ResNetLayer,
                     "VGGBlock": B.VGGBlock, "SegmentHead": B.SegmentHead}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(c1, **kw)
     for nm, cls in {"Concat": C.Concat, "Upsample": C.Upsample,
-                    "nn.Upsample": C.Upsample, "nn.Softmax": nn.Softmax}.items():
+                    "nn.Upsample": C.Upsample, "nn.Softmax": nn.Softmax,
+                    "MaxPool2d": B.MaxPool2d, "nn.MaxPool2d": B.MaxPool2d,
+                    "nn.ZeroPad2d": C.ZeroPad2d}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(**kw)
     for nm, cls in {"Detect": H.Detect, "Segment": H.Segment}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(ch=c1, **kw)
@@ -114,13 +126,15 @@ def build_module(layer: LayerSpec) -> nn.Module:
 
 # Modules whose first arg is c2 (width-scaled on the detect path).
 _CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3", "C3Conv", "C2f", "C3k2", "DCNv2", "C3_DCN",
-             "C2f_DCN", "DCNV3_YoLo", "C3_DCNV3"}
+             "C2f_DCN", "DCNV3_YoLo", "C3_DCNV3", "SPP", "GhostConv", "GhostBottleneck",
+             "C3Ghost", "C3TR", "SimConv", "SimSPPF", "ASPP", "RFB", "SPPCSPC", "SPPCSPC_group",
+             "SimCSPSPPF", "AttentionConv", "AttentionStem"}
 # Modules whose repeat is an `n` kwarg (on the detect path the compiler
 # inserts the row's repeat). As in the JAX compiler, C3_DCNV3 is not one of
 # them: its row repeat stays a repeat of whole C3_DCNV3 modules, each with one
 # inner bottleneck. On the semantic path C3_DCN keeps its args as they are
 # ([c2, n], shortcut True); C2f, C2f_DCN and C3k2 take n = int(args[1]).
-_REPEAT_AS_N = {"C3", "C3Conv", "C3_DCN", "C2f", "C2f_DCN", "C3k2"}
+_REPEAT_AS_N = {"C3", "C3Conv", "C3_DCN", "C2f", "C2f_DCN", "C3k2", "C3TR", "C3Ghost"}
 # Modules whose output width is their first arg.
 _C2_FIRST = {"ResNetStem", "ResNetLayer", "VGGBlock", "SegmentHead"}
 _RESNET_LAYERS = {"ResNet50Layer": "bottleneck", "ResNet18Layer": "basic",
@@ -161,14 +175,35 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
             kw["act"] = act
         return kw
 
-    if name in ("Conv", "DCNV3_YoLo", "DCNv2"):
+    if name in ("Conv", "SimConv", "DCNV3_YoLo", "DCNv2"):
         return actkw(dict(zip(["c2", "k", "s", "p", "g", "d", "act"], a))), n
+    if name == "GhostConv":
+        return actkw(dict(zip(["c2", "k", "s", "g", "act"], a))), n
+    if name == "GhostBottleneck":
+        return dict(zip(["c2", "k", "s"], a)), n
     if name == "Bottleneck":
         return actkw(dict(zip(["c2", "shortcut", "g", "e"], a))), n
     if name in _REPEAT_AS_N:
         return actkw(dict(zip(["c2", "n", "shortcut", "g", "e"], a))), 1
-    if name == "SPPF":
+    if name in ("SPPF", "SimSPPF", "SimCSPSPPF"):
         return actkw(dict(zip(["c2", "k"], a))), n
+    if name in ("SPP", "SPPCSPC", "SPPCSPC_group"):
+        kw = dict(zip(["c2", "k"] if name == "SPP" else ["c2", "n", "shortcut", "g", "e", "k"], a))
+        if "k" in kw:
+            kw["k"] = tuple(kw["k"])
+        return kw, n
+    if name == "ASPP":
+        return dict(zip(["c2"], a)), n
+    if name == "RFB":
+        return dict(zip(["c2", "stride", "scale", "map_reduce", "vision", "groups"], a)), n
+    if name in ("AttentionConv", "AttentionStem"):  # the reference's (c1, c2, k, s, p, groups)
+        return dict(zip(["c2", "k", "s", "p", "groups"], a)), n
+    if name == "TransformerBlock":
+        return dict(zip(["c2", "num_heads", "num_layers"], a)), n
+    if name in ("MaxPool2d", "nn.MaxPool2d"):
+        return dict(zip(["k", "s", "p"], a)), n
+    if name == "nn.ZeroPad2d":
+        return {"padding": tuple(a[0])}, n
     if name in ("nn.Upsample", "Upsample"):
         return dict(zip(["size", "scale_factor", "mode"], a)), n
     if name == "Concat":
@@ -186,8 +221,9 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
         if act is not None:
             kw["act"] = act
         return kw, n
+    _populate_registry()
     raise KeyError(f"Module {name!r} is not ported. Known: "
-                   f"{sorted(_CONVLIKE | _C2_FIRST | set(_RESNET_LAYERS) | {'Concat', 'Upsample', 'nn.Upsample', 'nn.Softmax', 'GAM', 'Detect', 'Segment'})}")
+                   f"{sorted(set(REGISTRY) | set(_RESNET_LAYERS))}")
 
 
 def _semantic_row(name: str, args: list, n: int):
@@ -270,6 +306,11 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
 
         if name in ("Detect", "Segment"):
             head_anchors = args[1]
+            if name == "Detect" and isinstance(head_anchors, list) \
+                    and len(f) == 2 * len(head_anchors):
+                raise NotImplementedError(
+                    "a Detect row over twice as many maps as anchor levels is JAX's DetectAux "
+                    "(AuxOTA) head, which is not ported yet: ROADMAP item 6c")
             if isinstance(head_anchors, int):
                 # AutoAnchor placeholder: `anchors: 3` = 3 anchors per level
                 head_anchors = [list(range(head_anchors * 2))] * len(f)

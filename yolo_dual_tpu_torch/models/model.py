@@ -1,5 +1,6 @@
-"""Graph walker, SegmentationModel and SemanticSegModel (port of
-yolo_dual_tpu/models/model.py; reference models/yolo.py:109-296).
+"""Graph walker, DetectionModel, SegmentationModel, SemanticSegModel and
+build_model (port of yolo_dual_tpu/models/model.py; reference
+models/yolo.py:109-296).
 
 The space-to-depth blocked stem that the JAX `fuse()` applies on its own
 (nn/blocked.py) is a TPU layout rewrite of the same math and is not ported:
@@ -17,7 +18,9 @@ import torch.nn as nn
 from yolo_dual_tpu_torch.models.compiler import ModelSpec, build_module, parse_config, with_strides
 from yolo_dual_tpu_torch.models.heads import Detect
 from yolo_dual_tpu_torch.nn.common import Conv, resize_bilinear
+from yolo_dual_tpu_torch.nn.attention import AttentionConv, AttentionStem
 from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
+from yolo_dual_tpu_torch.nn.spp import FixedProfileBatchNorm2d
 from yolo_dual_tpu_torch.utils.general import find_cfg, load_config, select_device
 
 _HEADS = ("Detect", "Segment")
@@ -27,7 +30,7 @@ class GraphModel(nn.Module):
     """Walks a compiled ModelSpec (reference BaseModel._forward_once,
     models/yolo.py:114-125). Layer i is `self.model[i]`, so parameter names are
     the reference's `model.{i}.…`. Every BatchNorm takes the spec's profile
-    (`spec.bn_profile`)."""
+    (`spec.bn_profile`) but RFB's, which keep their own (nn/spp.py:BasicConv)."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -36,7 +39,7 @@ class GraphModel(nn.Module):
         self.model = nn.ModuleList(build_module(layer) for layer in spec.layers)
         eps, momentum = spec.bn_profile
         for m in self.modules():
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.BatchNorm2d) and not isinstance(m, FixedProfileBatchNorm2d):
                 m.eps, m.momentum = eps, momentum
 
     def forward(self, x, decode: Optional[bool] = None):
@@ -90,7 +93,8 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     """Random weights from `generator` (a CPU generator): conv and linear
     weights N(0, 1/fan_in), as flax's lecun_normal init, and so C2f_DCN's
     deformable weights; DCNv2's weight U(±1/sqrt(cin·k²)) (JAX
-    nn/dcn.py:289-295); zero biases; identity BatchNorms with fresh running
+    nn/dcn.py:289-295); the attention blocks' `rel_*` and `emb_*` N(0, 1), as
+    flax's normal(1.0); zero biases; identity BatchNorms with fresh running
     stats; zero DCNv3 offset and mask heads and zero DCNv2 `conv_offset_mask`,
     as JAX initializes them (every sample on its grid point, uniform mask)."""
     def lecun(w):
@@ -111,6 +115,9 @@ def init_weights(model: nn.Module, generator: torch.Generator):
             elif isinstance(m, C2f_DCN):
                 for i in range(m.n):
                     lecun(getattr(m, f"m_{i}_dcn_weight"))
+            elif isinstance(m, (AttentionConv, AttentionStem)):
+                for name, w in m.named_parameters(recurse=False):
+                    w.copy_(torch.randn(w.shape, generator=generator))
         for m in model.modules():
             if isinstance(m, DCNv3):
                 for head in (m.offset, m.mask):
@@ -133,27 +140,42 @@ def initialize_detect_biases(model: GraphModel):
             b[:, 5:5 + head.nc] += math.log(0.6 / (head.nc - 0.99999))
 
 
-class SegmentationModel(GraphModel):
-    """Instance-segmentation model compiled from a config (a dict, a path, or
-    the name of one of the package's JSON copies, e.g. "yolov5s-seg.json").
+def _config(cfg) -> dict:
+    return dict(cfg) if isinstance(cfg, dict) else load_config(find_cfg(cfg))
+
+
+class DetectionModel(GraphModel):
+    """Detection model compiled from a config with a Detect or Segment head
+    (JAX models/model.py:318): a dict, a path, or the name of one of the
+    package's JSON copies, e.g. "yolov5s.json" or "yolov3-tiny.yaml".
 
     The modules are built on the meta device and materialized on `device`;
     weights are drawn from `generator` (default: a CPU generator seeded 0), then
     the Detect bias prior is applied. Load trained weights afterwards with
-    `load_state_dict(strict=True)`.
+    `load_state_dict(strict=True)`. `names` maps class ids to names ("0", "1",
+    ...), as JAX's.
     """
 
-    def __init__(self, cfg="yolov5s-seg.json", ch: int = 3, nc: Optional[int] = None,
+    def __init__(self, cfg="yolov5s.json", ch: int = 3, nc: Optional[int] = None,
                  device="cuda", generator: Optional[torch.Generator] = None):
         dev = select_device(device)
-        d = dict(cfg) if isinstance(cfg, dict) else load_config(find_cfg(cfg))
-        spec = _probe_strides(parse_config(d, ch=ch, nc=nc))
+        spec = _probe_strides(parse_config(_config(cfg), ch=ch, nc=nc))
         with torch.device("meta"):
             super().__init__(spec)
         self.to_empty(device=dev)
         self.nc = spec.nc
+        self.names = {i: str(i) for i in range(spec.nc)}
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         initialize_detect_biases(self)
+
+
+class SegmentationModel(DetectionModel):
+    """Instance-segmentation model: a DetectionModel whose config ends in a
+    Segment head (default "yolov5s-seg.json")."""
+
+    def __init__(self, cfg="yolov5s-seg.json", ch: int = 3, nc: Optional[int] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, ch=ch, nc=nc, device=device, generator=generator)
 
 
 class SemanticSegModel(GraphModel):
@@ -172,8 +194,7 @@ class SemanticSegModel(GraphModel):
     def __init__(self, cfg="resnet50.json", ch: int = 3, nc: Optional[int] = None,
                  device="cuda", generator: Optional[torch.Generator] = None):
         dev = select_device(device)
-        d = dict(cfg) if isinstance(cfg, dict) else load_config(find_cfg(cfg))
-        spec = parse_config(d, ch=ch, nc=nc)
+        spec = parse_config(_config(cfg), ch=ch, nc=nc)
         if spec.style != "semantic":
             raise ValueError("SemanticSegModel needs a semantic config (no anchors); "
                              "use SegmentationModel for detect-style configs")
@@ -186,3 +207,20 @@ class SemanticSegModel(GraphModel):
     def forward(self, x):
         out = self._walk(x, decode=False)
         return resize_bilinear(out, x.shape[-2:])
+
+
+def build_model(cfg, task: Optional[str] = None, **kw) -> GraphModel:
+    """The model of a config, its wrapper chosen from the config as JAX's
+    build_model chooses it (JAX models/model.py:463): no anchors -> semantic,
+    a last head row `Segment` -> segment, else detect. `task` overrides;
+    `kw` goes to the wrapper (ch, nc, device, generator)."""
+    d = _config(cfg)
+    if task is None:
+        if d.get("anchors") is None:
+            task = "semantic"
+        else:
+            task = "segment" if str(d["head"][-1][2]) == "Segment" else "detect"
+    if task == "classify":
+        raise NotImplementedError("ClassificationModel is not ported yet: ROADMAP item 6f")
+    return {"detect": DetectionModel, "segment": SegmentationModel,
+            "semantic": SemanticSegModel}[task](d, **kw)

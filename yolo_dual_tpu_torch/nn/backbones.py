@@ -18,13 +18,22 @@ from yolo_dual_tpu_torch.nn.activations import resolve_act
 from yolo_dual_tpu_torch.nn.common import Conv, interpolate_bilinear
 
 
+class MaxPool2d(nn.MaxPool2d):
+    """The config rows' `MaxPool2d` / `nn.MaxPool2d` [k, s, p] (JAX
+    nn/backbones.py:24): torch's max pool, whose padding is -inf, as flax's
+    max_pool pads."""
+
+    def __init__(self, k=2, s=2, p=0):
+        super().__init__(k, s, p)
+
+
 class ResNetStem(nn.Module):
     """7x7/2 conv + 3x3/2 max pool."""
 
     def __init__(self, c1, c2=64, act="relu"):
         super().__init__()
         self.conv = Conv(c1, c2, 7, 2, 3, act=act)
-        self.pool = nn.MaxPool2d(3, 2, 1)  # pads with -inf, as flax's max_pool
+        self.pool = MaxPool2d(3, 2, 1)
 
     def forward(self, x):
         return self.pool(self.conv(x))
@@ -121,7 +130,7 @@ class VGGBlock(nn.Module):
         for i in range(n):
             self.add_module(f"conv{i}", Conv(c1 if i == 0 else c2, c2, 3, 1, act=act))
         self.n = n
-        self.pool = nn.MaxPool2d(2, 2, 0) if pool else None
+        self.pool = MaxPool2d(2, 2, 0) if pool else None
 
     def forward(self, x):
         for i in range(self.n):

@@ -6,6 +6,8 @@ Attribute names follow the reference torch modules (`conv`, `bn`, `cv1`, `m.0`,
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -141,9 +143,144 @@ class C3(nn.Module):
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
 
 
+def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k stride-1 max pool padded by k // 2 with -inf (JAX max_pool_same)."""
+    return F.max_pool2d(x, k, 1, k // 2)
+
+
+class DWConv(nn.Module):
+    """Depth-wise Conv, groups = gcd(c1, c2), under the JAX child name `dw`
+    (JAX nn/common.py:350; reference models/common.py:67-70)."""
+
+    def __init__(self, c1, c2, k=1, s=1, d=1, act=True):
+        super().__init__()
+        self.dw = Conv(c1, c2, k, s, None, math.gcd(c1, c2), d, act)
+
+    def forward(self, x):
+        return self.dw(x)
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: one 1x1 Conv, stride-1 max pools of each size
+    in `k` beside it, a 1x1 Conv over the five (JAX nn/common.py:507;
+    reference models/common.py:207-220)."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(k) + 1), c2, 1, 1)
+        self.k = tuple(k)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x] + [max_pool_same(x, k) for k in self.k], 1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: a Conv to c2 / 2 channels and a depthwise 5x5 Conv
+    of it beside it (JAX nn/common.py:571; reference models/common.py:253-263)."""
+
+    def __init__(self, c1, c2, k=1, s=1, g=1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck under JAX's child names (JAX nn/common.py:589;
+    reference models/common.py:266-279): gc1, at s=2 a depthwise `dw`, gc2;
+    the shortcut is the input, or at s=2 a depthwise `sc_dw` and a 1x1 `sc_pw`."""
+
+    def __init__(self, c1, c2, k=3, s=1):
+        super().__init__()
+        c_ = c2 // 2
+        self.gc1 = GhostConv(c1, c_, 1, 1)
+        self.dw = DWConv(c_, c_, k, s, act=False) if s == 2 else None
+        self.gc2 = GhostConv(c_, c2, 1, 1, act=False)
+        if s == 2:
+            self.sc_dw = DWConv(c1, c1, k, s, act=False)
+            self.sc_pw = Conv(c1, c2, 1, 1, act=False)
+        self.s = s
+
+    def forward(self, x):
+        y = self.gc1(x)
+        if self.s == 2:
+            y = self.dw(y)
+        y = self.gc2(y)
+        return y + (self.sc_pw(self.sc_dw(x)) if self.s == 2 else x)
+
+
+class TransformerLayer(nn.Module):
+    """The JAX package's transformer layer (JAX nn/common.py:865; reference
+    models/common.py:79-93) under JAX's parameter names: bias-free q/k/v
+    Linears, then nn.MultiheadAttention's math written out with its joint
+    in-projection as three Linears `in_q`/`in_k`/`in_v` with bias, the
+    attention softmax in float32 and `out_proj`, a residual, and two bias-free
+    Linears `fc1`, `fc2` with a residual. x: (b, seq, c)."""
+
+    def __init__(self, c, num_heads):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q, self.k, self.v = (nn.Linear(c, c, bias=False) for _ in range(3))
+        self.in_q, self.in_k, self.in_v = (nn.Linear(c, c) for _ in range(3))
+        self.out_proj = nn.Linear(c, c)
+        self.fc1 = nn.Linear(c, c, bias=False)
+        self.fc2 = nn.Linear(c, c, bias=False)
+
+    def forward(self, x):
+        b, s, c = x.shape
+        hd = c // self.num_heads
+        qh, kh, vh = (proj(lin(x)).view(b, s, self.num_heads, hd).transpose(1, 2)
+                      for lin, proj in ((self.q, self.in_q), (self.k, self.in_k),
+                                        (self.v, self.in_v)))
+        attn = (qh @ kh.transpose(-1, -2)) / math.sqrt(hd)
+        attn = attn.float().softmax(-1).to(qh.dtype)
+        x = self.out_proj((attn @ vh).transpose(1, 2).reshape(b, s, c)) + x
+        return self.fc2(self.fc1(x)) + x
+
+
+class TransformerBlock(nn.Module):
+    """Transformer over a feature map (JAX nn/common.py:900; reference
+    models/common.py:96-112): a Conv to c2 when the width changes, the map
+    flattened to (b, h·w, c2) in row-major order plus a Linear of itself, then
+    `num_layers` TransformerLayers (`tr.{j}`)."""
+
+    def __init__(self, c1, c2, num_heads, num_layers):
+        super().__init__()
+        self.conv = Conv(c1, c2) if c1 != c2 else None
+        self.linear = nn.Linear(c2, c2)
+        self.tr = nn.Sequential(*(TransformerLayer(c2, num_heads) for _ in range(num_layers)))
+        self.c2 = c2
+
+    def forward(self, x):
+        if self.conv is not None:
+            x = self.conv(x)
+        b, _, h, w = x.shape
+        p = x.flatten(2).transpose(1, 2)
+        p = self.tr(p + self.linear(p))
+        return p.transpose(1, 2).reshape(b, self.c2, h, w)
+
+
+class ZeroPad2d(nn.Module):
+    """Zero padding (left, right, top, bottom), as nn.ZeroPad2d
+    (JAX nn/common.py:843)."""
+
+    def __init__(self, padding=(0, 1, 0, 1)):
+        super().__init__()
+        self.padding = tuple(padding)
+
+    def forward(self, x):
+        return F.pad(x, self.padding)
+
+
 class SPPF(nn.Module):
-    """SPP-Fast: 3 chained k×k stride-1 max pools (reference models/common.py:223-238).
-    `F.max_pool2d` pads with -inf, as the JAX `max_pool_same` does."""
+    """SPP-Fast: 3 chained k×k stride-1 max pools (reference models/common.py:223-238)."""
 
     def __init__(self, c1, c2, k=5, act=True):
         super().__init__()
@@ -154,9 +291,9 @@ class SPPF(nn.Module):
 
     def forward(self, x):
         x = self.cv1(x)
-        y1 = F.max_pool2d(x, self.k, 1, self.k // 2)
-        y2 = F.max_pool2d(y1, self.k, 1, self.k // 2)
-        y3 = F.max_pool2d(y2, self.k, 1, self.k // 2)
+        y1 = max_pool_same(x, self.k)
+        y2 = max_pool_same(y1, self.k)
+        y3 = max_pool_same(y2, self.k)
         return self.cv2(torch.cat([x, y1, y2, y3], 1))
 
 
@@ -210,6 +347,26 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     if tuple(x.shape[-2:]) == tuple(size):
         return x
     return interpolate_bilinear(x, size, align_corners=False, antialias=True)
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottleneck inner blocks (JAX nn/common.py:612)."""
+
+    def inner(self, c_, n, shortcut, g, act):
+        return [GhostBottleneck(c_, c_) for _ in range(n)]
+
+
+class C3TR(C3):
+    """C3 whose inner block is one TransformerBlock of 4 heads and n layers
+    (JAX nn/common.py:920). The block is `m`, as in the reference; the JAX
+    tree calls it `m_tr` (io/weights.py maps the name)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, act=True):
+        super().__init__(c1, c2, n, shortcut, g, e, act)
+        self.m = self.m[0]
+
+    def inner(self, c_, n, shortcut, g, act):
+        return [TransformerBlock(c_, c_, 4, n)]
 
 
 class C3Conv(C3):

@@ -5,7 +5,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 
@@ -100,21 +99,3 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bo
     c_area = cw * ch + eps
     return iou - (c_area - union) / c_area  # GIoU
 
-
-def match_detections(want: np.ndarray, got: np.ndarray, iou_min: float = 0.99,
-                     conf_tol: float = 1e-4) -> float:
-    """Share of the `want` detection rows [x1, y1, x2, y2, conf, cls, ...] that
-    have a `got` row of the same class, IoU > iou_min (or corners within
-    1e-3 px) and a confidence within conf_tol. Compares two runs of the same
-    model whose near-tied candidates may be ordered differently."""
-    if len(want) == 0:
-        return 1.0
-    if len(got) == 0:
-        return 0.0
-    iou = box_iou(torch.tensor(want[:, :4], dtype=torch.float64),
-                  torch.tensor(got[:, :4], dtype=torch.float64)).numpy()
-    # coinciding corners also match: a zero-area box has IoU 0 with itself
-    same = (iou > iou_min) | (np.abs(want[:, None, :4] - got[None, :, :4]).max(-1) < 1e-3)
-    ok = same & (want[:, None, 5] == got[None, :, 5]) & \
-        (np.abs(want[:, None, 4] - got[None, :, 4]) < conf_tol)
-    return float(ok.any(1).mean())

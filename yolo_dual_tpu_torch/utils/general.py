@@ -74,16 +74,22 @@ def load_config(path) -> dict:
     raise ValueError(f"unsupported config type {path.suffix!r} ({path}); expected .json or .yaml")
 
 
+# The folders of the package's JSON copies, in find_cfg's search order.
+CONFIG_DIRS = ("segment", "semantic", "hyps", "models", "hub", "spp", "attention", "backbone")
+
+
 def find_cfg(name) -> Path:
     """Resolve a config name: an existing path, else the package's JSON copy of
     that model or hyperparameter config (`yolov5s-seg.yaml` and
     `yolov5s-seg.json` both find configs/segment/yolov5s-seg.json;
     `resnet50.yaml` finds configs/semantic/resnet50.json;
-    `hyp.scratch-low.yaml` finds configs/hyps/hyp.scratch-low.json)."""
+    `hyp.scratch-low.yaml` finds configs/hyps/hyp.scratch-low.json;
+    `yolov3-tiny.yaml` finds configs/hub/yolov3-tiny.json). The folders are
+    searched in the order of CONFIG_DIRS; no two copies share a stem."""
     p = Path(name)
     if p.exists():
         return p
-    cands = [CONFIGS / sub / (p.stem + ".json") for sub in ("segment", "semantic", "hyps")]
+    cands = [CONFIGS / sub / (p.stem + ".json") for sub in CONFIG_DIRS]
     for c in cands:
         if c.exists():
             return c
