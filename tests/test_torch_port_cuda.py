@@ -676,3 +676,27 @@ def test_semantic_train_cli_launches_k1_per_device_route_batch(cuda, tmp_path):
         assert letterbox_normalize.launches == launches, route
         rows = (tmp_path / "runs" / route / "results.csv").read_text().splitlines()[1:]
         assert len(rows) == 2 and np.isfinite([float(v) for r in rows for v in r.split(",")]).all()
+
+
+@pytest.mark.parametrize("name", ["yolov5s.yaml", "convnext_tiny"])
+def test_classify_forward_on_the_card_equals_cpu(cuda, name):
+    """A classifier of classify.train (yolov5s-cls, cutoff 10; convnext_tiny's
+    three stages) at nc 1000 and 224 px from JAX's initial weights, its
+    BatchNorm statistics set by a train-mode pass over the batch: eval-mode
+    logits on the card within 1e-4 of their largest magnitude of the CPU's,
+    TF32 off."""
+    from yolo_dual_tpu_torch.classify.train import build_classifier
+    from yolo_dual_tpu_torch.models.flax_init import flax_init_
+    torch.backends.cudnn.allow_tf32 = False
+    model = flax_init_(build_classifier(name, 1000, device="cpu"))
+    x = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(0))
+    for bn in model.modules():
+        if isinstance(bn, torch.nn.BatchNorm2d):
+            bn.momentum = None  # a cumulative average: one batch sets its own statistics
+    with torch.no_grad():
+        model.train()(x)
+        want = model.eval()(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    assert got.shape == (4, 1000)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

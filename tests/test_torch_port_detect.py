@@ -22,7 +22,7 @@ import pytest
 import torch
 import yaml
 
-from torch_port_common import ROOT, nhwc, random_variables
+from torch_port_common import ROOT, jax_train_float64, nhwc, random_variables
 from yolo_dual_tpu.models.model import build_model as jax_build_model
 from yolo_dual_tpu.nn import attention as JA
 from yolo_dual_tpu.nn import backbones as JB
@@ -121,31 +121,6 @@ def test_module_matches_jax(name, train):
         for k, w in state_dict_from_flax({"batch_stats": upd}).items():
             if not k.endswith("num_batches_tracked"):
                 np.testing.assert_allclose(sd[k].numpy(), w.numpy(), **TOL, err_msg=k)
-
-
-def jax_train_float64(jm, v, x):
-    """JAX's train-mode apply of `jm` in float64: variables and input cast, and
-    flax's BatchNorm statistics and normalisation, which the JAX package pins
-    to float32, computed in float64 too. Returns the output and the updated
-    `batch_stats` tree (empty where the module has no BatchNorm)."""
-    from flax.linen import normalization
-
-    stats, norm = normalization._compute_stats, normalization._normalize
-
-    def stats64(x, axes, dtype, *a, **k):
-        return stats(x, axes, jnp.float64, *a, **k)
-
-    def norm64(mdl, x, mean, var, reduction_axes, feature_axes, dtype, *a, **k):
-        return norm(mdl, x, mean, var, reduction_axes, feature_axes, jnp.float64, *a, **k)
-
-    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
-        mp.setattr(normalization, "_compute_stats", stats64)
-        mp.setattr(normalization, "_normalize", norm64)
-        v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v)
-        out, upd = jm.apply(v64, jnp.asarray(x, jnp.float64), train=True,
-                            mutable=["batch_stats"])
-        assert out.dtype == jnp.float64
-        return np.asarray(out), jax.tree_util.tree_map(np.asarray, dict(upd).get("batch_stats", {}))
 
 
 def test_basic_conv_keeps_its_own_batchnorm_profile_in_a_graph():

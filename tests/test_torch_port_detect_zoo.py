@@ -1,6 +1,7 @@
 """The port's JSON copies of the JAX package's detect configs (models/, hub/
-but anchors.yaml, spp/, attention/ and backbone/yolov5n-DCN: 37 configs),
-each built at full width: the copy equals JAX's yaml, the port's meta build
+but anchors.yaml, spp/, attention/ and backbone/: 48 configs, the 11
+torchvision-backbone ones among them), each built at full width: the copy
+equals JAX's yaml, the port's meta build
 has JAX's name -> shape map (JAX's tree from jax.eval_shape of model.init at
 128 px, no FLOPs, mapped through state_dict_from_flax) and loads such a tree
 with strict=True, and the parameter counts and head strides are JAX's."""
@@ -29,16 +30,35 @@ ZOO = sorted([f"models/{p.stem}" for p in JAX_CFG.glob("models/*.yaml")]
              + [f"hub/{p.stem}" for p in JAX_CFG.glob("hub/*.yaml") if p.stem != "anchors"]
              + [f"spp/{p.stem}" for p in JAX_CFG.glob("spp/*.yaml")]
              + [f"attention/{p.stem}" for p in JAX_CFG.glob("attention/*.yaml")]
-             + ["backbone/yolov5n-DCN"])
+             + [f"backbone/{p.stem}" for p in JAX_CFG.glob("backbone/*.yaml")])
+# the stems that two copies share: a bare stem finds the first folder in CONFIG_DIRS
+SHARED_STEMS = {"resnet18", "resnet50"}
 
 
 def test_zoo_has_37_configs_and_find_cfg_finds_each_by_its_stem():
-    assert len(ZOO) == 37
-    copies = sorted(p for sub in CONFIG_DIRS for p in (PORT_CFG / sub).glob("*.json"))
-    stems = [p.stem for p in copies]
-    assert len(stems) == len(set(stems))
-    for name in ZOO:
+    """The 37 configs of the zoo before the torchvision backbones are found by
+    their bare stems; with the 11 backbone configs the zoo holds 48. Every
+    copy is found by its folder-qualified name (`backbone/resnet18.yaml`), and
+    the only stems two copies share are SHARED_STEMS (semantic/ and
+    backbone/), which bare resolve to the first of their folders in
+    CONFIG_DIRS: semantic/, so `resnet50.yaml` stays the semantic flagship."""
+    assert len(ZOO) == 48
+    earlier = [n for n in ZOO if not n.startswith("backbone/") or n == "backbone/yolov5n-DCN"]
+    assert len(earlier) == 37
+    for name in earlier:
         assert find_cfg(name.split("/")[1] + ".yaml") == PORT_CFG / f"{name}.json"
+    copies = sorted(p for sub in CONFIG_DIRS for p in (PORT_CFG / sub).glob("*.json"))
+    for p in copies:
+        folder = p.parent.name
+        assert find_cfg(f"{folder}/{p.stem}.yaml") == find_cfg(f"{folder}/{p.stem}.json") == p
+    by_stem = {}
+    for p in copies:
+        by_stem.setdefault(p.stem, []).append(p)
+    shared = {stem: ps for stem, ps in by_stem.items() if len(ps) > 1}
+    assert set(shared) == SHARED_STEMS
+    for stem, ps in shared.items():
+        first = min(ps, key=lambda p: CONFIG_DIRS.index(p.parent.name))
+        assert first.parent.name == "semantic" and find_cfg(f"{stem}.yaml") == first
 
 
 @pytest.mark.parametrize("name", ZOO)
@@ -75,10 +95,15 @@ def test_build_model_picks_the_task_as_jax_does():
     for cfg in ("models/yolov5n", "segment/yolov5n-seg", "semantic/resnet18"):
         d = yaml.safe_load((JAX_CFG / f"{cfg}.yaml").read_text())
         assert type(build_model(d, device="cpu")).__name__ == type(jax_build_model(d)).__name__
-    with pytest.raises(NotImplementedError, match="6f"):
-        build_model("yolov5n.json", task="classify")
+    for cfg in ("backbone/resnet18", "backbone/vgg11_bn"):
+        d = yaml.safe_load((JAX_CFG / f"{cfg}.yaml").read_text())
+        assert type(build_model(d, device="cpu")).__name__ == type(jax_build_model(d)).__name__
+    assert type(build_model("yolov5n.json", task="classify", device="cpu")).__name__ \
+        == "ClassificationModel"
     aux = yaml.safe_load((JAX_CFG / "loss" / "yolov5n_auxota.yaml").read_text())
     with pytest.raises(NotImplementedError, match="6c"):
         build_model(aux, device="cpu")
+    d = yaml.safe_load((JAX_CFG / "models" / "yolov5n.yaml").read_text())
+    d["backbone"][1][2] = "Focus"  # a registry name no shipped config uses (6d)
     with pytest.raises(KeyError, match="not ported"):
-        parse_config(yaml.safe_load((JAX_CFG / "backbone" / "resnet18.yaml").read_text()))
+        parse_config(d)

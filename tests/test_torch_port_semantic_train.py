@@ -484,7 +484,7 @@ def test_semantic_batch_forms_give_one_loss(semantic_steps):
 
 def test_trainer_refuses_an_unknown_task():
     with pytest.raises(ValueError, match="semantic"):
-        Trainer(None, None, None, task="classify")
+        Trainer(None, None, None, task="pose")
 
 
 def test_hyp_json_equals_the_yaml():

@@ -8,6 +8,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -48,6 +49,34 @@ def random_variables(init_fn, x_shape, seed):
         return v.astype(np.float32)
 
     return fill(shapes)
+
+
+def jax_train_float64(jm, v, x, jit=False):
+    """JAX's train-mode apply of `jm` in float64: variables and input cast, and
+    flax's BatchNorm statistics and normalisation, which the JAX package pins
+    to float32, computed in float64 too; jitted with `jit` (one compile
+    instead of one a primitive, for deep modules). Returns the output and the
+    updated `batch_stats` tree (empty where the module has no BatchNorm)."""
+    from flax.linen import normalization
+
+    stats, norm = normalization._compute_stats, normalization._normalize
+
+    def stats64(x, axes, dtype, *a, **k):
+        return stats(x, axes, jnp.float64, *a, **k)
+
+    def norm64(mdl, x, mean, var, reduction_axes, feature_axes, dtype, *a, **k):
+        return norm(mdl, x, mean, var, reduction_axes, feature_axes, jnp.float64, *a, **k)
+
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(normalization, "_compute_stats", stats64)
+        mp.setattr(normalization, "_normalize", norm64)
+        v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v)
+        def apply(v, x):
+            return jm.apply(v, x, train=True, mutable=["batch_stats"])
+        x64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), x)  # or a list
+        out, upd = (jax.jit(apply) if jit else apply)(v64, x64)
+        assert out.dtype == jnp.float64
+        return np.asarray(out), jax.tree_util.tree_map(np.asarray, dict(upd).get("batch_stats", {}))
 
 
 def nhwc(t):

@@ -6,7 +6,9 @@ models/yolo.py:299-382 parse_model) into a static `ModelSpec`, and builds torch
 modules from it through an explicit registry. Both dialects of the JAX
 compiler are ported: 'detect' (the yolov5{n,s,m,l,x}-seg configs, the detect
 zoo of `models/`, `hub/`, `spp/` and `attention/`, the DCNv3 blocks
-`C3_DCNV3`, `DCNV3_YoLo` and the DCNv2 ones of yolov5n-DCN) and
+`C3_DCNV3`, `DCNV3_YoLo` and the DCNv2 ones of yolov5n-DCN, the 36
+torchvision stages `<family>{1,2,3}` of the `backbone/` configs, whose
+declared width is not scaled, and `Classify`) and
 'semantic' (the ResNet, ResNet U-Net, VGG16 and YOLO configs: the `number`
 column ignored, C3 rows read their repeat from args[1], C2f / C2f_DCN / C3k2
 rows from int(args[1]), no width scaling, relu by default, aligning Concats).
@@ -22,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch.nn as nn
 
+from yolo_dual_tpu_torch.nn.torchvision_backbones import STAGE_OUT
 from yolo_dual_tpu_torch.utils.general import LOGGER, make_divisible
 
 
@@ -63,7 +66,7 @@ class ModelSpec:
     def bn_profile(self) -> Tuple[float, float]:
         """(eps, torch momentum) of the graph's BatchNorms: torch's defaults
         on the semantic path, the reference's initialize_weights profile on
-        the detect path (JAX models/model.py:57-60)."""
+        the detect and classify paths (JAX models/model.py:57-60)."""
         from yolo_dual_tpu_torch.nn import common as C
         if self.style == "semantic":
             return C.SEMANTIC_BN_EPS, C.SEMANTIC_BN_MOMENTUM
@@ -86,6 +89,7 @@ def _populate_registry():
     from yolo_dual_tpu_torch.nn import common as C
     from yolo_dual_tpu_torch.nn import dcn as D
     from yolo_dual_tpu_torch.nn import spp as S
+    from yolo_dual_tpu_torch.nn import torchvision_backbones as T
 
     for nm, cls in {"Conv": C.Conv, "Bottleneck": C.Bottleneck, "C3": C.C3,
                     "C3Conv": C.C3Conv, "SPPF": C.SPPF, "Proto": C.Proto,
@@ -109,6 +113,9 @@ def _populate_registry():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(**kw)
     for nm, cls in {"Detect": H.Detect, "Segment": H.Segment}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(ch=c1, **kw)
+    REGISTRY["Classify"] = lambda c1, kw: C.Classify(c1, **kw)
+    for nm in _TV_STAGES:
+        REGISTRY[nm] = lambda c1, kw, nm=nm: T.build_stage(nm, c1, **kw)
 
 
 def build_module(layer: LayerSpec) -> nn.Module:
@@ -139,6 +146,9 @@ _REPEAT_AS_N = {"C3", "C3Conv", "C3_DCN", "C2f", "C2f_DCN", "C3k2", "C3TR", "C3G
 _C2_FIRST = {"ResNetStem", "ResNetLayer", "VGGBlock", "SegmentHead"}
 _RESNET_LAYERS = {"ResNet50Layer": "bottleneck", "ResNet18Layer": "basic",
                   "ResNet34Layer": "basic"}
+# The torchvision stages (nn/torchvision_backbones.py): args [c2], c2 never
+# width-scaled, and 0 for "the stage's own width" (STAGE_OUT).
+_TV_STAGES = frozenset(STAGE_OUT)
 
 
 def _resolve(a, symbols: dict):
@@ -214,6 +224,10 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
         return {"dim": a[0] if a else 1}, n
     if name == "GAM":
         return dict(zip(["c", "k", "s", "e"], a)), n
+    if name in _TV_STAGES:
+        return {"c2": a[0]}, n
+    if name == "Classify":
+        return dict(zip(["c2", "k", "s", "p", "g"], a)), n
     keys = {"ResNetStem": ["c2"], "ResNetLayer": ["c2", "n", "stride", "block"],
             "VGGBlock": ["c2", "n", "pool"], "SegmentHead": ["nc", "width"]}.get(name)
     if keys is not None:
@@ -253,10 +267,12 @@ def _semantic_row(name: str, args: list, n: int):
 def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
     """Compile a model-config dict into a ModelSpec (reference models/yolo.py:299-382).
     A config without anchors, or with `compiler: semantic`, compiles in the
-    semantic dialect."""
+    semantic dialect; `compiler: classify` compiles in the detect dialect
+    and keeps the detect BatchNorm profile."""
     style = d.get("compiler", "detect" if d.get("anchors") is not None else "semantic")
-    if style not in ("detect", "semantic"):
-        raise ValueError(f"unknown compiler dialect {style!r}; expected 'detect' or 'semantic'")
+    if style not in ("detect", "semantic", "classify"):
+        raise ValueError(f"unknown compiler dialect {style!r}; expected 'detect', 'semantic' "
+                         "or 'classify'")
     semantic = style == "semantic"
     anchors = d.get("anchors")
     model_nc = nc if (nc is not None and nc != d.get("nc")) else d["nc"]
@@ -292,8 +308,10 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
                 if name in _REPEAT_AS_N:
                     args.insert(1, n)
                     n = 1
-        elif name in _C2_FIRST:
+        elif name in _C2_FIRST or name == "Classify":
             c2 = args[0]
+        elif name in _TV_STAGES:
+            c2 = args[0] or STAGE_OUT[name]
         elif name == "Concat":
             c2 = sum(c1)
         elif name in ("Detect", "Segment"):

@@ -1,7 +1,8 @@
 """The initial weights of the JAX package's `model.init()`, drawn again in torch.
 
 JAX's semantic trainer (root semantic/train.py) starts every run from
-`SemanticSegModel.init()`: flax's initializers under `jax.random.PRNGKey(0)`.
+`SemanticSegModel.init()`: flax's initializers under `jax.random.PRNGKey(0)`;
+its classify trainer (root classify/train.py:74) under `PRNGKey(seed)`.
 `flax_init_` gives a port model those same values, so a run from scratch
 starts where JAX's does. It copies what the values depend on:
 
@@ -12,10 +13,11 @@ starts where JAX's does. It copies what the values depend on:
   counter in that scope (flax.core.scope: LazyRng, `_fold_in_static`,
   `make_rng`; the 1-based order in which the scope creates its parameters);
 - the initializers: conv kernels lecun_normal (a normal truncated to ±2,
-  std sqrt(1/fan_in) / 0.8796..., drawn on the HWIO shape), C2f_DCN's
-  `m_{i}_dcn_weight` the same, DCNv2's `weight` uniform in ±1/sqrt(cin·k²),
-  DCNv2's `conv_offset_mask`, every bias and BatchNorm shift zero, BatchNorm
-  scales one, running statistics 0 and 1.
+  std sqrt(1/fan_in) / 0.8796..., drawn on the HWIO shape), Dense kernels
+  the same on the (in, out) shape, C2f_DCN's `m_{i}_dcn_weight` the same,
+  DCNv2's `weight` uniform in ±1/sqrt(cin·k²), DCNv2's `conv_offset_mask`,
+  every bias and BatchNorm or LayerNorm shift zero, their scales one,
+  ConvNeXt's layer scale `gamma` 1e-6, running statistics 0 and 1.
 
 The inverse error function is XLA's single-precision one (Giles'
 polynomials), evaluated here in float32 by torch: values agree with JAX's to
@@ -152,11 +154,14 @@ def jax_scope(name: str):
 
 
 @torch.no_grad()
-def flax_init_(model: nn.Module) -> nn.Module:
+def flax_init_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Set every parameter and BatchNorm statistic of `model` (a port model
-    built from a semantic config) to the value JAX's `model.init()` gives it,
-    in place. Raises for a parameterised module this does not know."""
+    built from a config) to the value JAX's `model.init()` under
+    `jax.random.PRNGKey(seed)` gives it, in place. Raises for a
+    parameterised module this does not know."""
     from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2
+    from yolo_dual_tpu_torch.nn.torchvision_backbones import ConvNeXtBlock
+    root = (0, int(seed))  # jax.random.PRNGKey(seed) for 0 <= seed < 2**32
     owners = {}
     for mname, mod in model.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
@@ -164,23 +169,27 @@ def flax_init_(model: nn.Module) -> nn.Module:
     for name, (mod, pname, p) in owners.items():
         path, leaf = jax_scope(name)
         dev = p.device
-        if isinstance(mod, nn.modules.batchnorm._BatchNorm) or pname == "bias":
-            p.fill_(1.0 if (pname == "weight" and isinstance(mod, nn.modules.batchnorm._BatchNorm))
-                    else 0.0)
+        norm = isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm))
+        if norm or pname == "bias":
+            p.fill_(1.0 if (pname == "weight" and norm) else 0.0)
         elif isinstance(mod, nn.Conv2d):
             if path[-1] == "conv_offset_mask":  # DCNv2's offset and mask head
                 p.zero_()
             else:
                 hwio = (*p.shape[2:], p.shape[1], p.shape[0])
-                p.copy_(lecun_normal(param_key(path, 1), hwio, dev).permute(3, 2, 0, 1))
+                p.copy_(lecun_normal(param_key(path, 1, root), hwio, dev).permute(3, 2, 0, 1))
+        elif isinstance(mod, nn.Linear):
+            p.copy_(lecun_normal(param_key(path, 1, root), (p.shape[1], p.shape[0]), dev).t())
+        elif isinstance(mod, ConvNeXtBlock) and pname == "gamma":
+            p.fill_(1e-6)
         elif isinstance(mod, DCNv2) and pname == "weight":
             std = 1.0 / math.sqrt(p.shape[1] * mod.g * p.shape[2] * p.shape[3])
             hwio = (*p.shape[2:], p.shape[1], p.shape[0])
-            p.copy_(uniform(param_key(path, 1), hwio, -std, std, dev).permute(3, 2, 0, 1))
+            p.copy_(uniform(param_key(path, 1, root), hwio, -std, std, dev).permute(3, 2, 0, 1))
         elif isinstance(mod, C2f_DCN) and pname.endswith("_dcn_weight"):
             i = int(pname.split("_")[1])
             hwio = (*p.shape[2:], p.shape[1], p.shape[0])
-            p.copy_(lecun_normal(param_key(path, i + 1), hwio, dev).permute(3, 2, 0, 1))
+            p.copy_(lecun_normal(param_key(path, i + 1, root), hwio, dev).permute(3, 2, 0, 1))
         else:
             raise NotImplementedError(f"{name}: JAX's initializer of {type(mod).__name__}."
                                       f"{pname} is not reproduced")

@@ -1,6 +1,6 @@
-"""Graph walker, DetectionModel, SegmentationModel, SemanticSegModel and
-build_model (port of yolo_dual_tpu/models/model.py; reference
-models/yolo.py:109-296).
+"""Graph walker, DetectionModel, SegmentationModel, SemanticSegModel,
+ClassificationModel and build_model (port of yolo_dual_tpu/models/model.py;
+reference models/yolo.py:109-296).
 
 The space-to-depth blocked stem that the JAX `fuse()` applies on its own
 (nn/blocked.py) is a TPU layout rewrite of the same math and is not ported:
@@ -9,18 +9,21 @@ The space-to-depth blocked stem that the JAX `fuse()` applies on its own
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
-from yolo_dual_tpu_torch.models.compiler import ModelSpec, build_module, parse_config, with_strides
+from yolo_dual_tpu_torch.models.compiler import (LayerSpec, ModelSpec, build_module, parse_config,
+                                                 with_strides)
 from yolo_dual_tpu_torch.models.heads import Detect
 from yolo_dual_tpu_torch.nn.common import Conv, resize_bilinear
 from yolo_dual_tpu_torch.nn.attention import AttentionConv, AttentionStem
 from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
 from yolo_dual_tpu_torch.nn.spp import FixedProfileBatchNorm2d
+from yolo_dual_tpu_torch.nn.torchvision_backbones import ConvNeXtBlock
 from yolo_dual_tpu_torch.utils.general import find_cfg, load_config, select_device
 
 _HEADS = ("Detect", "Segment")
@@ -95,7 +98,8 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     deformable weights; DCNv2's weight U(±1/sqrt(cin·k²)) (JAX
     nn/dcn.py:289-295); the attention blocks' `rel_*` and `emb_*` N(0, 1), as
     flax's normal(1.0); zero biases; identity BatchNorms with fresh running
-    stats; zero DCNv3 offset and mask heads and zero DCNv2 `conv_offset_mask`,
+    stats and identity LayerNorms; ConvNeXt's layer scale `gamma` 1e-6; zero
+    DCNv3 offset and mask heads and zero DCNv2 `conv_offset_mask`,
     as JAX initializes them (every sample on its grid point, uniform mask)."""
     def lecun(w):
         w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(w[0].numel()))
@@ -106,8 +110,10 @@ def init_weights(model: nn.Module, generator: torch.Generator):
                 lecun(m.weight)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, ConvNeXtBlock):
+                m.gamma.fill_(1e-6)
             elif isinstance(m, DCNv2):  # JAX: std over the input's channels, not a group's
                 std = 1 / math.sqrt(m.weight[0].numel() * m.g)
                 m.weight.copy_((torch.rand(m.weight.shape, generator=generator) * 2 - 1) * std)
@@ -209,18 +215,74 @@ class SemanticSegModel(GraphModel):
         return resize_bilinear(out, x.shape[-2:])
 
 
+class ClassificationModel(GraphModel):
+    """A classifier: the first `cutoff` layers of a compiled config and a
+    `Classify` head of `nc` classes (reference models/yolo.py:273-296; JAX
+    models/model.py:348). `cfg` is a dict, a path or the name of a JSON copy
+    ("yolov5s.json", cutoff 10: YOLOv5s-cls), or classify.train's
+    `build_classifier` config of a torchvision family. `save` keeps the
+    indices below the cutoff; `stride` is [32]. The graph runs under the
+    detect BatchNorm profile (eps 1e-3, momentum 0.03), as JAX's classify
+    style does; the torchvision stages keep their own. Built on the meta
+    device and materialized on `device`, weights drawn from `generator`
+    (default: a CPU generator seeded 0); `dropout` > 0 puts nn.Dropout
+    before the head's Linear.
+    """
+
+    def __init__(self, cfg="yolov5s.json", nc: int = 1000, cutoff: int = 10,
+                 dropout: float = 0.0, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        dev = select_device(device)
+        d = _config(cfg)
+        base = parse_config(d, ch=3)
+        layers = list(base.layers[:cutoff])
+        i = len(layers)
+        kw = (("c2", nc),) + ((("dropout", float(dropout)),) if dropout else ())
+        layers.append(LayerSpec(i=i, f=-1, n=1, name="Classify", kwargs=kw, c1=layers[-1].c2,
+                                c2=nc))
+        spec = dataclasses.replace(base, layers=tuple(layers), nc=nc,
+                                   save=tuple(s for s in base.save if s < i),
+                                   out_ch=tuple(layer.c2 for layer in layers), anchors=(),
+                                   strides=(), style="classify")
+        with torch.device("meta"):
+            super().__init__(spec)
+        self.to_empty(device=dev)
+        self.yaml, self.cutoff, self.dropout = d, cutoff, dropout
+        self.nc = nc
+        self.names = {j: str(j) for j in range(nc)}
+        self.stride = [32]
+        init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
+
+
+@torch.no_grad()
+def reshape_classifier_output(model: ClassificationModel, nc: int,
+                              generator: Optional[torch.Generator] = None) -> ClassificationModel:
+    """The classifier `model` at `nc` classes (reference
+    utils/torch_utils.py:66-87; JAX models/model.py:372): rebuilt on its
+    device, every tensor whose name and shape still match copied over, so
+    only the head's `linear` is drawn anew (from `generator`)."""
+    if nc == model.nc:
+        return model
+    new = ClassificationModel(model.yaml, nc=nc, cutoff=model.cutoff, dropout=model.dropout,
+                              device=next(model.parameters()).device, generator=generator)
+    own = new.state_dict()
+    for k, v in model.state_dict().items():
+        if k in own and own[k].shape == v.shape:
+            own[k].copy_(v)
+    return new
+
+
 def build_model(cfg, task: Optional[str] = None, **kw) -> GraphModel:
     """The model of a config, its wrapper chosen from the config as JAX's
     build_model chooses it (JAX models/model.py:463): no anchors -> semantic,
-    a last head row `Segment` -> segment, else detect. `task` overrides;
-    `kw` goes to the wrapper (ch, nc, device, generator)."""
+    a last head row `Segment` -> segment, else detect. `task` overrides
+    ("classify": ClassificationModel, whose `kw` are nc, cutoff, dropout,
+    device, generator); `kw` goes to the wrapper (ch, nc, device, generator)."""
     d = _config(cfg)
     if task is None:
         if d.get("anchors") is None:
             task = "semantic"
         else:
             task = "segment" if str(d["head"][-1][2]) == "Segment" else "detect"
-    if task == "classify":
-        raise NotImplementedError("ClassificationModel is not ported yet: ROADMAP item 6f")
     return {"detect": DetectionModel, "segment": SegmentationModel,
-            "semantic": SemanticSegModel}[task](d, **kw)
+            "semantic": SemanticSegModel, "classify": ClassificationModel}[task](d, **kw)

@@ -490,3 +490,26 @@ class Proto(nn.Module):
     def forward(self, x):
         x = F.interpolate(self.cv1(x), scale_factor=2, mode="nearest")
         return self.cv3(self.cv2(x))
+
+
+class Classify(nn.Module):
+    """Classification head (reference models/common.py:851-864; JAX
+    nn/common.py:943): a list input concatenated on channels, `conv` to 1280
+    channels, the global mean, `nn.Dropout(dropout)` when dropout > 0, and
+    `linear` to c2. The names are the reference's, so a YOLOv5-cls
+    state_dict (`model.9.conv.conv.weight`, `model.9.linear.weight`) loads."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, dropout=0.0):
+        super().__init__()
+        c_ = 1280  # efficientnet_b0 size
+        self.conv = Conv(sum(c1) if isinstance(c1, (list, tuple)) else c1, c_, k, s, p, g)
+        self.drop = nn.Dropout(dropout) if dropout else None
+        self.linear = nn.Linear(c_, c2)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(x, 1)
+        x = self.conv(x).mean((2, 3))
+        if self.drop is not None:
+            x = self.drop(x)
+        return self.linear(x)

@@ -3,7 +3,8 @@ accumulation (port of yolo_dual_tpu/train/optim.py; reference
 utils/torch_utils.py:318-346 smart_optimizer and the warmup of
 segment/train.py:521-529).
 
-Groups: g0 = weights, with weight decay; g1 = BatchNorm weights, no decay;
+Groups: g0 = weights, with weight decay; g1 = BatchNorm and LayerNorm
+weights, no decay;
 g2 = biases, no decay, whose warmup starts at `warmup_bias_lr`. The update is
 the math of the JAX package's fused optimizer (`_fused_smart_optimizer`):
 SGD with Nesterov momentum, Adam/AdamW with decoupled decay, RMSProp. The
@@ -26,18 +27,21 @@ f32 = np.float32
 
 
 def batchnorm_weights(model: nn.Module) -> set:
-    """The names of the weights of `model`'s BatchNorm layers, whatever the
-    layers are called (a Conv's `bn`, a bare BatchNorm row): the torch side of
-    JAX's BatchNorm `scale` leaves."""
+    """The names of the weights of `model`'s normalisation layers, whatever
+    the layers are called (a Conv's `bn`, a bare BatchNorm row, ConvNeXt's
+    `ln`): the torch side of JAX's `scale` leaves, BatchNorm's and
+    LayerNorm's alike."""
     return {f"{n}.weight" for n, m in model.named_modules()
-            if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.weight is not None}
+            if isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm))
+            and m.weight is not None}
 
 
 def param_group_label(name: str, bn_weights: Optional[Collection[str]] = None) -> str:
-    """g0: weights with decay; g1: BatchNorm weights; g2: biases (JAX
-    optim.py:26: `bias` -> g2, a BatchNorm's `scale` -> g1, the rest g0). The
-    BatchNorm weights are `bn_weights` where given (batchnorm_weights of the
-    model), else the weights of modules named `bn` (`model.2.cv1.bn.weight`)."""
+    """g0: weights with decay; g1: normalisation weights; g2: biases (JAX
+    optim.py:26: `bias` -> g2, any `scale` -> g1, the rest g0, ConvNeXt's
+    layer scale `gamma` among them). The normalisation weights are
+    `bn_weights` where given (batchnorm_weights of the model), else the
+    weights of modules named `bn` (`model.2.cv1.bn.weight`)."""
     parts = name.split(".")
     if parts[-1] == "bias":
         return "g2"
@@ -226,7 +230,7 @@ def smart_optimizer(model_or_params, name: str = "SGD", hyp: Optional[Dict] = No
                     accumulate: int = 1, total_batch_size: Optional[int] = None,
                     nominal_batch_size: int = 64) -> SmartOptimizer:
     """The three-group optimizer over a module's named parameters, its
-    BatchNorm weights in g1 (or over an iterable of (name, parameter), g1 then
+    BatchNorm and LayerNorm weights in g1 (or over an iterable of (name, parameter), g1 then
     being the weights of modules named `bn`). Weight decay is scaled by
     total_batch_size · accumulate / nominal_batch_size when the batch size is
     given (reference segment/train.py:444-446)."""

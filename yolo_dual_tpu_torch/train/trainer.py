@@ -1,7 +1,7 @@
 """Training engine: one train step (forward, loss, backward, optimizer, EMA),
 the eval step and early stopping (port of yolo_dual_tpu/train/trainer.py;
 reference segment/train.py:348-589, seg_diceloss_Resnet50.py:875-1215), for
-the detect, segment and semantic tasks.
+the detect, segment, semantic and classify tasks, and `classify_loss`.
 
 A batch is a dict in the format the JAX package's loader yields. Detect and
 segment: `image` (bs, H, W, 3) uint8 or float, `targets` (bs, M, 5)
@@ -9,8 +9,9 @@ normalised [cls, x, y, w, h], `tmask` (bs, M) bool, and for segment `masks`
 ((bs, h, w) overlap-indexed, or (bs, M, h, w)). Semantic: `mask` (bs, H, W)
 class ids and `image` either uint8 (bs, H, W, 3) (the host route) or
 float32 (bs, 3, H, W) in [0, 1], as kernels/preprocess.py:semantic_preprocess
-returns it (the device route). Arrays or tensors on any device; they are
-moved to the model's.
+returns it (the device route). Classify: `image` (bs, H, W, 3) float32,
+ImageNet-normalised (data/classify.py), and `label` (bs,) class ids. Arrays
+or tensors on any device; they are moved to the model's.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from yolo_dual_tpu_torch.data.loader import normalize_image
 from yolo_dual_tpu_torch.train.ema import ModelEMA
@@ -75,13 +77,13 @@ class Trainer:
     loss_fn: Any                     # ComputeLoss (detect) or ComputeSegmentLoss (segment)
     optimizer: SmartOptimizer
     ema: Optional[ModelEMA] = None
-    task: str = "segment"            # detect | segment | semantic
+    task: str = "segment"            # detect | segment | semantic | classify
     amp_dtype: Optional[torch.dtype] = None  # torch.bfloat16: forward and loss under autocast
 
     def __post_init__(self):
-        if self.task not in ("detect", "segment", "semantic"):
-            raise ValueError(f"task {self.task!r}: the port trains detect, segment and "
-                             "semantic models")
+        if self.task not in ("detect", "segment", "semantic", "classify"):
+            raise ValueError(f"task {self.task!r}: the port trains detect, segment, "
+                             "semantic and classify models")
 
     def init_state(self) -> TrainState:
         return TrainState(self.model, self.optimizer, self.ema)
@@ -98,7 +100,8 @@ class Trainer:
     def forward_loss(self, model: nn.Module, batch: Dict[str, Any]):
         """Train-mode forward of the normalised NCHW batch and the task loss:
         (loss · bs, loss items) for detect and segment, (loss, (total, ce,
-        aux)) for semantic, whose loss is a mean (JAX trainer.py:107-114; the
+        aux)) for semantic and (loss, (loss, acc)) for classify, whose losses
+        are means (JAX trainer.py:107-114; the
         model's scores already come at the input's size). With `amp_dtype` both
         run under torch.autocast (the JAX model's bf16 compute dtype:
         convolutions and matmuls in bfloat16, parameters, BatchNorm statistics
@@ -111,6 +114,9 @@ class Trainer:
                             enabled=self.amp_dtype is not None):
             if self.task == "semantic":
                 loss, items = self.loss_fn(model(x), b["mask"])
+                items = torch.stack(items).detach()
+            elif self.task == "classify":
+                loss, items = self.loss_fn(model(x), b["label"])
                 items = torch.stack(items).detach()
             elif self.task == "segment":
                 loss, items = self.loss_fn(model(x, decode=False), b["targets"], b["tmask"],
@@ -145,7 +151,21 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, Any]):
         """Eval-mode output of the EMA model (of the model without an EMA):
-        decoded detections, or the semantic scores."""
+        decoded detections, the semantic scores, or the class logits."""
         model = (state.ema.ema if state.ema is not None else state.model).eval()
         b = _on({"image": batch["image"]}, next(model.parameters()).device)
         return model(self.model_input(b["image"]))
+
+
+def classify_loss(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0):
+    """Softmax cross-entropy against one-hot labels smoothed by
+    `label_smoothing` (eps/nc added to every class), the batch mean (JAX
+    train/trainer.py:211; reference classify/train.py). Returns (loss,
+    (loss, top-1 accuracy))."""
+    nc = logits.shape[-1]
+    target = F.one_hot(labels.long(), nc).to(logits.dtype)
+    if label_smoothing:
+        target = target * (1 - label_smoothing) + label_smoothing / nc
+    loss = -(target * F.log_softmax(logits, -1)).sum(-1).mean()
+    acc = (logits.argmax(-1) == labels).to(logits.dtype).mean()
+    return loss, (loss, acc)

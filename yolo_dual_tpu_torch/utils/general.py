@@ -82,14 +82,20 @@ def find_cfg(name) -> Path:
     """Resolve a config name: an existing path, else the package's JSON copy of
     that model or hyperparameter config (`yolov5s-seg.yaml` and
     `yolov5s-seg.json` both find configs/segment/yolov5s-seg.json;
-    `resnet50.yaml` finds configs/semantic/resnet50.json;
     `hyp.scratch-low.yaml` finds configs/hyps/hyp.scratch-low.json;
-    `yolov3-tiny.yaml` finds configs/hub/yolov3-tiny.json). The folders are
-    searched in the order of CONFIG_DIRS; no two copies share a stem."""
+    `yolov3-tiny.yaml` finds configs/hub/yolov3-tiny.json). A name qualified
+    by its folder under configs/, as the JAX package names its configs
+    (`backbone/resnet18.yaml`, `semantic/resnet50.json`), finds that folder's
+    copy; a bare stem is searched in the order of CONFIG_DIRS. Two stems are
+    shared, resnet18 and resnet50 (semantic/ and backbone/): bare, they find
+    the semantic configs, so `resnet50.yaml` is the semantic flagship."""
     p = Path(name)
     if p.exists():
         return p
-    cands = [CONFIGS / sub / (p.stem + ".json") for sub in CONFIG_DIRS]
+    if len(p.parts) == 2 and p.parts[0] in CONFIG_DIRS:
+        cands = [CONFIGS / p.parts[0] / (p.stem + ".json")]
+    else:
+        cands = [CONFIGS / sub / (p.stem + ".json") for sub in CONFIG_DIRS]
     for c in cands:
         if c.exists():
             return c

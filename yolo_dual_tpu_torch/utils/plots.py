@@ -58,6 +58,12 @@ class Annotator:
             overlay = overlay * (1 - m3 * alpha) + m3 * alpha * np.asarray(c, np.float32)
         self.im = overlay.astype(np.uint8)
 
+    def text(self, xy, text: str, color=(255, 255, 255)):
+        """Plain text at xy (reference Annotator.text, utils/plots.py:150)."""
+        import cv2
+        cv2.putText(self.im, text, (int(xy[0]), int(xy[1])), cv2.FONT_HERSHEY_SIMPLEX,
+                    max(self.lw / 4.0, 0.4), color, max(self.lw // 2, 1), cv2.LINE_AA)
+
     def result(self):
         return self.im
 
