@@ -143,6 +143,24 @@ which raises on failure:
    trained 2 epochs at 224 px, classify.val on its last.pt (results.csv's
    last top-1), classify.predict on 8 val frames (val's top-1 class each,
    --save-txt rows); no kernel launch on this path (host crop and resize);
+6h. AuxOTA, the 6d names, TTA and soft-NMS: (a) `auxota_path`:
+   loss/yolov5n_auxota (nc 2, depth 0.33, width 0.25) from JAX's initial
+   weights at 640 px, one forward, AuxOTA loss and backward at bs 16 card
+   against CPU (TF32 off: both branches' assignment equal, loss items and
+   gradients within 1e-3 of the largest), 8 micro-steps through
+   Trainer(task="detect") with ComputeLossAuxOTA (hyp.scratch-low,
+   accumulate 4, EMA; the parameters move on the boundaries), timed by
+   part with peak memory and (after phase 9) the busy share; the EMA model
+   served by AutoShape at batch 1 and 8 and the bs-32 forward + NMS; no
+   kernel launch; (b) `zoo_6d_path`: ZOO_6D (every name 6d registers, each
+   Upsample mode, a DetectAux head) at 640 px card against CPU, eval in
+   float32 and train mode in float64 within 1e-4, the card's float32 train
+   run no further from the CPU's float64 than the CPU's own; (c, d)
+   `tta_path`: segment.val on 6b's set with --augment, --soft-nms and both
+   (K1 a batch, mAP50 above 0.05, card against CPU on 8 frames within
+   0.01), the NMS of one bs-32 batch timed by variant with the soft-NMS loop
+   against JAX's loop and a fixed one, and segment.predict --augment at
+   batch 1 (K1 a frame);
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -2455,6 +2473,442 @@ def classify_path(card: str) -> dict:
     return launches
 
 
+# Phase 6h: the AuxOTA dual head (loss/yolov5n_auxota at its published depth and width, nc 2,
+# JAX's initial weights, 640 px), a graph of every registry name no shipped config uses (6d),
+# and segment.val / segment.predict with TTA and soft-NMS.
+ZOO_6D = {  # every name 6d registers, and each Upsample mode; a DetectAux head over 6 maps
+    "nc": 80, "depth_multiple": 0.33, "width_multiple": 0.25,
+    "anchors": [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119], [116, 90, 156, 198, 373, 326]],
+    "backbone": [[-1, 1, "Focus", [64, 3]],                       # 0  P1/2
+                 [-1, 1, "Conv", [128, 3, 2]],                    # 1  P2/4
+                 [-1, 3, "BottleneckCSP", [128]],                 # 2
+                 [-1, 1, "DWConv", [256, 3, 2]],                  # 3  P3/8
+                 [-1, 6, "C3x", [256]],                           # 4
+                 [-1, 1, "Conv", [512, 3, 2]],                    # 5  P4/16
+                 [-1, 1, "MixConv2d", [512, [3, 5, 7]]],          # 6
+                 [-1, 1, "Conv", [1024, 3, 2]],                   # 7  P5/32
+                 [-1, 1, "C3SPP", [1024, [5, 9, 13]]],            # 8
+                 [-1, 1, "nn.BatchNorm2d", []]],                  # 9
+    "head": [[-1, 1, "Conv", [512, 1, 1]],                        # 10
+             [-1, 1, "nn.ConvTranspose2d", [512, 2, 2, 0]],       # 11 P4
+             [[-1, 6], 1, "Sum", [2, True]],                      # 12
+             [-1, 1, "Conv", [256, 1, 1]],                        # 13
+             [-1, 1, "nn.Upsample", [None, 2, "nearest"]],        # 14 P3
+             [[-1, 4], 1, "Concat", [1]],                         # 15
+             [-1, 1, "CrossConv", [256, 3, 1]],                   # 16 lead P3
+             [-1, 1, "Contract", [2]],                            # 17 P4
+             [[-1, 13], 1, "Concat", [1]],                        # 18
+             [-1, 1, "Conv", [512, 1, 1]],                        # 19 lead P4
+             [-1, 1, "nn.Upsample", [None, 0.5, "nearest"]],      # 20 P5: nearest at factor 0.5
+             [[-1, 10], 1, "Concat", [1]],                        # 21
+             [-1, 1, "Conv", [1024, 1, 1]],                       # 22 lead P5
+             [19, 1, "Expand", [2]],                              # 23 P3
+             [-1, 1, "DWConvTranspose2d", [256, 3, 1, 1]],        # 24 aux P3
+             [22, 1, "nn.Upsample", [None, 2, "bilinear"]],       # 25 aux P4: bilinear, enlarging
+             [16, 1, "nn.Upsample", [[30, 30], None, "nearest"]],  # 26 nearest to a size
+             [-1, 1, "nn.Upsample", [[20, 20], None, "bilinear"]],  # 27 aux: bilinear, shrinking
+             [[16, 19, 22, 24, 25, 27], 1, "Detect", ["nc", "anchors"]]]}  # 28 DetectAux
+
+
+AUX_CFG, AUX_BS, AUX_STEPS, AUX_MAX_BOXES = "yolov5n_auxota.json", 16, 8, 8
+AUX_TOL = 1e-3  # card vs CPU, TF32 off: loss items and gradients within this share of the largest
+AUX_SERVE_CONF = 1e-3  # after 8 micro-steps from JAX's init the scores sit far below 0.25
+ZOO_6D_TOL = 1e-4  # card vs CPU, TF32 off: 6d graph outputs within this share of the largest
+ZOO_6D_F64_TOL = 1e-9  # the same in float64, train mode (read 1.2e-12; float32 reads 2.6e-6)
+TTA_RUNS = {"augment": dict(augment=True), "soft_nms": dict(soft_nms=True),
+            "augment_soft_nms": dict(augment=True, soft_nms=True)}
+TTA_PREDICT_FRAMES = 8
+
+
+def detect_batch(rng: np.random.Generator, bs: int, imgsz: int, nc: int, device) -> dict:
+    """One seeded detect batch as the JAX package's loader yields it: uint8
+    NHWC images, targets (bs, AUX_MAX_BOXES, 5) normalised [cls, x, y, w, h]
+    with 1..AUX_MAX_BOXES boxes an image of classes below nc, their mask."""
+    targets = np.zeros((bs, AUX_MAX_BOXES, 5), np.float32)
+    tmask = np.zeros((bs, AUX_MAX_BOXES), bool)
+    for i in range(bs):
+        n = int(rng.integers(1, AUX_MAX_BOXES + 1))
+        wh = rng.uniform(0.05, 0.5, (n, 2))
+        targets[i, :n] = np.concatenate([rng.integers(0, nc, (n, 1)),
+                                         rng.uniform(wh / 2, 1 - wh / 2), wh], 1)
+        tmask[i, :n] = True
+    image = rng.integers(0, 256, (bs, imgsz, imgsz, 3), dtype=np.uint8)
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            dict(image=image, targets=targets, tmask=tmask).items()}
+
+
+def auxota_trainer(model):
+    """Trainer(task="detect") of `model` with ComputeLossAuxOTA, SGD with
+    hyp.scratch-low (bs AUX_BS, accumulate to 64) and the EMA."""
+    from yolo_dual_tpu_torch.losses.ota import ComputeLossAuxOTA
+    from yolo_dual_tpu_torch.train.ema import ModelEMA
+    from yolo_dual_tpu_torch.train.optim import smart_optimizer
+    from yolo_dual_tpu_torch.train.trainer import Trainer
+    from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
+    hyp = load_config(find_cfg("hyp.scratch-low.json"))
+    head = model.model[-1]
+    opt = smart_optimizer(model, "SGD", hyp, epochs=EPOCHS, steps_per_epoch=STEPS_PER_EPOCH,
+                          accumulate=max(round(64 / AUX_BS), 1), total_batch_size=AUX_BS)
+    trainer = Trainer(model, ComputeLossAuxOTA(head.anchors, head.strides, model.nc, hyp), opt,
+                      ModelEMA(model), task="detect")
+    return trainer, trainer.init_state()
+
+
+def share(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| over max |b| (b on the CPU)."""
+    return ((a.detach().cpu().double() - b.detach().double()).abs().max()
+            / b.detach().double().abs().max().clamp(min=1e-30)).item()
+
+
+def auxota_card_vs_cpu(model, batch) -> dict:
+    """One forward, AuxOTA loss and backward of `model` (deep copies, train
+    mode) on the card and on the CPU, TF32 off: the assignment of both
+    branches (fgs, matched_gts) equal, the loss items and every gradient
+    within AUX_TOL of the largest."""
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev).train()
+        trainer, _ = auxota_trainer(m)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        p = m(trainer.model_input(b["image"]), decode=False)
+        lf = trainer.loss_fn
+        with torch.no_grad():
+            sel = [lf._simota_select(p[:lf.nl], b["targets"], b["tmask"], lf._pixel_scale(p),
+                                     bias=bias) for bias in (0.5, 1.0)]
+        loss, items = lf(p, b["targets"], b["tmask"])
+        loss.backward()
+        out[dev] = {"sel": [{k: s[k].cpu() for k in ("fgs", "matched_gts")} for s in sel],
+                    "items": items.cpu(), "grads": {k: q.grad.cpu() for k, q in m.named_parameters()}}
+    g, c = out["cuda"], out["cpu"]
+    res = {"fg_lead": int(c["sel"][0]["fgs"].sum()), "fg_aux": int(c["sel"][1]["fgs"].sum()),
+           "assignment_equal": all(torch.equal(a[k], b[k]) for a, b in zip(g["sel"], c["sel"])
+                                   for k in ("fgs", "matched_gts")),
+           "items_card": g["items"].tolist(), "items_cpu": c["items"].tolist(),
+           "items_share": share(g["items"], c["items"]),
+           "grad_share_max": max(share(g["grads"][k], v) for k, v in c["grads"].items()
+                                 if v.abs().max() > 0)}
+    torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
+def auxota_path(card: str):
+    """Phase 6h (a): loss/yolov5n_auxota at its published depth and width (nc
+    2), JAX's initial weights (`flax_init_`, PRNGKey(0) and the bias prior),
+    640 px. Card against CPU on the first batch (auxota_card_vs_cpu); then
+    AUX_STEPS micro-steps at bs AUX_BS through Trainer(task="detect") with
+    ComputeLossAuxOTA and hyp.scratch-low on seeded boxes (the parameters move
+    on the accumulation boundaries, the EMA with them), timed by part (CUDA
+    events: forward, OTA loss, backward, optimizer + EMA) with peak memory.
+    Then served, fused: AutoShape at batch 1 and 8 (ms by part, host clock)
+    and the bs-32 forward + nms_from_raw over the lead levels in img/s.
+    Returns (launches: none of K1-K3 is on the path, a function profiling
+    one accumulation cycle after phase 9)."""
+    from yolo_dual_tpu_torch.data.augment import letterbox
+    from yolo_dual_tpu_torch.engine.autoshape import AutoShape
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.flax_init import flax_init_
+    from yolo_dual_tpu_torch.models.model import build_model
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    kernels = (letterbox_normalize, dcnv3_sampling, dcnv3_sampling_backward)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    model = flax_init_(build_model(AUX_CFG, device="cuda"))
+    head = model.model[-1]
+    assert type(head).__name__ == "DetectAux" and model.nc == 2, type(head)
+    rng = np.random.default_rng(8)
+    batches = [detect_batch(rng, AUX_BS, 640, model.nc, "cuda") for _ in range(AUX_STEPS)]
+    check = auxota_card_vs_cpu(model, batches[0])
+    print(f"auxota card vs cpu ({card}; bs {AUX_BS}, 640 px, tf32 off) " + json.dumps(check),
+          flush=True)
+    failures = []
+    if not (check["assignment_equal"] and check["items_share"] <= AUX_TOL
+            and check["grad_share_max"] <= AUX_TOL and check["fg_lead"] > 0):
+        failures.append(f"card vs CPU {check}")
+
+    trainer, state = auxota_trainer(model)
+    accumulate = state.optimizer.accumulate
+    for k in kernels:
+        k.launches = 0
+    items, moved = [], []
+    params = list(model.parameters())
+    for batch in batches:
+        before = torch.cat([q.detach().flatten() for q in params])
+        state, metrics = trainer.train_step(state, batch)
+        moved.append(not torch.equal(before, torch.cat([q.detach().flatten() for q in params])))
+        items.append(metrics["items"].tolist())
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    boundaries = [(i + 1) % accumulate == 0 for i in range(AUX_STEPS)]
+    if not np.isfinite(items).all() or moved != boundaries \
+            or state.ema.updates != AUX_STEPS // accumulate or any(launches.values()):
+        failures.append(f"micro-steps: items {items}, moved {moved}, EMA {state.ema.updates}, "
+                        f"launches {launches}")
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    split = []
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        e = [ev() for _ in range(5)]
+        model.zero_grad(set_to_none=True)
+        e[0].record()
+        x = trainer.model_input(batch["image"])
+        p = model(x, decode=False)
+        e[1].record()
+        loss, _ = trainer.loss_fn(p, batch["targets"], batch["tmask"])
+        e[2].record()
+        loss.backward()
+        e[3].record()
+        trainer.apply_gradients(state)
+        e[4].record()
+        split.append(e)
+    torch.cuda.synchronize()
+    parts = np.array([[a.elapsed_time(b) for a, b in zip(e, e[1:])] for e in split])
+    real = [i for i in range(AUX_STEPS) if boundaries[i]]
+    step_ms = cuda_ms(lambda: trainer.train_step(state, batches[0]), AUX_STEPS, warmup=0)
+    train = {"cfg": AUX_CFG, "card": card, "bs": AUX_BS, "imgsz": 640, "accumulate": accumulate,
+             "params": sum(q.numel() for q in params), "items": items,
+             "micro_step_ms": step_ms, "img_per_s": AUX_BS / (step_ms / 1e3),
+             "forward_ms": float(parts[:, 0].mean()), "ota_loss_ms": float(parts[:, 1].mean()),
+             "backward_ms": float(parts[:, 2].mean()),
+             "optimizer_ema_ms": float(parts[:, 3].mean()),
+             "optimizer_ema_ms_on_real_steps": float(parts[real, 3].mean()),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("auxota train " + json.dumps(train), flush=True)
+
+    # serving: the EMA model, fused, behind AutoShape; the bs-32 forward + NMS of the lead levels
+    serve_model = copy.deepcopy(state.ema.ema).eval()
+    calibrate_bn(serve_model, make_frames(4, seed=6))
+    api = AutoShape(serve_model, imgsz=640, conf=AUX_SERVE_CONF)
+    frames = make_frames(ZOO_FRAMES, seed=5)
+    x32 = torch.from_numpy(np.stack([letterbox(f, 640)[0] for f in frames])).permute(0, 3, 1, 2)
+    x32 = x32.repeat(32 // len(frames), 1, 1, 1).cuda().float() / 255
+
+    def step():
+        with torch.inference_mode():
+            raw = serve_model(x32, decode=False)
+            return nms_from_raw(raw[:head.nl], head.anchors, head.strides,
+                                conf_thres=AUX_SERVE_CONF, max_det=300)
+
+    def autoshape_ms(batch):
+        api(batch)
+        parts = np.zeros(3)
+        for _ in range(3):
+            out = api(batch)
+            parts += np.array(out.t) * len(batch) / 3
+        return {"letterbox": parts[0], "forward_nms": parts[1], "rescale": parts[2],
+                "call": float(parts.sum()), "rows": sum(len(d) for d in out.dets)}
+    for k in kernels:
+        k.launches = 0
+    serve = {"autoshape_bs1_ms": [{"frame": "x".join(map(str, f.shape[:2])), **autoshape_ms([f])}
+                                  for f in frames],
+             f"autoshape_bs{ZOO_BATCH}_ms": autoshape_ms(
+                 [frames[i % len(frames)] for i in range(ZOO_BATCH)])}
+    serve["bs32_img_per_s"] = 32 / (cuda_ms(step, 10) / 1e3)
+    serve["bs32_rows"] = int(step()[1].sum())
+    serve["launches"] = {k.__name__: k.launches for k in kernels}
+    serve["phase_s"] = time.perf_counter() - t_phase
+    print(f"auxota serve ({card}) " + json.dumps(serve), flush=True)
+    if any(serve["launches"].values()):
+        failures.append(f"serving launched {serve['launches']}")
+    if failures:
+        raise AssertionError("auxota (6h a): " + "; ".join(failures))
+    del serve_model, api, x32
+
+    def profile():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        return profile_steps(trainer, state, batches[:accumulate], step_ms)
+    return launches, profile
+
+
+def zoo_6d_path(card: str) -> dict:
+    """Phase 6h (b): ZOO_6D (every registry name 6d adds, each Upsample mode,
+    a DetectAux head) at 640 px, seeded weights with BatchNorm calibrated on 4
+    frames, bs 2, TF32 off. Eval (the decoded output and the 6 raw levels):
+    card against CPU in float32 within ZOO_6D_TOL of each output's largest
+    magnitude. Train mode: train-mode BatchNorm over these images (means far
+    above their spread) puts float32's own rounding above ZOO_6D_TOL (the
+    CPU's float32 against its float64: 2.6e-5 after the first layer, ~5e-4 at
+    the head), so the card is held against the CPU in float64 within
+    ZOO_6D_F64_TOL, which a float32 computation would break, and its float32 run against the CPU's float64 no further off
+    than the CPU's float32 run (card <= 2 · CPU + ZOO_6D_TOL / 10)."""
+    from yolo_dual_tpu_torch.data.augment import letterbox
+    from yolo_dual_tpu_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(ZOO_6D, device="cuda", generator=torch.Generator().manual_seed(0))
+    calibrate_bn(model, make_frames(4, seed=6))
+    x = torch.from_numpy(np.stack([letterbox(f, 640)[0] for f in make_frames(2, seed=9)]))
+    x = x.permute(0, 3, 1, 2).float() / 255
+    res = {"params": sum(q.numel() for q in model.parameters()),
+           "strides": list(model.spec.strides)}
+
+    def run(m, mode, dev, dtype):
+        m = copy.deepcopy(m).to(dev, dtype).train(mode == "train")
+        with torch.no_grad():
+            out = m(x.to(dev, dtype))
+        return [out[0], *out[1]] if mode == "eval" else list(out)
+    eval_g, eval_c = run(model, "eval", "cuda", torch.float32), run(model, "eval", "cpu",
+                                                                   torch.float32)
+    res["eval_f32_card_vs_cpu"] = [share(g, c) for g, c in zip(eval_g, eval_c)]
+    res["eval_shapes"] = [list(t.shape) for t in eval_c]
+    tr = {(dev, dt): run(model, "train", dev, dt) for dev in ("cuda", "cpu")
+          for dt in (torch.float32, torch.float64)}
+    c64 = tr[("cpu", torch.float64)]
+    res["train_f64_card_vs_cpu"] = [share(g, c) for g, c in zip(tr[("cuda", torch.float64)], c64)]
+    res["train_f32_card_vs_cpu_f64"] = [share(g, c) for g, c in
+                                        zip(tr[("cuda", torch.float32)], c64)]
+    res["train_f32_cpu_vs_cpu_f64"] = [share(g, c) for g, c in zip(tr[("cpu", torch.float32)], c64)]
+    res["train_f32_card_vs_cpu"] = [share(g, c) for g, c in zip(tr[("cuda", torch.float32)],
+                                                                 tr[("cpu", torch.float32)])]
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"6d zoo graph card vs cpu ({card}; 640 px, bs 2, tf32 off) " + json.dumps(res),
+          flush=True)
+    ok = len(eval_c) == 7 and max(res["eval_f32_card_vs_cpu"]) <= ZOO_6D_TOL \
+        and max(res["train_f64_card_vs_cpu"]) <= ZOO_6D_F64_TOL \
+        and max(res["train_f32_card_vs_cpu_f64"]) \
+        <= 2 * max(res["train_f32_cpu_vs_cpu_f64"]) + ZOO_6D_TOL / 10
+    if not ok:
+        raise AssertionError(f"6d zoo graph, card vs CPU: {res}")
+    return res
+
+
+def tta_path(card: str) -> dict:
+    """Phase 6h (c) and (d). (c) segment.val on phase 6b's seeded set (the
+    same primed yolov5s-seg, its own boxes as labels) with --device-preprocess
+    at bs 32, once with --augment, once with --soft-nms and once with both:
+    K1 once a batch, whole-run img/s and the speed line, and the NMS ms of one
+    bs-32 batch beside 6b's greedy nms_from_raw; card against CPU on
+    EVAL_CHECK_FRAMES frames at bs 8, TF32 off, the 8 metrics within 0.01.
+    (d) segment.predict --augment at batch 1 on TTA_PREDICT_FRAMES 480x640
+    .npy frames: pre, infer and post ms, K1 once a frame. Returns the K1
+    launches of (c) and of (d)."""
+    import shutil
+    import tempfile
+
+    from yolo_dual_tpu_torch.data.dataset import YoloDataset
+    from yolo_dual_tpu_torch.data.loader import Loader
+    from yolo_dual_tpu_torch.engine.predictor import predict_images
+    from yolo_dual_tpu_torch.engine.validator import PRE_NMS_TOPK, evaluate_segment
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import SegmentationModel, forward_augment
+    from yolo_dual_tpu_torch.ops import nms as nms_ops
+    from yolo_dual_tpu_torch.segment import predict, val
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    frames = make_frames(EVAL_FRAMES, seed=5, sizes=(EVAL_SHAPE,))
+    model = SegmentationModel("yolov5s-seg.json", device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    prime_for_eval(calibrate_bn(model, frames[:3]))
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tta_", dir=build))
+    n_batches = -(-EVAL_FRAMES // EVAL_BS)
+    out = {"card": card, "frames": EVAL_FRAMES, "bs": EVAL_BS, "runs": {}}
+    failures = []
+    try:
+        root = write_val_set(tmp / "val", model, frames)
+        weights = tmp / "yolov5s-seg-primed.pt"
+        torch.save(model.state_dict(), weights)
+        kw = dict(data=str(root), weights=str(weights), cfg="yolov5s-seg.json",
+                  batch_size=EVAL_BS, imgsz=640, conf_thres=0.001, iou_thres=0.6, device="cuda",
+                  device_preprocess=True)
+        val_k1 = 0
+        for name, flags in TTA_RUNS.items():
+            letterbox_normalize.launches = 0
+            val.run(**kw, **flags)  # warm-up run, counted
+            n = letterbox_normalize.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, _, times = val.run(**kw, **flags)
+            wall = time.perf_counter() - t0
+            val_k1 += letterbox_normalize.launches
+            out["runs"][name] = {
+                "metrics": [float(v) for v in mean], "k1_launches_a_run": n,
+                "speed_ms_per_image": dict(zip(("pre", "inference+nms", "post"), times)),
+                "img_per_s_run": EVAL_FRAMES / wall}
+            if n != n_batches or not (mean[2] > 0.05 and mean[6] > 0.05):
+                failures.append(f"val {name}: {n} K1 launches for {n_batches} batches, "
+                                f"metrics {mean}")
+
+        # the inference + NMS of one bs-32 batch: greedy off the raw maps (6b's), soft
+        model.eval().fuse()
+        head = model.model[-1]
+        x = letterbox_normalize(torch.from_numpy(np.stack(frames[:EVAL_BS])).cuda(), 640,
+                                scaleup=False)
+        kwn = dict(conf_thres=0.001, iou_thres=0.6, multi_label=True, max_det=300, nm=head.nm,
+                   pre_nms_topk=PRE_NMS_TOPK)
+        with torch.inference_mode():
+            levels, _ = model(x, decode=False)
+            pred, _ = forward_augment(model, x)
+            ms = {"forward": cuda_ms(lambda: model(x, decode=False), 5),
+                  "forward_augment": cuda_ms(lambda: forward_augment(model, x), 5),
+                  "nms_from_raw_greedy": cuda_ms(lambda: nms_ops.nms_from_raw(
+                      levels, head.anchors, head.strides, **kwn), 5),
+                  "nms_from_raw_soft": cuda_ms(lambda: nms_ops.nms_from_raw(
+                      levels, head.anchors, head.strides, use_soft_nms=True, **kwn), 3),
+                  "nms_batched_tta_greedy": cuda_ms(lambda: nms_ops.nms_batched(pred, **kwn), 5),
+                  "nms_batched_tta_soft": cuda_ms(lambda: nms_ops.nms_batched(
+                      pred, use_soft_nms=True, **kwn), 3)}
+        out["stage_bs32_ms"] = ms
+
+        # card against CPU, TF32 off, 8 frames at bs 8
+        torch.backends.cudnn.allow_tf32 = False
+        sub = tmp / "val8"
+        for d in ("images", "labels"):
+            (sub / d).mkdir(parents=True)
+            for f in sorted((root / d).iterdir())[:EVAL_CHECK_FRAMES]:
+                shutil.copy(f, sub / d / f.name)
+        for name, flags in TTA_RUNS.items():
+            got = {}
+            for dev in ("cuda", "cpu"):
+                m = SegmentationModel("yolov5s-seg.json", device=dev)
+                m.load_state_dict(torch.load(weights, map_location=dev, weights_only=True))
+                loader = Loader(YoloDataset(str(sub / "images"), imgsz=640,
+                                            device_preprocess=True), batch_size=8)
+                got[dev] = np.asarray(evaluate_segment(
+                    m, loader, 80, conf_thres=0.001, iou_thres=0.6, device=dev,
+                    augment=flags.get("augment", False),
+                    use_soft_nms=flags.get("soft_nms", False))[0], np.float64)
+            diff = float(np.abs(got["cuda"] - got["cpu"]).max())
+            out["runs"][name]["card_vs_cpu"] = {"card": got["cuda"].round(5).tolist(),
+                                                "cpu": got["cpu"].round(5).tolist(),
+                                                "max_abs_diff": diff}
+            if not diff <= 0.01:
+                failures.append(f"val {name} card vs CPU: {diff} > 0.01")
+        torch.backends.cudnn.allow_tf32 = True
+
+        # (d) segment.predict --augment at batch 1
+        src = tmp / "predict"
+        src.mkdir()
+        for i, f in enumerate(make_frames(TTA_PREDICT_FRAMES, seed=11, sizes=(EVAL_SHAPE,))):
+            np.save(src / f"{i:03d}.npy", f)
+        letterbox_normalize.launches = 0
+        dets = predict.run(weights=str(weights), source=str(src), nosave=True, augment=True,
+                           conf_thres=0.25, device="cuda")
+        pred_k1 = letterbox_normalize.launches
+        prof = predict_images.profiles
+        out["predict_augment_bs1"] = {
+            "frames": TTA_PREDICT_FRAMES, "k1_launches": pred_k1,
+            "rows": [len(d) for d in dets],
+            "ms_per_frame": {k: p.t / TTA_PREDICT_FRAMES * 1e3
+                             for k, p in zip(("pre", "infer", "post"), prof)}}
+        if pred_k1 != TTA_PREDICT_FRAMES or len(dets) != TTA_PREDICT_FRAMES \
+                or not all(np.isfinite(d).all() for d in dets):
+            failures.append(f"predict --augment: {pred_k1} K1 launches, {len(dets)} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("tta soft-nms (6h c, d) " + json.dumps(out), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("tta (6h c, d): " + "; ".join(failures))
+    return {"val": val_k1, "predict": pred_k1}
+
+
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
     """One seeded synthetic batch as the JAX package's loader yields it: uint8
     NHWC images, targets (bs, M, 5) normalised [cls, x, y, w, h] with 1..M
@@ -3039,6 +3493,15 @@ def main(argv=None) -> int:
     # 6g. classification: 13 classifiers, then classify.train, .val and .predict (no kernel on
     # its path)
     by_path["classify"] = classify_path(card)
+    # 6h. the AuxOTA dual head trains and serves (no kernel on its path); the 6d graph; segment.val
+    # with TTA and soft-NMS (K1 a batch) and segment.predict --augment (K1 a frame)
+    t6h = time.perf_counter()
+    by_path["auxota"], auxota_profile = auxota_path(card)
+    zoo_6d_path(card)
+    tta_k1 = tta_path(card)
+    by_path["tta soft-nms val"] = {"letterbox_normalize": tta_k1["val"]}
+    by_path["tta predict"] = {"letterbox_normalize": tta_k1["predict"]}
+    print(f"phase 6h s {time.perf_counter() - t6h:.2f}", flush=True)
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
     # 10. the train CLI on a dataset on disk
@@ -3064,6 +3527,8 @@ def main(argv=None) -> int:
     del semantic_profile
     print("semantic train epoch profile " + json.dumps(semantic_train_profile()), flush=True)
     del semantic_train_profile
+    print("auxota train profile " + json.dumps(auxota_profile()), flush=True)
+    del auxota_profile
 
     # 11. kernels line: times are means over the launches of the main paths, each
     # launch weighted by the shape it ran at
@@ -3074,7 +3539,9 @@ def main(argv=None) -> int:
         return float(sum(res[n][key] * k for n, k in weights.items()) / sum(weights.values()))
     lcalls = {n: len(MODELS) * [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)]
                                 for i in range(N_FRAMES)].count(n) for n in MAIN_SHAPES}
-    lcalls["val_480p_bs32_no_scaleup"] = by_path["eval yolov5s-seg"]["letterbox_normalize"]
+    lcalls["val_480p_bs32_no_scaleup"] = by_path["eval yolov5s-seg"]["letterbox_normalize"] \
+        + tta_k1["val"]
+    lcalls["480p"] += tta_k1["predict"]
     lcalls["semantic_720x960_bs16_fill128"] = \
         by_path["eval semantic resnet50"]["letterbox_normalize"] \
         + semantic_train_k1["semantic_720x960_bs16_fill128"] \

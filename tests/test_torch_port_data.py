@@ -180,7 +180,8 @@ def test_dataset_refuses_what_is_not_ported(tmp_path):
 def test_val_cli_matches_jax(tmp_path):
     """segment.val.run on the CPU: a data directory and a JSON data file, the
     reference-style .pt weights of the primed TINY model, bs 2 with a padded
-    final batch, against JAX's evaluate_segment on JAX's loader of the PNGs."""
+    final batch, against JAX's evaluate_segment on JAX's loader of the PNGs;
+    then with --augment and with --soft-nms."""
     jm, v = primed_tiny()
     root = write_dataset(tmp_path, n=5)
     cfg = tmp_path / "tiny.json"
@@ -231,7 +232,19 @@ def test_val_cli_matches_jax(tmp_path):
         got = np.loadtxt(tmp_path / "runs" / "exp" / "labels" / f"im{i}.txt", ndmin=2)
         assert got.shape == want.shape and want.shape[1] == 6 and len(want) > 4
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
-    for flag in ("augment", "save_json", "plots", "soft_nms", "data_parallel"):
+    # --augment and --soft-nms (the latter at conf 0.25, where soft-NMS's decay cuts rows)
+    for flag, jax_kw in (("augment", {"augment": True}),
+                         ("soft_nms", {"use_soft_nms": True, "conf_thres": 0.25})):
+        jl, _ = loaders(root, bs=2)
+        jl.dataset.max_labels = 120
+        want, want_maps, _ = jax_evaluate_segment(jm, v, jl, TINY_NC, **{
+            "conf_thres": 0.001, "iou_thres": 0.6, "nm": TINY_NM, **jax_kw})
+        got, got_maps, _ = val_cli.run(data=str(root / "port"), **{
+            **kw, flag: True, "conf_thres": jax_kw.get("conf_thres", 0.001)})
+        np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                                   rtol=0, atol=1e-4, err_msg=flag)
+        np.testing.assert_allclose(got_maps, want_maps, rtol=0, atol=1e-4, err_msg=flag)
+    for flag in ("save_json", "plots", "data_parallel"):
         with pytest.raises(NotImplementedError, match="ROADMAP A item"):
             val_cli.run(data=str(root / "port"), **{**kw, flag: True})
     opt = val_cli.parse_opt(["--data", "d", "--device-preprocess", "--batch-size", "8"])

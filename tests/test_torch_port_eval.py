@@ -238,7 +238,7 @@ def test_evaluate_segment_matches_jax(tiny, raw, overlap):
     assert len(times) == 3 and all(t > 0 for t in times)
 
 
-@pytest.mark.parametrize("option", ["plots", "use_soft_nms", "augment", "save_json", "mesh"])
+@pytest.mark.parametrize("option", ["plots", "save_json", "mesh"])
 def test_evaluate_segment_refuses_what_is_not_ported(tiny, option):
     with pytest.raises(NotImplementedError, match="ROADMAP A item"):
         evaluate_segment(port_model(tiny[1]), [], TINY_NC, device="cpu", **{option: True})

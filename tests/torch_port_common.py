@@ -55,7 +55,8 @@ def jax_train_float64(jm, v, x, jit=False):
     """JAX's train-mode apply of `jm` in float64: variables and input cast, and
     flax's BatchNorm statistics and normalisation, which the JAX package pins
     to float32, computed in float64 too; jitted with `jit` (one compile
-    instead of one a primitive, for deep modules). Returns the output and the
+    instead of one a primitive, for deep modules). Returns the output (an
+    array, or a list of them as the module returns it) and the
     updated `batch_stats` tree (empty where the module has no BatchNorm)."""
     from flax.linen import normalization
 
@@ -75,8 +76,9 @@ def jax_train_float64(jm, v, x, jit=False):
             return jm.apply(v, x, train=True, mutable=["batch_stats"])
         x64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), x)  # or a list
         out, upd = (jax.jit(apply) if jit else apply)(v64, x64)
-        assert out.dtype == jnp.float64
-        return np.asarray(out), jax.tree_util.tree_map(np.asarray, dict(upd).get("batch_stats", {}))
+        assert all(a.dtype == jnp.float64 for a in jax.tree_util.tree_leaves(out))
+        return (jax.tree_util.tree_map(np.asarray, out),
+                jax.tree_util.tree_map(np.asarray, dict(upd).get("batch_stats", {})))
 
 
 def nhwc(t):

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from yolo_dual_tpu_torch.data.augment import letterbox
-from yolo_dual_tpu_torch.models.heads import Detect, Segment
+from yolo_dual_tpu_torch.models.heads import Detect, DetectAux, Segment
 from yolo_dual_tpu_torch.ops.boxes import scale_boxes
 from yolo_dual_tpu_torch.ops.mask_ops import process_mask, scale_image
 from yolo_dual_tpu_torch.ops.nms import nms_from_raw
@@ -113,7 +113,7 @@ class Detections:
 
 
 class AutoShape:
-    """A Detect or Segment model behind input-robust preprocessing and NMS
+    """A Detect, Segment or DetectAux model behind input-robust preprocessing and NMS
     (JAX engine/autoshape.py:90; reference models/common.py:627-724). The
     model runs where it lies, in eval mode; with fuse=True its Conv+BN pairs
     are folded in place first, as the reference's hub loader does."""
@@ -121,9 +121,9 @@ class AutoShape:
     def __init__(self, model, imgsz: int = 640, conf: float = 0.25, iou: float = 0.45,
                  max_det: int = 300, names: Optional[dict] = None, fuse: bool = True):
         head = model.model[-1]
-        if not isinstance(head, Detect):
-            raise NotImplementedError(f"AutoShape needs a Detect or Segment head, not "
-                                      f"{type(head).__name__} (DetectAux: ROADMAP item 6c)")
+        if not isinstance(head, (Detect, DetectAux)):
+            raise NotImplementedError(f"AutoShape needs a Detect, Segment or DetectAux head, "
+                                      f"not {type(head).__name__}")
         self.model = model.eval()
         if fuse:
             model.fuse()
@@ -155,6 +155,7 @@ class AutoShape:
         x = torch.from_numpy(batch).to(self.device).permute(0, 3, 1, 2).float() / 255.0
         out = self.model(x, decode=False)
         levels, protos = out if self.segment else (out, None)
+        levels = levels[:len(self.anchors)]  # DetectAux: the lead head's levels only
         dets, n_valid = nms_from_raw(levels, self.anchors, self.strides, conf_thres=self.conf,
                                      iou_thres=self.iou, max_det=self.max_det, nm=self.nm)
         return dets, n_valid, protos

@@ -2,7 +2,8 @@
 reference segment/predict.py:53-223).
 
 Per frame: the CUDA letterbox kernel (kernels/preprocess.py), the conv+BN-folded
-forward, fused decode + NMS off the raw head maps (ops/nms.py:nms_from_raw) and
+forward, fused decode + NMS off the raw head maps (ops/nms.py:nms_from_raw; with
+`augment` the test-time-augmented forward and nms_batched) and
 the proto mask decode (ops/mask_ops.py:process_mask), with the reference's
 per-stage speed report. cv2 is imported only to decode image files and to draw
 and save results; in-memory frames need neither.
@@ -20,7 +21,8 @@ from yolo_dual_tpu_torch.data.loader import normalize_image
 from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
 from yolo_dual_tpu_torch.ops.boxes import scale_boxes
 from yolo_dual_tpu_torch.ops.mask_ops import process_mask, scale_image
-from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+from yolo_dual_tpu_torch.models.model import forward_augment
+from yolo_dual_tpu_torch.ops.nms import nms_batched, nms_from_raw
 from yolo_dual_tpu_torch.utils.general import LOGGER, Profile, increment_path, select_device
 
 IMG_EXTS = (".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp")
@@ -104,13 +106,17 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
                    save_dir: str = "runs/predict-seg/exp", save_txt: bool = False,
                    save_img: bool = True, names=None, line_thickness: int = 3,
                    hide_labels: bool = False, hide_conf: bool = False, fuse: bool = True,
-                   save_conf: bool = False, exist_ok: bool = False, device="cuda"):
+                   save_conf: bool = False, exist_ok: bool = False, device="cuda",
+                   use_soft_nms: bool = False, augment: bool = False):
     """Run streaming prediction. Returns the list of per-frame detection
     arrays (n, 6+nm) rows [x1, y1, x2, y2, conf, cls, mask coefs...] in
     letterboxed `imgsz` pixels, as the JAX function does.
 
     model: a SegmentationModel; it is moved to `device`, put in eval mode and,
-    with fuse=True, conv+BN-folded in place. The call's (pre, infer, post)
+    with fuse=True, conv+BN-folded in place. augment: the test-time
+    augmentation of models/model.py:forward_augment, its decoded predictions
+    through nms_batched (JAX engine/predictor.py:160-175); use_soft_nms:
+    Gaussian soft-NMS in place of the greedy one. The call's (pre, infer, post)
     Profile timers, whose totals the final speed line reports, stay readable
     afterwards as `predict_images.profiles`.
     """
@@ -130,12 +136,17 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
         classes_mask = torch.zeros(model.nc, dtype=torch.bool, device=dev)
         classes_mask[torch.as_tensor(classes, dtype=torch.long)] = True
 
+    kw = dict(conf_thres=conf_thres, iou_thres=iou_thres, agnostic=agnostic_nms, max_det=max_det,
+              nm=nm, classes_mask=classes_mask, use_soft_nms=use_soft_nms)
+
     @torch.inference_mode()
     def forward(image):
-        levels, protos = model(normalize_image(image), decode=False)
-        out, n_valid = nms_from_raw(levels, anchors, strides, conf_thres=conf_thres,
-                                    iou_thres=iou_thres, agnostic=agnostic_nms,
-                                    max_det=max_det, nm=nm, classes_mask=classes_mask)
+        if augment:
+            pred, protos = forward_augment(model, normalize_image(image))
+            out, n_valid = nms_batched(pred, **kw)
+        else:
+            levels, protos = model(normalize_image(image), decode=False)
+            out, n_valid = nms_from_raw(levels, anchors, strides, **kw)
         return out, n_valid, protos
 
     results = []

@@ -5,7 +5,9 @@ unet-lite/Resnet50/val_diceloss.py:148-293).
 
 Per batch on the device: the letterbox kernel on raw frames
 (kernels/preprocess.py, `image_raw` batches), the forward, the multi-label
-decode + NMS off the raw head maps (ops/nms.py), and the whole TP matching,
+decode + NMS off the raw head maps (ops/nms.py; with `augment` the
+test-time-augmented forward and the NMS of its decoded predictions; greedy
+or, with `use_soft_nms`, Gaussian soft-NMS), and the whole TP matching,
 batched over images: box IoU against the gt, the proto masks, mask IoU, and
 `match_predictions_device` for both. The host only slices the padded results
 and runs the AP curves (metrics/).
@@ -26,7 +28,8 @@ from yolo_dual_tpu_torch.metrics import (Metrics, SegmentationConfusionMatrix,
                                          ap_per_class_box_and_mask, match_predictions_device)
 from yolo_dual_tpu_torch.ops.boxes import box_iou, clip_boxes, scale_boxes, xywh2xyxy
 from yolo_dual_tpu_torch.ops.mask_ops import mask_iou, process_mask
-from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+from yolo_dual_tpu_torch.models.model import forward_augment
+from yolo_dual_tpu_torch.ops.nms import nms_batched, nms_from_raw
 from yolo_dual_tpu_torch.utils.general import LOGGER, Profile, select_device
 
 PRE_NMS_TOPK = 4096  # candidates (box, class) ranked before NMS, as the JAX validator
@@ -96,10 +99,12 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     save_txt also `index` and `shape0`, and `loader.dataset.im_files`.
     amp_dtype (torch.bfloat16): the forward runs under torch.autocast, as the
     train CLI's --dtype bf16 model; its outputs are converted to float32.
+    augment: the test-time augmentation of models/model.py:forward_augment,
+    whose decoded predictions go through nms_batched, its masks from the
+    identity pass' protos (JAX engine/validator.py:67-79). use_soft_nms:
+    Gaussian soft-NMS in place of the greedy one.
     """
     for name, on, item in (("plots", plots, "utils/plots, ROADMAP A item 7"),
-                           ("use_soft_nms", use_soft_nms, "soft_nms_padded, ROADMAP A item 6"),
-                           ("augment", augment, "TTA, ROADMAP A item 6"),
                            ("save_json", save_json, "COCO JSON + COCOeval, ROADMAP A item 6"),
                            ("mesh", mesh is not None, "data-parallel eval, ROADMAP A item 7")):
         if on:
@@ -129,12 +134,21 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
         with dt[1], torch.inference_mode():
             with torch.autocast(dev.type, dtype=amp_dtype or torch.float32,
                                 enabled=amp_dtype is not None):
-                levels, protos = model(image, decode=False)
-            if amp_dtype is not None:
-                levels, protos = [lv.float() for lv in levels], protos.float()
-            out, n_valid = nms_from_raw(levels, anchors, strides, conf_thres=conf_thres,
-                                        iou_thres=iou_thres, multi_label=True, max_det=max_det,
-                                        nm=nm, pre_nms_topk=PRE_NMS_TOPK)
+                if augment:
+                    pred, protos = forward_augment(model, image)
+                else:
+                    levels, protos = model(image, decode=False)
+            if augment:
+                out, n_valid = nms_batched(pred.float(), conf_thres=conf_thres,
+                                           iou_thres=iou_thres, multi_label=True,
+                                           max_det=max_det, nm=nm, pre_nms_topk=PRE_NMS_TOPK,
+                                           use_soft_nms=use_soft_nms)
+            else:
+                out, n_valid = nms_from_raw([lv.float() for lv in levels], anchors, strides,
+                                            conf_thres=conf_thres, iou_thres=iou_thres,
+                                            multi_label=True, max_det=max_det, nm=nm,
+                                            pre_nms_topk=PRE_NMS_TOPK, use_soft_nms=use_soft_nms)
+            protos = protos.float()
             cb, cm = batch_matches(out, n_valid, protos, targets, tmask.bool(), gmasks, h, w, nm)
         bsz = int(batch.get("n_valid", image.shape[0]))
         with dt[2]:

@@ -25,6 +25,8 @@ def _flatten(tree, path=()):
 
 # The JAX tree's numbered children -> the torch lists they belong to.
 _FLAX_LISTS = {"m_": "m", "tr_": "tr", "block": "layer"}
+# JAX's names of the one inner block of C3TR and C3SPP; the reference's is `m`.
+_FLAX_INNER = ("m_tr", "m_spp")
 
 
 def state_dict_from_flax(variables) -> dict:
@@ -33,8 +35,8 @@ def state_dict_from_flax(variables) -> dict:
 
     - `model_{i}` -> `model.{i}`, `model_{i}_{r}` -> `model.{i}.{r}`, `m_{j}` -> `m.{j}`,
       a TransformerBlock's `tr_{j}` -> `tr.{j}`, a ResNet stage's `block{j}` ->
-      `layer.{j}` (JAX train/checkpoint.py:122-128), and C3TR's `m_tr` -> `m`,
-      the reference's name of its TransformerBlock;
+      `layer.{j}` (JAX train/checkpoint.py:122-128), and C3TR's `m_tr` and
+      C3SPP's `m_spp` -> `m`, the reference's name of their inner block;
     - the Segment head's `detect` level is dropped (the torch Segment subclasses Detect);
     - conv `kernel` HWIO -> `weight` OIHW; Dense `kernel` (in, out) ->
       Linear `weight` (out, in); BN `scale` -> `weight`; the raw deformable
@@ -58,7 +60,7 @@ def state_dict_from_flax(variables) -> dict:
                 mm = re.fullmatch(r"(m_|tr_|block)(\d+)", s)
                 if mm:
                     s = f"{_FLAX_LISTS[mm.group(1)]}.{mm.group(2)}"
-                new.append("m" if s == "m_tr" else s)
+                new.append("m" if s in _FLAX_INNER else s)
             leaf = segs[-1]
             if coll == "batch_stats":
                 leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
@@ -89,10 +91,11 @@ def _port_names(sd: dict) -> dict:
     (q, k, v stacked on the output axis) become the Linears `in_q`, `in_k`,
     `in_v`, and whose `ma.out_proj` becomes `out_proj`, as JAX's torch import
     splits them (io/torch_import.py:160-210); JAX's export names C3TR's block
-    `m_tr`, the port and the reference `m`."""
+    `m_tr` and C3SPP's `m_spp`, the port and the reference `m`."""
     out = {}
     for k, v in sd.items():
-        k = k.replace(".m_tr.", ".m.")
+        for inner in _FLAX_INNER:
+            k = k.replace(f".{inner}.", ".m.")
         head, sep, leaf = k.rpartition(".ma.")
         if not sep:
             out[k] = v

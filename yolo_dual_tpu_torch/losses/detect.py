@@ -62,10 +62,12 @@ class Assignment:
 
 
 def build_targets_level(targets: torch.Tensor, tmask: torch.Tensor, anchors_l: torch.Tensor,
-                        ny: int, nx: int, anchor_t: float) -> Assignment:
+                        ny: int, nx: int, anchor_t: float, bias: float = 0.5) -> Assignment:
     """Assignment for one level (JAX losses/detect.py:69-137; reference
     utils/segment/loss.py:118-186 without compaction). targets (bs, M, 5),
-    tmask (bs, M) bool, anchors_l (na, 2) in grid units."""
+    tmask (bs, M) bool, anchors_l (na, 2) in grid units. `bias` is the
+    neighbour-cell reach: 0.5, the reference's g, or 1.0 for AuxOTA's aux
+    branch (its find_5_positive), whose offsets are whole cells."""
     bs, M, _ = targets.shape
     na = anchors_l.shape[0]
     nt = bs * M
@@ -82,16 +84,16 @@ def build_targets_level(targets: torch.Tensor, tmask: torch.Tensor, anchors_l: t
     r = twh[None] / anchors_l[:, None]
     base = tmask.reshape(nt)[None] & (torch.maximum(r, 1.0 / r).amax(-1) < anchor_t)
 
-    # neighbour-cell selection: the two nearest neighbours within half a cell
+    # neighbour-cell selection: the neighbours within `bias` of a cell
     gxi = gain - gxy
-    jj = (gxy[:, 0] % 1 < 0.5) & (gxy[:, 0] > 1)
-    kk = (gxy[:, 1] % 1 < 0.5) & (gxy[:, 1] > 1)
-    ll = (gxi[:, 0] % 1 < 0.5) & (gxi[:, 0] > 1)
-    mm = (gxi[:, 1] % 1 < 0.5) & (gxi[:, 1] > 1)
+    jj = (gxy[:, 0] % 1 < bias) & (gxy[:, 0] > 1)
+    kk = (gxy[:, 1] % 1 < bias) & (gxy[:, 1] > 1)
+    ll = (gxi[:, 0] % 1 < bias) & (gxi[:, 0] > 1)
+    mm = (gxi[:, 1] % 1 < bias) & (gxi[:, 1] > 1)
     sel = torch.stack([torch.ones_like(jj), jj, kk, ll, mm])            # (5, nt)
     valid = (sel[:, None] & base[None]).reshape(-1)                     # (5·na·nt,)
 
-    off = torch.from_numpy(_OFFSETS).to(dev)                            # (5, 2)
+    off = torch.from_numpy(_OFFSETS).to(dev) * (bias / 0.5)             # (5, 2)
     gij = torch.floor(gxy[None] - off[:, None])                         # (5, nt, 2)
     gi = gij[..., 0].clamp(0, nx - 1).long()
     gj = gij[..., 1].clamp(0, ny - 1).long()

@@ -8,7 +8,11 @@ compiler are ported: 'detect' (the yolov5{n,s,m,l,x}-seg configs, the detect
 zoo of `models/`, `hub/`, `spp/` and `attention/`, the DCNv3 blocks
 `C3_DCNV3`, `DCNV3_YoLo` and the DCNv2 ones of yolov5n-DCN, the 36
 torchvision stages `<family>{1,2,3}` of the `backbone/` configs, whose
-declared width is not scaled, and `Classify`) and
+declared width is not scaled, `Classify`, the names no shipped config uses
+(DWConv, Focus, CrossConv, BottleneckCSP, C3x, C3SPP, MixConv2d, Contract,
+Expand, Sum, nn.BatchNorm2d, nn.ConvTranspose2d, DWConvTranspose2d), and
+AuxOTA's rule: a Detect row over twice as many maps as anchor levels is a
+DetectAux, its strides those of the first half) and
 'semantic' (the ResNet, ResNet U-Net, VGG16 and YOLO configs: the `number`
 column ignored, C3 rows read their repeat from args[1], C2f / C2f_DCN / C3k2
 rows from int(args[1]), no width scaling, relu by default, aligning Concats).
@@ -91,7 +95,11 @@ def _populate_registry():
     from yolo_dual_tpu_torch.nn import spp as S
     from yolo_dual_tpu_torch.nn import torchvision_backbones as T
 
-    for nm, cls in {"Conv": C.Conv, "Bottleneck": C.Bottleneck, "C3": C.C3,
+    for nm, cls in {"Conv": C.Conv, "DWConv": C.DWConv, "Bottleneck": C.Bottleneck, "C3": C.C3,
+                    "BottleneckCSP": C.BottleneckCSP, "CrossConv": C.CrossConv, "C3x": C.C3x,
+                    "C3SPP": C.C3SPP, "Focus": C.Focus, "MixConv2d": C.MixConv2d,
+                    "nn.ConvTranspose2d": C.ConvTranspose,
+                    "DWConvTranspose2d": C.DWConvTranspose2d,
                     "C3Conv": C.C3Conv, "SPPF": C.SPPF, "Proto": C.Proto,
                     "C2f": C.C2f, "C3k2": C.C3k2, "GAM": C.GAM,
                     "SPP": C.SPP, "GhostConv": C.GhostConv,
@@ -109,9 +117,11 @@ def _populate_registry():
     for nm, cls in {"Concat": C.Concat, "Upsample": C.Upsample,
                     "nn.Upsample": C.Upsample, "nn.Softmax": nn.Softmax,
                     "MaxPool2d": B.MaxPool2d, "nn.MaxPool2d": B.MaxPool2d,
-                    "nn.ZeroPad2d": C.ZeroPad2d}.items():
+                    "nn.ZeroPad2d": C.ZeroPad2d, "Contract": C.Contract, "Expand": C.Expand,
+                    "Sum": C.Sum}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(**kw)
-    for nm, cls in {"Detect": H.Detect, "Segment": H.Segment}.items():
+    REGISTRY["nn.BatchNorm2d"] = lambda c1, kw: C.BatchNormLayer(c1)
+    for nm, cls in {"Detect": H.Detect, "Segment": H.Segment, "DetectAux": H.DetectAux}.items():
         REGISTRY[nm] = lambda c1, kw, cls=cls: cls(ch=c1, **kw)
     REGISTRY["Classify"] = lambda c1, kw: C.Classify(c1, **kw)
     for nm in _TV_STAGES:
@@ -135,13 +145,16 @@ def build_module(layer: LayerSpec) -> nn.Module:
 _CONVLIKE = {"Conv", "Bottleneck", "SPPF", "C3", "C3Conv", "C2f", "C3k2", "DCNv2", "C3_DCN",
              "C2f_DCN", "DCNV3_YoLo", "C3_DCNV3", "SPP", "GhostConv", "GhostBottleneck",
              "C3Ghost", "C3TR", "SimConv", "SimSPPF", "ASPP", "RFB", "SPPCSPC", "SPPCSPC_group",
-             "SimCSPSPPF", "AttentionConv", "AttentionStem"}
+             "SimCSPSPPF", "AttentionConv", "AttentionStem", "DWConv", "Focus", "CrossConv",
+             "BottleneckCSP", "C3SPP", "C3x", "MixConv2d", "nn.ConvTranspose2d",
+             "DWConvTranspose2d"}
 # Modules whose repeat is an `n` kwarg (on the detect path the compiler
 # inserts the row's repeat). As in the JAX compiler, C3_DCNV3 is not one of
 # them: its row repeat stays a repeat of whole C3_DCNV3 modules, each with one
 # inner bottleneck. On the semantic path C3_DCN keeps its args as they are
 # ([c2, n], shortcut True); C2f, C2f_DCN and C3k2 take n = int(args[1]).
-_REPEAT_AS_N = {"C3", "C3Conv", "C3_DCN", "C2f", "C2f_DCN", "C3k2", "C3TR", "C3Ghost"}
+_REPEAT_AS_N = {"C3", "C3Conv", "C3_DCN", "C2f", "C2f_DCN", "C3k2", "C3TR", "C3Ghost",
+                "BottleneckCSP", "C3x"}
 # Modules whose output width is their first arg.
 _C2_FIRST = {"ResNetStem", "ResNetLayer", "VGGBlock", "SegmentHead"}
 _RESNET_LAYERS = {"ResNet50Layer": "bottleneck", "ResNet18Layer": "basic",
@@ -187,6 +200,27 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
 
     if name in ("Conv", "SimConv", "DCNV3_YoLo", "DCNv2"):
         return actkw(dict(zip(["c2", "k", "s", "p", "g", "d", "act"], a))), n
+    if name == "DWConv":
+        return actkw(dict(zip(["c2", "k", "s", "d", "act"], a))), n
+    if name == "Focus":
+        return actkw(dict(zip(["c2", "k", "s", "p", "g", "act"], a))), n
+    if name == "CrossConv":
+        return dict(zip(["c2", "k", "s", "g", "e", "shortcut"], a)), n
+    if name == "C3SPP":  # the repeat sits at position 2, after k (JAX's quirk, ROADMAP §C)
+        return dict(zip(["c2", "k", "n", "shortcut", "g", "e"], a)), 1
+    if name == "MixConv2d":
+        kw = dict(zip(["c2", "k", "s", "equal_ch"], a))
+        if "k" in kw:
+            kw["k"] = tuple(kw["k"])
+        return kw, n
+    if name == "Sum":  # n is the input count, not a repeat: the row's repeat becomes 1
+        return dict(zip(["n", "weight"], a)), 1
+    if name in ("Contract", "Expand"):
+        return {"gain": a[0] if a else 2}, n
+    if name == "nn.BatchNorm2d":
+        return {}, n
+    if name in ("nn.ConvTranspose2d", "DWConvTranspose2d"):  # g stays 1 (ROADMAP §C)
+        return dict(zip(["c2", "k", "s", "p"], a)), n
     if name == "GhostConv":
         return actkw(dict(zip(["c2", "k", "s", "g", "act"], a))), n
     if name == "GhostBottleneck":
@@ -305,8 +339,8 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
                 if c2 != no:
                     c2 = make_divisible(c2 * gw, 8)
                 args = [c2, *args[1:]]
-                if name in _REPEAT_AS_N:
-                    args.insert(1, n)
+                if name in _REPEAT_AS_N or name == "C3SPP":
+                    args.insert(2 if name == "C3SPP" else 1, n)
                     n = 1
         elif name in _C2_FIRST or name == "Classify":
             c2 = args[0]
@@ -314,6 +348,10 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
             c2 = args[0] or STAGE_OUT[name]
         elif name == "Concat":
             c2 = sum(c1)
+        elif name == "Contract":
+            c2 = c1 * args[0] ** 2
+        elif name == "Expand":
+            c2 = c1 // args[0] ** 2
         elif name in ("Detect", "Segment"):
             c2 = 0
         elif name == "GAM":  # its width is the input's (JAX models/compiler.py:430-432)
@@ -326,14 +364,13 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
             head_anchors = args[1]
             if name == "Detect" and isinstance(head_anchors, list) \
                     and len(f) == 2 * len(head_anchors):
-                raise NotImplementedError(
-                    "a Detect row over twice as many maps as anchor levels is JAX's DetectAux "
-                    "(AuxOTA) head, which is not ported yet: ROADMAP item 6c")
+                name = "DetectAux"  # the AuxOTA dual head (JAX models/compiler.py:439-449)
             if isinstance(head_anchors, int):
                 # AutoAnchor placeholder: `anchors: 3` = 3 anchors per level
                 head_anchors = [list(range(head_anchors * 2))] * len(f)
+            n_str = len(f) // 2 if name == "DetectAux" else len(f)
             kwargs = {"nc": args[0], "anchors": _freeze(head_anchors),
-                      "strides": tuple(2 ** (3 + j) for j in range(len(f)))}
+                      "strides": tuple(2 ** (3 + j) for j in range(n_str))}
             if name == "Segment":
                 kwargs["nm"] = args[2] if len(args) > 2 else 32
                 kwargs["npr"] = make_divisible(args[3] * gw, 8) if len(args) > 3 else 256
@@ -360,7 +397,7 @@ def with_strides(spec: ModelSpec, strides: Sequence[int]) -> ModelSpec:
     (reference utils/autoanchor.py check_anchor_order; anchors stay in pixels)."""
     layers = list(spec.layers)
     head = layers[-1]
-    if head.name not in ("Detect", "Segment"):
+    if head.name not in ("Detect", "Segment", "DetectAux"):
         return dataclasses.replace(spec, strides=tuple(strides))
     kw = dict(head.kwargs)
     anchors = [list(a) for a in kw["anchors"]]

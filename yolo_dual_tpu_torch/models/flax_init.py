@@ -17,7 +17,11 @@ starts where JAX's does. It copies what the values depend on:
   the same on the (in, out) shape, C2f_DCN's `m_{i}_dcn_weight` the same,
   DCNv2's `weight` uniform in ±1/sqrt(cin·k²), DCNv2's `conv_offset_mask`,
   every bias and BatchNorm or LayerNorm shift zero, their scales one,
-  ConvNeXt's layer scale `gamma` 1e-6, running statistics 0 and 1.
+  ConvNeXt's layer scale `gamma` 1e-6, running statistics 0 and 1, transposed
+  conv kernels lecun_normal on JAX's (k, k, c2, c1) shape, Sum's gates
+  -arange(1, n) / 2;
+- the Detect bias prior of JAX's `init(bias_prior=True)` on a model with a
+  Detect, Segment or DetectAux head (models/model.py:initialize_detect_biases).
 
 The inverse error function is XLA's single-precision one (Giles'
 polynomials), evaluated here in float32 by torch: values agree with JAX's to
@@ -159,20 +163,26 @@ def flax_init_(model: nn.Module, seed: int = 0) -> nn.Module:
     built from a config) to the value JAX's `model.init()` under
     `jax.random.PRNGKey(seed)` gives it, in place. Raises for a
     parameterised module this does not know."""
+    from yolo_dual_tpu_torch.models.model import initialize_detect_biases
+    from yolo_dual_tpu_torch.nn.common import C3SPP, C3TR, Sum
     from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2
     from yolo_dual_tpu_torch.nn.torchvision_backbones import ConvNeXtBlock
     root = (0, int(seed))  # jax.random.PRNGKey(seed) for 0 <= seed < 2**32
-    owners = {}
+    owners, inner = {}, {}
     for mname, mod in model.named_modules():
+        if isinstance(mod, (C3TR, C3SPP)):  # their inner block `m` is JAX's m_tr / m_spp
+            inner[f"{mname}.m."] = f"{mname}.{'m_tr' if isinstance(mod, C3TR) else 'm_spp'}."
         for pname, p in mod.named_parameters(recurse=False):
             owners[f"{mname}.{pname}" if mname else pname] = (mod, pname, p)
     for name, (mod, pname, p) in owners.items():
-        path, leaf = jax_scope(name)
+        scoped = next((name.replace(k, v, 1) for k, v in inner.items() if name.startswith(k)),
+                      name)
+        path, leaf = jax_scope(scoped)
         dev = p.device
         norm = isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm))
         if norm or pname == "bias":
             p.fill_(1.0 if (pname == "weight" and norm) else 0.0)
-        elif isinstance(mod, nn.Conv2d):
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):  # (k, k, c2, c1) for the latter
             if path[-1] == "conv_offset_mask":  # DCNv2's offset and mask head
                 p.zero_()
             else:
@@ -180,6 +190,8 @@ def flax_init_(model: nn.Module, seed: int = 0) -> nn.Module:
                 p.copy_(lecun_normal(param_key(path, 1, root), hwio, dev).permute(3, 2, 0, 1))
         elif isinstance(mod, nn.Linear):
             p.copy_(lecun_normal(param_key(path, 1, root), (p.shape[1], p.shape[0]), dev).t())
+        elif isinstance(mod, Sum) and pname == "w":
+            p.copy_(-torch.arange(1.0, p.numel() + 1) / 2)
         elif isinstance(mod, ConvNeXtBlock) and pname == "gamma":
             p.fill_(1e-6)
         elif isinstance(mod, DCNv2) and pname == "weight":
@@ -196,4 +208,6 @@ def flax_init_(model: nn.Module, seed: int = 0) -> nn.Module:
     for m in model.modules():
         if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.track_running_stats:
             m.reset_running_stats()
+    if isinstance(getattr(model, "model", None), nn.ModuleList):
+        initialize_detect_biases(model)
     return model

@@ -87,3 +87,42 @@ class Segment(Detect):
             pred, raw = det
             return pred, protos, raw
         return det, protos
+
+
+class DetectAux(nn.Module):
+    """The AuxOTA dual head (JAX models/heads.py:119; reference
+    models/yolo_AuxOTA.py): 2·nl inputs, the first nl through a Detect `lead`,
+    the rest each through a 1x1 conv `m_aux_{i}` to the lead's raw layout.
+    decode=False returns the 2·nl raw maps, lead first; decode=True returns
+    (the lead's decoded predictions, the 2·nl raw maps)."""
+
+    def __init__(self, nc: int, anchors: Tuple[Tuple[float, ...], ...],
+                 strides: Tuple[int, ...], ch: Sequence[int] = ()):
+        super().__init__()
+        nl = len(anchors)
+        if len(ch) != 2 * nl:
+            raise ValueError(f"DetectAux expects {2 * nl} inputs, got {len(ch)}")
+        self.lead = Detect(nc, anchors, strides, ch=ch[:nl])
+        self.nc, self.nl, self.na, self.no = nc, nl, self.lead.na, nc + 5
+        for i, c in enumerate(ch[nl:]):
+            setattr(self, f"m_aux_{i}", nn.Conv2d(c, self.no * self.na, 1))
+
+    @property
+    def anchors(self):
+        return self.lead.anchors
+
+    @property
+    def strides(self):
+        return self.lead.strides
+
+    def forward(self, xs, decode: bool = True):
+        out = self.lead(xs[:self.nl], decode=decode)
+        aux = []
+        for i, x in enumerate(xs[self.nl:]):
+            p = getattr(self, f"m_aux_{i}")(x)
+            bs, _, ny, nx = p.shape
+            aux.append(p.view(bs, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2))
+        if decode:
+            pred, raw = out
+            return pred, raw + aux
+        return out + aux

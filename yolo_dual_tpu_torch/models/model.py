@@ -15,18 +15,19 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from yolo_dual_tpu_torch.models.compiler import (LayerSpec, ModelSpec, build_module, parse_config,
                                                  with_strides)
-from yolo_dual_tpu_torch.models.heads import Detect
-from yolo_dual_tpu_torch.nn.common import Conv, resize_bilinear
+from yolo_dual_tpu_torch.models.heads import Detect, DetectAux
+from yolo_dual_tpu_torch.nn.common import Conv, Sum, resize_bilinear
 from yolo_dual_tpu_torch.nn.attention import AttentionConv, AttentionStem
 from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
 from yolo_dual_tpu_torch.nn.spp import FixedProfileBatchNorm2d
 from yolo_dual_tpu_torch.nn.torchvision_backbones import ConvNeXtBlock
 from yolo_dual_tpu_torch.utils.general import find_cfg, load_config, select_device
 
-_HEADS = ("Detect", "Segment")
+_HEADS = ("Detect", "Segment", "DetectAux")
 
 
 class GraphModel(nn.Module):
@@ -89,24 +90,28 @@ def _probe_strides(spec: ModelSpec) -> ModelSpec:
     with torch.no_grad():
         out = model(x, decode=False)
     levels = out[0] if head.name == "Segment" else out
+    if head.name == "DetectAux":
+        levels = levels[:len(levels) // 2]  # the lead head's levels
     return with_strides(spec, [s // lvl.shape[2] for lvl in levels])  # lvl: (bs, na, ny, nx, no)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator):
-    """Random weights from `generator` (a CPU generator): conv and linear
-    weights N(0, 1/fan_in), as flax's lecun_normal init, and so C2f_DCN's
+    """Random weights from `generator` (a CPU generator): conv, transposed
+    conv and linear weights N(0, 1/fan_in), as flax's lecun_normal init (a
+    transposed conv's fan-in is JAX's, k·k·c2), and so C2f_DCN's
     deformable weights; DCNv2's weight U(±1/sqrt(cin·k²)) (JAX
     nn/dcn.py:289-295); the attention blocks' `rel_*` and `emb_*` N(0, 1), as
     flax's normal(1.0); zero biases; identity BatchNorms with fresh running
     stats and identity LayerNorms; ConvNeXt's layer scale `gamma` 1e-6; zero
     DCNv3 offset and mask heads and zero DCNv2 `conv_offset_mask`,
-    as JAX initializes them (every sample on its grid point, uniform mask)."""
+    as JAX initializes them (every sample on its grid point, uniform mask);
+    Sum's gates at JAX's -arange(1, n) / 2."""
     def lecun(w):
         w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(w[0].numel()))
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 lecun(m.weight)
                 if m.bias is not None:
                     m.bias.zero_()
@@ -121,6 +126,8 @@ def init_weights(model: nn.Module, generator: torch.Generator):
             elif isinstance(m, C2f_DCN):
                 for i in range(m.n):
                     lecun(getattr(m, f"m_{i}_dcn_weight"))
+            elif isinstance(m, Sum) and m.w is not None:
+                m.w.copy_(-torch.arange(1.0, m.w.numel() + 1) / 2)
             elif isinstance(m, (AttentionConv, AttentionStem)):
                 for name, w in m.named_parameters(recurse=False):
                     w.copy_(torch.randn(w.shape, generator=generator))
@@ -135,8 +142,11 @@ def init_weights(model: nn.Module, generator: torch.Generator):
 
 
 def initialize_detect_biases(model: GraphModel):
-    """Prior init of the Detect conv biases (reference models/yolo.py:253-261)."""
+    """Prior init of the Detect conv biases (reference models/yolo.py:253-261);
+    of DetectAux's lead head only, as JAX's (JAX models/model.py:154)."""
     head = model.model[-1]
+    if isinstance(head, DetectAux):
+        head = head.lead
     if not isinstance(head, Detect):
         return
     with torch.no_grad():
@@ -270,6 +280,53 @@ def reshape_classifier_output(model: ClassificationModel, nc: int,
         if k in own and own[k].shape == v.shape:
             own[k].copy_(v)
     return new
+
+
+TTA_SCALES = (1.0, 0.83, 0.67)
+TTA_FLIPS = (None, "lr", None)
+TTA_PAD = 0.447  # the ImageNet-mean grey the reference pads scaled images with
+
+
+def scale_img(img: torch.Tensor, ratio: float, gs: int = 32) -> torch.Tensor:
+    """An NCHW batch resized by `ratio` (JAX's antialiased bilinear resize)
+    and padded at the bottom and right with TTA_PAD to a multiple of `gs`
+    (JAX models/model.py:404 scale_img_nhwc; reference
+    utils/torch_utils.py:297-308)."""
+    if ratio == 1.0:
+        return img
+    h, w = img.shape[2:]
+    sh, sw = int(h * ratio), int(w * ratio)
+    out = resize_bilinear(img, (sh, sw))
+    ph, pw = math.ceil(h * ratio / gs) * gs, math.ceil(w * ratio / gs) * gs
+    return F.pad(out, (0, pw - sw, 0, ph - sh), value=TTA_PAD)
+
+
+def forward_augment(model: GraphModel, x: torch.Tensor):
+    """Test-time augmentation (JAX models/model.py:419; reference
+    models/yolo.py:206-235): the eval forward at scales TTA_SCALES with
+    flips TTA_FLIPS (lr flips the width, dim 3), each pass's decoded boxes
+    descaled and deflipped, the identity pass' largest-stride level and the
+    last pass' smallest-stride level clipped off, all concatenated. Returns
+    (predictions (b, N, no), the identity pass' protos, or None for a
+    detect head)."""
+    w = x.shape[3]
+    gs = int(max(model.spec.strides))
+    nl = len(model.spec.strides) or 3
+    ys, protos0 = [], None
+    for s, f in zip(TTA_SCALES, TTA_FLIPS):
+        xi = scale_img(x.flip(3) if f == "lr" else x, s, gs)
+        out = model(xi, decode=True)
+        pred = out[0]
+        if len(out) == 3 and s == 1.0 and f is None:  # Segment: (pred, protos, raw)
+            protos0 = out[1]
+        px, py, pwh = pred[..., 0:1] / s, pred[..., 1:2] / s, pred[..., 2:4] / s
+        if f == "lr":
+            px = w - px
+        ys.append(torch.cat([px, py, pwh, pred[..., 4:]], -1))
+    g = sum(4 ** k for k in range(nl))
+    ys[0] = ys[0][:, :-(ys[0].shape[1] // g)]
+    ys[-1] = ys[-1][:, (ys[-1].shape[1] // g) * 4 ** (nl - 1):]
+    return torch.cat(ys, 1), protos0
 
 
 def build_model(cfg, task: Optional[str] = None, **kw) -> GraphModel:

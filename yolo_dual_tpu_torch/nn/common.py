@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -460,21 +461,42 @@ class Concat(nn.Module):
         return torch.cat(xs, self.d)
 
 
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """Nearest resize of an NCHW tensor as JAX's `resize_nearest`
+    (`jax.image.resize(..., "nearest")`, JAX nn/common.py:292): output index i
+    reads input floor((i + 0.5) · n_in / n_out), computed in float32 as
+    jax.image does. torch's "nearest" reads floor(i · n_in / n_out)."""
+    for dim, n_out in zip((2, 3), size):
+        n_in = x.shape[dim]
+        if n_in != n_out:
+            idx = torch.floor((torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5)
+                              * n_in / n_out).long()
+            x = x.index_select(dim, idx)
+    return x
+
+
 class Upsample(nn.Module):
-    """nn.Upsample equivalent for the rows the supported configs use: nearest
-    with an integer factor, which is an exact repeat."""
+    """nn.Upsample as JAX's (JAX nn/common.py:813): to `size`, or to
+    int(side · scale_factor); mode "nearest" repeats at an integer factor and
+    otherwise takes JAX's half-pixel nearest (`resize_nearest`); every other
+    mode is JAX's bilinear resize (`resize_bilinear`, antialiased when it
+    shrinks), "bicubic" included, as JAX treats it."""
 
     def __init__(self, size=None, scale_factor=2.0, mode="nearest"):
         super().__init__()
-        if mode != "nearest" or size is not None or scale_factor is None \
-                or not float(scale_factor).is_integer():
-            raise NotImplementedError(
-                f"Upsample(size={size}, scale_factor={scale_factor}, mode={mode!r}): "
-                "only integer-factor nearest upsampling is ported")
-        self.scale_factor = int(scale_factor)
+        self.size = tuple(size) if size is not None else None
+        self.scale_factor = scale_factor
+        self.mode = mode
 
     def forward(self, x):
-        return F.interpolate(x, scale_factor=self.scale_factor, mode="nearest")
+        sf = self.scale_factor
+        if self.mode == "nearest" and self.size is None and sf is not None \
+                and float(sf).is_integer():
+            return F.interpolate(x, scale_factor=int(sf), mode="nearest")
+        size = self.size or (int(x.shape[2] * sf), int(x.shape[3] * sf))
+        if self.mode == "nearest":
+            return resize_nearest(x, size)
+        return resize_bilinear(x, size)
 
 
 class Proto(nn.Module):
@@ -513,3 +535,188 @@ class Classify(nn.Module):
         if self.drop is not None:
             x = self.drop(x)
         return self.linear(x)
+
+
+class ConvTranspose(nn.Module):
+    """nn.ConvTranspose2d rows (JAX nn/common.py:366): one transposed conv
+    `conv` with a bias, torch's padding `p`. Its weight is torch's (c1, c2 / g,
+    k, k): JAX's ConvTranspose kernel (k, k, c2, c1) under
+    transpose_kernel=True maps to it by io/weights.py's HWIO -> OIHW
+    transpose, the spatial flip being lax's own."""
+
+    def __init__(self, c1, c2, k=2, s=2, p=0, g=1, bias=True):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(c1, c2, k, s, p, groups=g, bias=bias)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class DWConvTranspose2d(ConvTranspose):
+    """JAX's DWConvTranspose2d (JAX nn/common.py:395): its compiler passes
+    c2, k, s, p and keeps g = 1, so unlike the reference's it is not
+    depthwise (ROADMAP §C)."""
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck, v4 style (JAX nn/common.py:417; reference
+    models/common.py:128-144): Conv `cv1`, n Bottlenecks `m`, raw 1x1 convs
+    `cv3` (after m) and `cv2` (beside it), one BatchNorm `bn` and SiLU over
+    their concatenation, Conv `cv4`. fuse() leaves `bn` as it is, as JAX's."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
+        self.bn = BatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.cv4 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], 1)
+        return self.cv4(F.silu(self.bn(y)))
+
+
+class CrossConv(nn.Module):
+    """Cross convolution: a 1 x k Conv then a k x 1 Conv, a residual when
+    shortcut and c1 == c2 (JAX nn/common.py:441; reference models/common.py:147-158)."""
+
+    def __init__(self, c1, c2, k=3, s=1, g=1, e=1.0, shortcut=False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, (1, k), (1, s))
+        self.cv2 = Conv(c_, c2, (k, 1), (s, 1), g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3x(C3):
+    """C3 with CrossConv inner blocks (JAX nn/common.py:499)."""
+
+    def inner(self, c_, n, shortcut, g, act):
+        return [CrossConv(c_, c_, 3, 1, g, 1.0, shortcut) for _ in range(n)]
+
+
+class C3SPP(C3):
+    """C3 whose inner block is one SPP of kernels `k` (JAX nn/common.py:540;
+    reference models/common.py:191-196), whatever n. The block is `m`, as in
+    the reference; the JAX tree calls it `m_spp` (io/weights.py maps the name)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, act=True, k=(5, 9, 13)):
+        self.k = tuple(k)
+        super().__init__(c1, c2, n, shortcut, g, e, act)
+        self.m = self.m[0]
+
+    def inner(self, c_, n, shortcut, g, act):
+        return [SPP(c_, c_, self.k)]
+
+
+class Focus(nn.Module):
+    """Space to depth, then a Conv (JAX nn/common.py:549; reference
+    models/common.py:241-250): the channels of the (even, even), (odd, even),
+    (even, odd), (odd, odd) (row, column) pixels, in that order."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, act=True):
+        super().__init__()
+        self.conv = Conv(c1 * 4, c2, k, s, p, g, act=act)
+
+    def forward(self, x):
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2], x[..., ::2, 1::2],
+                                    x[..., 1::2, 1::2]], 1))
+
+
+class Contract(nn.Module):
+    """(b, c, h, w) -> (b, c·s², h/s, w/s), channel (sy, sx, c) order (JAX
+    nn/common.py:692; reference models/common.py:282-293)."""
+
+    def __init__(self, gain=2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.view(b, c, h // s, s, w // s, s).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(b, c * s * s, h // s, w // s)
+
+
+class Expand(nn.Module):
+    """(b, c, h, w) -> (b, c/s², h·s, w·s), the inverse of Contract (JAX
+    nn/common.py:706; reference models/common.py:296-307)."""
+
+    def __init__(self, gain=2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.view(b, s, s, c // s ** 2, h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(b, c // s ** 2, h * s, w * s)
+
+
+class Sum(nn.Module):
+    """Sum of n inputs; with `weight`, the inputs past the first are scaled by
+    the gates 2·sigmoid(w), w starting at -arange(1, n) / 2 (JAX
+    nn/common.py:737; reference models/experimental.py:14-32)."""
+
+    def __init__(self, n, weight=False):
+        super().__init__()
+        self.w = nn.Parameter(-torch.arange(1.0, n) / 2) if weight else None
+
+    def forward(self, xs):
+        y = xs[0]
+        w = 2.0 * torch.sigmoid(self.w) if self.w is not None else None
+        for i, x in enumerate(xs[1:]):
+            y = y + (x * w[i] if w is not None else x)
+        return y
+
+
+def mixconv_splits(c2: int, k, equal_ch: bool) -> list:
+    """Output channels of each MixConv2d branch (JAX nn/common.py:781-796):
+    equal shares with the remainder on the last branches (output channel j
+    to branch floor(j·n/c2)), or shares proportional to 1/k², the rounding
+    residual on the largest."""
+    n = len(k)
+    if equal_ch:
+        return np.bincount(np.floor(np.linspace(0, n - 1e-6, c2)).astype(int),
+                           minlength=n).tolist()
+    inv = 1.0 / np.asarray(k, np.float64) ** 2
+    splits = np.round(c2 * inv / inv.sum()).astype(int)
+    splits[int(np.argmax(splits))] += c2 - int(splits.sum())
+    return splits.tolist()
+
+
+class MixConv2d(nn.Module):
+    """Mixed kernel sizes (JAX nn/common.py:760; reference
+    models/experimental.py:35-57): one bias-free conv a kernel size over the
+    input, groups gcd(c1, its channels), concatenated, BatchNorm `bn`, SiLU.
+    A branch of 0 channels is left out and its index skipped, as JAX's
+    `m_{i}` names skip it, so the branches are a ModuleDict `m`."""
+
+    def __init__(self, c1, c2, k=(1, 3), s=1, equal_ch=True):
+        super().__init__()
+        self.m = nn.ModuleDict({
+            str(i): nn.Conv2d(c1, cc, kk, s, kk // 2, groups=math.gcd(c1, cc), bias=False)
+            for i, (kk, cc) in enumerate(zip(k, mixconv_splits(c2, k, equal_ch))) if cc})
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        return F.silu(self.bn(torch.cat([m(x) for m in self.m.values()], 1)))
+
+
+class BatchNormLayer(nn.Module):
+    """A config's `nn.BatchNorm2d` row (JAX nn/common.py:835): one BatchNorm
+    under JAX's child name `bn`; fuse() leaves it, as JAX's."""
+
+    def __init__(self, c1):
+        super().__init__()
+        self.bn = BatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        return self.bn(x)

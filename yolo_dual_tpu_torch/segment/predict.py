@@ -24,7 +24,7 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
         conf_thres=0.25, iou_thres=0.45, max_det=300, classes=None, agnostic_nms=False,
         project="runs/predict-seg", name="exp", save_txt=False, save_conf=False,
         nosave=False, line_thickness=3, hide_labels=False, hide_conf=False, nc=80,
-        fuse=True, exist_ok=False, device="cuda"):
+        fuse=True, exist_ok=False, device="cuda", soft_nms=False, augment=False):
     dev = select_device(device)
     imgsz = check_img_size(imgsz, 32)
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
@@ -35,7 +35,8 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
         max_det=max_det, nm=model.model[-1].nm, classes=classes, agnostic_nms=agnostic_nms,
         save_dir=f"{project}/{name}", save_txt=save_txt, save_img=not nosave,
         line_thickness=line_thickness, hide_labels=hide_labels, hide_conf=hide_conf,
-        fuse=fuse, save_conf=save_conf, exist_ok=exist_ok, device=dev)
+        fuse=fuse, save_conf=save_conf, exist_ok=exist_ok, device=dev, use_soft_nms=soft_nms,
+        augment=augment)
 
 
 def parse_opt(argv=None):
@@ -61,6 +62,8 @@ def parse_opt(argv=None):
     p.add_argument("--no-fuse", dest="fuse", action="store_false",
                    help="disable conv+BN inference folding")
     p.add_argument("--nc", type=int, default=80)
+    p.add_argument("--soft-nms", action="store_true", help="Gaussian soft-NMS")
+    p.add_argument("--augment", action="store_true", help="TTA: multi-scale + flip inference")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     return p.parse_args(argv)
 

@@ -86,11 +86,11 @@ def parse_opt(argv=None):
     p.add_argument("--device-preprocess", action="store_true",
                    help="letterbox + normalize raw frames on the card (uniform-shape datasets); "
                         "default: the host letterbox")
+    p.add_argument("--augment", action="store_true", help="TTA: multi-scale + flip inference")
+    p.add_argument("--soft-nms", action="store_true", help="Gaussian soft-NMS variant")
     # JAX CLI flags not ported yet: each raises, naming its ROADMAP item
-    p.add_argument("--augment", action="store_true", help="TTA (not ported yet)")
     p.add_argument("--save-json", action="store_true", help="COCO JSON (not ported yet)")
     p.add_argument("--plots", action="store_true", help="curves (not ported yet)")
-    p.add_argument("--soft-nms", action="store_true", help="soft-NMS (not ported yet)")
     p.add_argument("--data-parallel", action="store_true", help="not ported yet")
     return p.parse_args(argv)
 

@@ -75,7 +75,8 @@ def load_config(path) -> dict:
 
 
 # The folders of the package's JSON copies, in find_cfg's search order.
-CONFIG_DIRS = ("segment", "semantic", "hyps", "models", "hub", "spp", "attention", "backbone")
+CONFIG_DIRS = ("segment", "semantic", "hyps", "models", "hub", "spp", "attention", "backbone",
+               "loss")
 
 
 def find_cfg(name) -> Path:
