@@ -205,6 +205,25 @@ which raises on failure:
    pinned and pageable, and mosaic_warp_hsv on it card against CPU (1e-4)
    and timed (CUDA events); after phase 9 one more resumed epoch under
    torch.profiler: the card's busy share of the epoch;
+10b. the host augmentation route (host_route_path) on phase 10's set: (a)
+   `segment.train` in-process with yolov5s-seg-dcnv3.json, hyp.scratch-high
+   (mixup 0.1, copy_paste 0.1: the host route), 640 px, bs 16, f32, 1 epoch,
+   --image-weights --cache disk (results.csv finite, last.pt and best.pt
+   load strict; the counts set to 0 just before read 6 K2 launches a
+   training and a val forward and 6 K3 a micro-step: 36 and 24), its epoch
+   img/s beside phase 10's; one bs-16 host batch built in this thread and
+   timed by part (load_image, canvas, copy_paste, the warp's pixels and
+   labels, mixup, HSV, rasterise); that batch's first micro-step (forward,
+   loss, backward) on the card and on the CPU, TF32 off: loss items and
+   gradients within HOST_STEP_TOL of the largest; (b) --remat on that batch:
+   a micro-step with and without it (TF32 off; 12 and 6 K2 launches, 6 K3
+   each), loss items and gradients within REMAT_TOL, the BatchNorm statistics
+   equal, then each timed with TF32 convolutions, with its peak memory; (c)
+   `segment.val --rect --task train` on phase 10's train frames (two
+   buckets) labelled with the primed yolov5s-seg's own boxes: the speed line,
+   the batches a bucket, box mAP50 above 0.05, and
+   RECT_CHECK_FRAMES frames a bucket on the card and on the CPU within
+   RECT_MAP_TOL;
 11. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 
@@ -2936,16 +2955,17 @@ def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
             dict(image=image, targets=targets, tmask=tmask, masks=masks).items()}
 
 
-def train_setup(model, bs: int, accumulate: int, count: int = 0):
-    """Trainer and state for `model`: SGD with hyp.scratch-low (weight decay
-    scaled by bs · accumulate / 64), the EMA, the overlap segment loss; the
+def train_setup(model, bs: int, accumulate: int, count: int = 0,
+                hyp_name: str = "hyp.scratch-low.json"):
+    """Trainer and state for `model`: SGD with `hyp_name` (weight decay scaled
+    by bs · accumulate / 64), the EMA, the overlap segment loss; the
     optimizer's inner step count starts at `count`."""
     from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
     from yolo_dual_tpu_torch.train.ema import ModelEMA
     from yolo_dual_tpu_torch.train.optim import smart_optimizer
     from yolo_dual_tpu_torch.train.trainer import Trainer
     from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
-    hyp = load_config(find_cfg("hyp.scratch-low.json"))
+    hyp = load_config(find_cfg(hyp_name))
     head = model.model[-1]
     loss = ComputeSegmentLoss(head.anchors, head.strides, model.nc, head.nm, hyp, overlap=True)
     opt = smart_optimizer(model, "SGD", hyp, epochs=EPOCHS, steps_per_epoch=STEPS_PER_EPOCH,
@@ -3403,7 +3423,361 @@ def cli_train_path(card: str, micro_step_ms: float):
                 "device_ms": device_ms if device_ms else "not measured",
                 "busy_share": device_ms / wall_ms if device_ms else "not measured",
                 "idle_share": 1 - device_ms / wall_ms if device_ms else "not measured"}
-    return launches, profile
+    return launches, profile, out["epoch_img_per_s"]
+
+
+# Phase 10b: the host augmentation route, --remat and rect validation on phase 10's set
+HOST_HYP = "hyp.scratch-high.json"  # mixup 0.1, copy_paste 0.1: the host route
+HOST_STEP_TOL = 1e-3  # first micro-step card vs CPU, TF32 off: items and gradients
+REMAT_TOL = 1e-4  # the remat micro-step against the plain one on the card
+STATS_SHARE = 1e-5  # BatchNorm statistics, remat against plain, when not bitwise equal
+RECT_MAP_TOL = 0.01  # segment.val --rect card vs CPU, each of the 8 metrics (as 6b)
+RECT_CHECK_FRAMES = 8  # a bucket, card against CPU
+RECT_CFG = "yolov5s-seg.json"  # as 6b: its self-labels hold from run to run
+
+
+def host_batch_parts(root: Path, card: str):
+    """One bs-16 batch of the host route (hyp.scratch-high, seed 0) built in
+    this thread, timed by part: frame loads and resizes, the mosaic canvas,
+    copy_paste, the warp's pixels and its labels, mixup's blend, augment_hsv,
+    the polygon rasterising, and the rest (flips, label boxes, padding,
+    stacking). Returns (batch, parts)."""
+    from yolo_dual_tpu_torch.data import augment as augmod
+    from yolo_dual_tpu_torch.data import dataset as dsmod
+    from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
+    hyp = load_config(find_cfg(HOST_HYP))
+    loader, ds = dsmod.create_dataloader(str(root / "images" / "train"), TRAIN_IMGSZ, TRAIN_BS,
+                                         hyp=hyp, augment=True, shuffle=True,
+                                         mask_downsample_ratio=4, overlap_mask=True, seed=0,
+                                         device_aug=True)
+    names = {(dsmod.YoloDataset, "load_image"): "load_image",
+             (dsmod.YoloDataset, "load_mosaic"): "mosaic",
+             (dsmod, "copy_paste"): "copy_paste", (dsmod, "random_perspective"): "warp",
+             (augmod, "warp_affine_u8"): "warp_pixels", (dsmod, "mixup"): "mixup",
+             (dsmod, "augment_hsv"): "hsv", (dsmod, "polygons2masks_overlap"): "rasterise"}
+    spent = {v: 0.0 for v in names.values()}
+    calls = {v: 0 for v in names.values()}
+    saved = []
+    for (owner, attr), key in names.items():
+        fn = getattr(owner, attr)
+
+        def wrapper(*a, _fn=fn, _key=key, **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                spent[_key] += time.perf_counter() - t
+                calls[_key] += 1
+        setattr(owner, attr, wrapper)
+        saved.append((owner, attr, fn))
+    try:
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in loader._indices()[:TRAIN_BS]]
+        batch = {k: np.stack([x[k] for x in samples]) for k in samples[0]}
+        total = time.perf_counter() - t0
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    if ds.device_aug or "image" not in batch:
+        raise AssertionError(f"host batch: {HOST_HYP} did not take the host route")
+    ms = {k: v * 1e3 for k, v in spent.items()}
+    parts = {"load_image": ms["load_image"],
+             "canvas": ms["mosaic"] - ms["load_image"] - ms["copy_paste"] - ms["warp"],
+             "copy_paste": ms["copy_paste"], "warp_pixels": ms["warp_pixels"],
+             "warp_labels": ms["warp"] - ms["warp_pixels"], "mixup_blend": ms["mixup"],
+             "hsv": ms["hsv"], "rasterise": ms["rasterise"]}
+    parts["rest"] = total * 1e3 - ms["mosaic"] - ms["mixup"] - ms["hsv"] - ms["rasterise"]
+    out = {"card": card, "bs": TRAIN_BS, "imgsz": TRAIN_IMGSZ, "hyp": HOST_HYP,
+           "host_batch_ms": total * 1e3, "parts_ms": parts, "mosaics": calls["mosaic"],
+           "mixups": calls["mixup"], "frames_loaded": calls["load_image"],
+           "instances_in_batch": int(batch["tmask"].sum())}
+    print("host batch " + json.dumps(out), flush=True)
+    return batch, out
+
+
+def grad_gaps(a: dict, b: dict) -> dict:
+    """Gradients `a` against `b` (b on the CPU): the largest |a − b| of any
+    tensor over the largest |b| of the model (the share held), and the 3
+    tensors whose own share, max |a − b| over their max |b|, is largest
+    among those whose max |b| exceeds 1e-6 of the model's (a bias that a
+    BatchNorm follows has a gradient of 0 but for rounding)."""
+    top = max(v.abs().max().item() for v in b.values())
+    diff = {k: (a[k].double() - v.double()).abs().max().item() for k, v in b.items()}
+    own = sorted(((diff[k] / v.abs().max().item(), k) for k, v in b.items()
+                  if v.abs().max().item() > 1e-6 * top), reverse=True)
+    return {"share_of_largest": max(diff.values()) / top, "largest": top,
+            "worst_own_share_3": [[v, k] for v, k in own[:3]]}
+
+
+def host_step_card_vs_cpu(batch: dict) -> dict:
+    """The first micro-step's forward, loss and backward of yolov5s-seg-dcnv3
+    (phase 7's weights) on the host batch, on the card and on the CPU from
+    the same weights, TF32 off: loss items within HOST_STEP_TOL of the
+    largest, every gradient within HOST_STEP_TOL of the model's largest
+    (grad_gaps)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = dcnv3_train_model()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev).train()
+        trainer, _ = train_setup(m, TRAIN_BS, 1, hyp_name=HOST_HYP)
+        t = time.perf_counter()
+        loss, items = trainer.forward_loss(m, batch)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = {"items": items.detach().cpu(), "s": time.perf_counter() - t,
+                    "grads": {k: q.grad.detach().cpu() for k, q in m.named_parameters()}}
+        del m, trainer
+    torch.backends.cudnn.allow_tf32 = True
+    g, c = out["cuda"], out["cpu"]
+    return {"items_card": g["items"].tolist(), "items_cpu": c["items"].tolist(),
+            "items_share": share(g["items"], c["items"]),
+            "grads": grad_gaps(g["grads"], c["grads"]), "cpu_step_s": c["s"],
+            "tolerance": HOST_STEP_TOL}
+
+
+def remat_phase(batch: dict, card: str) -> dict:
+    """--remat on one bs-16 host batch: a micro-step (accumulate 4, so no
+    optimizer update; TF32 off) of two copies of yolov5s-seg-dcnv3, one plain
+    and one rematerialised, launches counted: loss items and gradients within
+    REMAT_TOL of the largest (grad_gaps), the BatchNorm statistics equal; then
+    each timed with TF32 convolutions (CUDA events) with its peak memory."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dcnv3_train_model()
+    gpu_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+                 if k in ("image", "targets", "tmask", "masks")}
+    runs = {}
+    for remat in (False, True):
+        m = copy.deepcopy(base)
+        trainer, state = train_setup(m, TRAIN_BS, ACCUMULATE, hyp_name=HOST_HYP)
+        trainer.remat = remat
+        # the checked step with TF32 off: with it on, the two runs' convolutions may take
+        # algorithms of other TF32 roundings (their free memory differs), ~1e-3 apart
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.synchronize()
+        dcnv3_sampling.launches = dcnv3_sampling_backward.launches = 0
+        state, metrics = trainer.train_step(state, gpu_batch)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.allow_tf32 = True  # timed as the CLI trains
+        launches = {"dcnv3_sampling": dcnv3_sampling.launches,
+                    "dcnv3_sampling_backward": dcnv3_sampling_backward.launches}
+        first = {"items": metrics["items"].cpu(),
+                 "grads": {k: q.grad.detach().cpu() for k, q in m.named_parameters()},
+                 "buffers": {k: b.detach().cpu() for k, b in m.named_buffers()}}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: trainer.train_step(state, gpu_batch), 4, warmup=1)
+        runs[remat] = {**first, "launches": launches, "micro_step_ms": step_ms,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del m, trainer, state
+        torch.cuda.empty_cache()
+    plain, rem = runs[False], runs[True]
+    gaps = grad_gaps(rem["grads"], plain["grads"])
+    # equal, or (where the card's reductions are not bitwise repeatable) the batch counts
+    # equal and the statistics within STATS_SHARE: a second update would move them by about
+    # the momentum (0.03) times their distance from the batch statistics
+    stats_equal = all(torch.equal(rem["buffers"][k], v) for k, v in plain["buffers"].items())
+    stats_share = max(share(rem["buffers"][k], v) for k, v in plain["buffers"].items()
+                      if v.is_floating_point() and v.abs().max() > 0)
+    counts_equal = all(torch.equal(rem["buffers"][k], v) for k, v in plain["buffers"].items()
+                       if not v.is_floating_point())
+    out = {"card": card, "bs": TRAIN_BS, "imgsz": TRAIN_IMGSZ, "accumulate": ACCUMULATE,
+           "plain": {k: plain[k] for k in ("launches", "micro_step_ms", "peak_memory_gb")},
+           "remat": {k: rem[k] for k in ("launches", "micro_step_ms", "peak_memory_gb")},
+           "items_share": share(rem["items"], plain["items"]), "grads": gaps,
+           "batchnorm_stats_equal": stats_equal, "batchnorm_counts_equal": counts_equal,
+           "batchnorm_stats_share": stats_share, "tolerance": REMAT_TOL}
+    print("remat " + json.dumps(out), flush=True)
+    n_dcn = sum(DCN_PATH_SHAPES.values())
+    problems = []
+    if plain["launches"] != {"dcnv3_sampling": n_dcn, "dcnv3_sampling_backward": n_dcn}:
+        problems.append(f"plain micro-step launches {plain['launches']}")
+    if rem["launches"] != {"dcnv3_sampling": 2 * n_dcn, "dcnv3_sampling_backward": n_dcn}:
+        problems.append(f"remat micro-step launches {rem['launches']}")
+    if out["items_share"] > REMAT_TOL or gaps["share_of_largest"] > REMAT_TOL:
+        problems.append(f"remat against plain: items {out['items_share']}, "
+                        f"gradients {gaps['share_of_largest']}")
+    if not (stats_equal or (counts_equal and stats_share <= STATS_SHARE)):
+        problems.append(f"remat changed the BatchNorm statistics (share {stats_share}, "
+                        f"counts equal {counts_equal})")
+    if problems:
+        raise AssertionError("remat: " + "; ".join(problems))
+    return {k: plain["launches"][k] + rem["launches"][k] for k in plain["launches"]}
+
+
+def write_rect_set(root: Path, src: Path, cfg: str) -> Path:
+    """Phase 10's train frames (`src`) under root/images/train (and the same
+    as val), labelled with the primed `cfg`'s own boxes (seeded weights,
+    BatchNorm calibrated on the first rect batch, prime_for_eval): the model
+    loaded and fused as segment.val loads it, run on the rect batches
+    segment.val makes (YoloDataset(rect=True) through the Loader, bs 16),
+    through the validator's multi-label NMS; its first EVAL_MAX_BOXES rows a
+    frame that, clipped to the canvas, are wider and taller than 2 px and lie
+    inside the frame's part of it, written as 4-vertex polygons normalised to
+    the frame. Returns the primed weights' path."""
+    from yolo_dual_tpu_torch.data.dataset import create_dataloader
+    from yolo_dual_tpu_torch.data.loader import normalize_image
+    from yolo_dual_tpu_torch.engine.validator import PRE_NMS_TOPK
+    from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+    loader, ds = create_dataloader(str(src), TRAIN_IMGSZ, TRAIN_BS, rect=True,
+                                   mask_downsample_ratio=4, overlap_mask=True)
+    first = torch.from_numpy(next(iter(loader))["image"]).cuda().permute(0, 3, 1, 2)
+    model = SegmentationModel(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    calibrate_bn_on(model, normalize_image(first).contiguous())
+    torch.save(prime_for_eval(model).state_dict(), root / "primed.pt")
+    model = SegmentationModel(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(load_state_dict_file(root / "primed.pt"), strict=True)
+    model.eval().fuse()
+    head = model.model[-1]
+    with torch.inference_mode():
+        for batch in loader:
+            image = torch.from_numpy(batch["image"]).cuda().permute(0, 3, 1, 2)
+            h, w = image.shape[2:]
+            levels, _ = model(normalize_image(image).contiguous(), decode=False)
+            # the validator's own NMS, so each label is one of its top rows
+            out, nv = nms_from_raw([lv.float() for lv in levels], head.anchors, head.strides,
+                                   conf_thres=0.001, iou_thres=0.6, multi_label=True,
+                                   max_det=300, nm=head.nm, pre_nms_topk=PRE_NMS_TOPK)
+            out, nv = out.cpu().numpy(), nv.tolist()
+            for si in range(int(batch["n_valid"])):
+                d = out[si, :nv[si]].copy()
+                # clipped to the canvas as the validator matches them, and inside the
+                # frame's part of it: a label cannot reach the pad
+                d[:, [0, 2]] = d[:, [0, 2]].clip(0, w)
+                d[:, [1, 3]] = d[:, [1, 3]].clip(0, h)
+                dw, dh = (float(v) for v in batch["ratio_pad"][si])
+                d = d[((d[:, 2] - d[:, 0]) > 2) & ((d[:, 3] - d[:, 1]) > 2) & (d[:, 0] >= dw)
+                      & (d[:, 2] <= w - dw) & (d[:, 1] >= dh) & (d[:, 3] <= h - dh)]
+                d = d[:EVAL_MAX_BOXES]
+                lines = []
+                for row in d:
+                    x1, x2 = np.clip((row[[0, 2]] - dw) / (w - 2 * dw), 0, 1)
+                    y1, y2 = np.clip((row[[1, 3]] - dh) / (h - 2 * dh), 0, 1)
+                    lines.append(f"{int(row[5])} " + " ".join(
+                        f"{v:.6f}" for v in (x1, y1, x2, y1, x2, y2, x1, y2)))
+                f = Path(ds.im_files[int(batch["index"][si])])
+                for split in ("train", "val"):
+                    np.save(root / "images" / split / f.name, np.load(f))
+                    (root / "labels" / split / f.with_suffix(".txt").name).write_text(
+                        "\n".join(lines))
+    return root / "primed.pt"
+
+
+def rect_val_phase(root: Path, card: str) -> dict:
+    """segment.val --rect --task train on phase 10's train frames (the
+    720x1280 ones in the 0.7 bucket, the others in the square one), labelled
+    with the primed yolov5s-seg's own boxes (write_rect_set; the random
+    DCNv3 model is chaotic in float32: its labels found in one run matched
+    23% of its rows in the next): the whole split on the
+    card (speed line, batches a bucket, box mAP50 above 0.05),
+    then RECT_CHECK_FRAMES frames of each bucket on the card and on the CPU,
+    TF32 off, each metric within RECT_MAP_TOL."""
+    import shutil
+    from yolo_dual_tpu_torch.data.dataset import create_dataloader
+    from yolo_dual_tpu_torch.segment import val
+    frames = sorted((root / "images" / "train").glob("*.npy"))
+    rect = root / "rect"
+    shutil.rmtree(rect, ignore_errors=True)
+    weights = write_rect_set(rect, root / "images" / "train", RECT_CFG)
+    loader, ds = create_dataloader(str(rect / "images" / "train"), TRAIN_IMGSZ, TRAIN_BS,
+                                   rect=True, mask_downsample_ratio=4, overlap_mask=True)
+    batches = {}
+    for chunk in loader._chunks():
+        shape = "x".join(map(str, ds.bucket_shapes[ds.bucket_of[chunk[0]]]))
+        batches[shape] = batches.get(shape, 0) + 1
+    kw = dict(weights=str(weights), cfg=RECT_CFG, batch_size=TRAIN_BS, imgsz=TRAIN_IMGSZ,
+              rect=True, task="train")
+    t = time.perf_counter()
+    mean, _, times = val.run(data=str(rect), device="cuda", **kw)
+    run_s = time.perf_counter() - t
+    by_bucket = {}
+    for f, b in zip(ds.im_files, ds.bucket_of):
+        by_bucket.setdefault(int(b), []).append(f)
+    subset = sorted(f for fs in by_bucket.values() for f in fs[:RECT_CHECK_FRAMES])
+    listing = rect / "check.txt"
+    listing.write_text("\n".join(subset) + "\n")
+    data = rect / "check.json"
+    data.write_text(json.dumps({"path": str(rect), "train": listing.name, "val": listing.name,
+                                "nc": 80}))
+    torch.backends.cudnn.allow_tf32 = False
+    check = {dev: val.run(data=str(data), device=dev, **dict(kw, batch_size=RECT_CHECK_FRAMES))[0]
+             for dev in ("cuda", "cpu")}
+    torch.backends.cudnn.allow_tf32 = True
+    gap = float(np.abs(np.asarray(check["cuda"], np.float64)
+                       - np.asarray(check["cpu"], np.float64)).max())
+    out = {"card": card, "frames": len(frames), "batches_by_bucket_shape": batches,
+           "metrics": [float(v) for v in mean], "speed_ms_pre_infer_post": list(times),
+           "run_s": run_s, "img_per_s": len(frames) / run_s,
+           "check_frames": len(subset), "check_card": [float(v) for v in check["cuda"]],
+           "check_cpu": [float(v) for v in check["cpu"]], "check_max_gap": gap,
+           "tolerance": RECT_MAP_TOL}
+    print("rect val " + json.dumps(out), flush=True)
+    if len(batches) != 2 or gap > RECT_MAP_TOL or not mean[2] > 0.05:
+        raise AssertionError(f"rect val: buckets {batches}, mAP50 {mean[2]} / {mean[6]}, card "
+                             f"vs CPU gap {gap}")
+    return out
+
+
+def host_route_path(card: str, device_epoch_img_s: float):
+    """Phase 10b on phase 10's dataset: (a) segment.train on the host route
+    (yolov5s-seg-dcnv3, hyp.scratch-high, 640 px, bs 16, f32, 1 epoch,
+    --image-weights --cache disk; launches counted), one host batch timed by
+    part and its first micro-step card vs CPU; (b) --remat against the plain
+    micro-step; (c) segment.val --rect --task train on its frames, relabelled.
+    Returns the launches of (a) and (b)."""
+    from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    root = Path(__file__).resolve().parent / "build" / "phase10"
+    project = root / "runs"
+    n_train, n_val = (sum(CLI_SETS[k].values()) for k in ("train", "val"))
+    steps, val_batches = -(-n_train // TRAIN_BS), -(-n_val // TRAIN_BS)
+    n_dcn = sum(DCN_PATH_SHAPES.values())
+    probe = CliProbe()
+    try:
+        (epochs, items), launches = cli_launches(lambda: probe.run(
+            ["--cfg", "yolov5s-seg-dcnv3.json", "--data", str(root), "--hyp", HOST_HYP,
+             "--imgsz", str(TRAIN_IMGSZ), "--batch-size", str(TRAIN_BS), "--project",
+             str(project), "--noplots", "--device", "cuda", "--epochs", "1", "--dtype", "f32",
+             "--image-weights", "--cache", "disk", "--name", "host"]))
+    finally:
+        probe.close()
+    res = cli_results(project / "host")
+    for f in ("last.pt", "best.pt"):
+        SegmentationModel("yolov5s-seg-dcnv3.json", device="cpu").load_state_dict(
+            load_state_dict_file(project / "host" / f), strict=True)
+    want = {"letterbox_normalize": 0, "dcnv3_sampling": n_dcn * (steps + val_batches),
+            "dcnv3_sampling_backward": n_dcn * steps}
+    train_s = epochs[0]["train_s"]
+    cli = {"card": card, "model": "yolov5s-seg-dcnv3", "hyp": HOST_HYP, "bs": TRAIN_BS,
+           "imgsz": TRAIN_IMGSZ, "flags": ["--image-weights", "--cache disk"],
+           "launches": launches, "results": res.tolist(), "first_micro_step_items": items,
+           "epoch_train_s": train_s, "epoch_img_per_s": n_train / train_s,
+           "device_route_epoch_img_per_s_phase10": device_epoch_img_s,
+           "val_s": epochs[0]["val_s"], "save_s": epochs[0]["save_s"]}
+    print("host route cli " + json.dumps(cli), flush=True)
+    if res.shape[0] != 1 or not np.isfinite(res[:, 1:5]).all() or launches != want:
+        raise AssertionError(f"host route cli: results {res.tolist()}, launches {launches}, "
+                             f"expected {want}")
+    batch, _ = host_batch_parts(root, card)
+    check = host_step_card_vs_cpu(batch)
+    print("host micro-step card vs cpu (bs 16, 640 px, tf32 off) " + json.dumps(check), flush=True)
+    if check["items_share"] > HOST_STEP_TOL or check["grads"]["share_of_largest"] > HOST_STEP_TOL:
+        raise AssertionError(f"host micro-step card vs CPU: {check}")
+    remat_launches = remat_phase(batch, card)
+    rect_val_phase(root, card)
+    print(f"phase 10b s {time.perf_counter() - t0:.2f}", flush=True)
+    return launches, remat_launches
 
 
 def main(argv=None) -> int:
@@ -3505,7 +3879,11 @@ def main(argv=None) -> int:
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
     # 10. the train CLI on a dataset on disk
-    by_path["train CLI yolov5s-seg-dcnv3"], cli_profile = cli_train_path(card, step_ms)
+    by_path["train CLI yolov5s-seg-dcnv3"], cli_profile, device_epoch_img_s = \
+        cli_train_path(card, step_ms)
+    # 10b. the host augmentation route, --remat and rect validation on phase 10's set
+    by_path["train CLI host route"], by_path["remat micro-steps"] = \
+        host_route_path(card, device_epoch_img_s)
 
     # 9. the kernels' own device times, on seeded and on the trained model's DCNv3 inputs;
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
@@ -3549,10 +3927,12 @@ def main(argv=None) -> int:
     lcalls["semantic_train_96_bs4_fill128"] = semantic_train_k1["semantic_train_96_bs4_fill128"] \
         + yolo_k1["semantic_train_96_bs4_fill128"]
     # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training), and the
-    # CLI's forwards at bs 16 (its micro-steps and val batches); K3: the micro-steps
+    # CLIs' forwards at bs 16 (their micro-steps and val batches, both routes) and 10b's
+    # remat micro-steps (two forwards each); K3: the micro-steps
     n_dcn = sum(DCN_PATH_SHAPES.values())
-    cli_fwd = by_path["train CLI yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn
-    cli_bwd = by_path["train CLI yolov5s-seg-dcnv3"]["dcnv3_sampling_backward"] // n_dcn
+    bs16 = ("train CLI yolov5s-seg-dcnv3", "train CLI host route", "remat micro-steps")
+    cli_fwd = sum(by_path[k]["dcnv3_sampling"] for k in bs16) // n_dcn
+    cli_bwd = sum(by_path[k]["dcnv3_sampling_backward"] for k in bs16) // n_dcn
     dcalls = {f"{b}x{h}x{w}x{c}": n * reps for (h, w, c), n in DCN_PATH_SHAPES.items()
               for b, reps in ((1, N_FRAMES), (TRAIN_BS, TRAIN_MICRO_STEPS + cli_fwd))}
     bcalls = {f"{TRAIN_BS}x{h}x{w}x{c}": n * (TRAIN_MICRO_STEPS + cli_bwd)

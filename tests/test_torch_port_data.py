@@ -162,15 +162,20 @@ def test_loader_shuffles_as_jax(tmp_path):
 
 
 def test_dataset_refuses_what_is_not_ported(tmp_path):
-    """Training takes the device augmentation only: the host pixel path
-    (--no-device-aug) and hyps that need it (mixup, copy_paste) raise."""
+    """Training on the host pixel route (device_aug=False) builds, and a hyp
+    the device route cannot run (mixup, copy_paste) falls back to it as JAX
+    does (data/dataset.py:141-148); device_preprocess still refuses frames of
+    more than one shape."""
     write_dataset(tmp_path)
     hyp = dict(mosaic=1.0)
-    for kw in (dict(augment=True, hyp=hyp), dict(augment=True, hyp=dict(hyp, mixup=0.1),
-                                                 device_aug=True),
-               dict(augment=True, hyp=dict(hyp, copy_paste=0.1), device_aug=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
-            YoloDataset(str(tmp_path / "port" / "images"), **kw)
+    for kw, device_aug in ((dict(augment=True, hyp=hyp), False),
+                           (dict(augment=True, hyp=hyp, device_aug=True), True),
+                           (dict(augment=True, hyp=dict(hyp, mixup=0.1), device_aug=True), False),
+                           (dict(augment=True, hyp=dict(hyp, copy_paste=0.1), device_aug=True),
+                            False)):
+        ds = YoloDataset(str(tmp_path / "port" / "images"), **kw)
+        assert ds.device_aug is device_aug
+        assert ("aug_tiles" in ds[0]) is device_aug and ("image" in ds[0]) is not device_aug
     other = np.zeros((50, 60, 3), np.uint8)
     np.save(tmp_path / "port" / "images" / "odd.npy", other)
     with pytest.raises(ValueError, match="uniform raw image shape"):

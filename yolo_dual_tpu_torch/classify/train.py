@@ -18,8 +18,9 @@ top5); `last.pt` and, when the top-1 is the best so far, `best.pt` (with
 The model starts from the JAX package's initial weights under
 `PRNGKey(--seed)` (models/flax_init.py:flax_init_), as JAX's trainer does;
 --pretrained with a local checkpoint then replaces the entries whose names
-and shapes match. Dropout (--dropout) draws from torch's generator, seeded
-with --seed, not from JAX's stream. The device defaults to cuda; pass
+and shapes match. Dropout (--dropout) draws from a generator seeded for each
+micro-step (train/trainer.py:Trainer.dropout), as JAX's trainer folds the step
+into its key, but not JAX's stream. The device defaults to cuda; pass
 --device cpu to run on the CPU.
 """
 
@@ -104,7 +105,8 @@ def train(opt):
                                 steps_per_epoch=len(train_loader), cos_lr=True)
     trainer = Trainer(model, lambda logits, labels: classify_loss(logits, labels,
                                                                    opt.label_smoothing),
-                      optimizer, ema=ModelEMA(model, decay=0.9999, tau=2000.0), task="classify")
+                      optimizer, ema=ModelEMA(model, decay=0.9999, tau=2000.0), task="classify",
+                      dropout=bool(opt.dropout))
     state = trainer.init_state()
     stopper = EarlyStopping(opt.patience)
     best = 0.0

@@ -1,26 +1,29 @@
-"""Host-side geometry of the data pipeline (port of yolo_dual_tpu/data/augment.py;
-reference utils/augmentations.py, utils/segment/augmentations.py and
-utils/segment/dataloaders.py:274-331): label and polygon transforms, the
-mosaic's perspective warp as a matrix (its pixels are warped on the device,
-kernels/augment.py), the host letterbox, and polygon -> mask rasterisation.
+"""Host-side augmentation of the data pipeline (port of
+yolo_dual_tpu/data/augment.py; reference utils/augmentations.py,
+utils/segment/augmentations.py and utils/segment/dataloaders.py:274-331):
+label and polygon transforms, the perspective warp (as a matrix for the
+device route, kernels/augment.py, and on the pixels for the host route), the
+host letterbox, polygon -> mask rasterisation, and the host route's pixel
+augmentations: augment_hsv, random_perspective, copy_paste, mixup, cutout and
+the optional Albumentations adapter.
 
-The JAX package uses OpenCV for fillPoly, resize, getRotationMatrix2D,
-warpAffine and GaussianBlur. The card's machine has no OpenCV, so they are
-written here in numpy: `fill_poly` follows OpenCV's 8-connected edge drawing
-and scanline fill of a polygon with integer vertices, `resize_linear_u8`
-OpenCV's fixed-point INTER_LINEAR resize of a uint8 plane or frame,
-`resize_area_u8` its INTER_AREA, `warp_affine_u8` OpenCV 5's float32
-warpAffine (INTER_LINEAR, INTER_NEAREST, constant border) and
-`gaussian_blur5_u8` its fixed-point 5x5 GaussianBlur at sigma 0. The
-rasteriser is exact on axis-aligned rectangles with integer vertices, and on
-other polygons a few edge pixels may differ; INTER_LINEAR, the warps and the
-blur are exact; INTER_AREA may be off by one at non-integer ratios
-(ROADMAP.md §C, held by tests/test_torch_port_data.py,
-tests/test_torch_port_train_data.py and tests/test_torch_port_semantic_train.py).
-
-The pixel augmentations of the host path (random_perspective's warp,
-augment_hsv, mixup, copy_paste, cutout, Albumentations) are not ported: the
-training dataset takes the device-augmentation path only (data/dataset.py).
+The JAX package uses OpenCV for fillPoly, drawContours, resize,
+getRotationMatrix2D, warpAffine, warpPerspective, GaussianBlur, cvtColor,
+LUT and flip. The card's machine has no OpenCV, so they are written here in
+numpy: `fill_poly` follows OpenCV's 8-connected edge drawing and scanline
+fill of a polygon with integer vertices (drawContours FILLED fills one the
+same way), `resize_linear_u8` OpenCV's fixed-point INTER_LINEAR resize of a
+uint8 plane or frame, `resize_area_u8` its INTER_AREA, `warp_affine_u8` and
+`warp_perspective_u8` OpenCV 5's float32 warps (INTER_LINEAR, INTER_NEAREST,
+constant border), `gaussian_blur5_u8` its fixed-point 5x5 GaussianBlur at
+sigma 0, and `rgb_to_hsv_u8` / `hsv_to_rgb_u8` its 8-bit COLOR_RGB2HSV
+(fixed-point division tables) and COLOR_HSV2RGB (float32, hue range 180).
+The rasteriser is exact on axis-aligned rectangles with integer vertices,
+and on other polygons a few edge pixels may differ; INTER_LINEAR, the warps,
+the blur and both colour conversions are exact; INTER_AREA may be off by one
+at non-integer ratios (ROADMAP.md §C, held by tests/test_torch_port_data.py,
+tests/test_torch_port_train_data.py, tests/test_torch_port_semantic_train.py
+and tests/test_torch_port_host_aug.py).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import math
 import random
 
 import numpy as np
+
+from yolo_dual_tpu_torch.utils.general import LOGGER
 
 XY_SHIFT = 16  # OpenCV's fixed-point x of polygon edges
 COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
@@ -430,7 +435,7 @@ def polygons2masks_overlap(img_size, segments, downsample_ratio=1):
     return mask, index
 
 
-# OpenCV 5's warpAffine computes each row in SIMD passes of this many pixels
+# OpenCV 5's warpAffine and warpPerspective compute each row in SIMD passes of this many pixels
 # (AVX-512 float32 lanes) and the row's remaining pixels in scalar code, whose
 # source coordinate the compiler contracts into another FMA.
 WARP_LANES = 16
@@ -454,26 +459,13 @@ def _fma32(a, b, c) -> np.ndarray:
     return (np.asarray(a, np.float64) * np.float64(b) + np.asarray(c, np.float64)).astype(np.float32)
 
 
-def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, linear: bool = True,
-                   border: int = 0) -> np.ndarray:
-    """cv2.warpAffine(img, m, dsize, flags=INTER_LINEAR or INTER_NEAREST,
-    borderValue=border) of a uint8 plane (h, w) or frame (h, w, c), as
-    OpenCV 5 computes it: the inverted matrix in float32, each destination
-    pixel's source point x·m0 + (y·m1 + m2) by FMA (the scalar tail of a row:
-    (x·m0 + y·m1) + m2), INTER_NEAREST rounding it half to even, INTER_LINEAR
-    blending the four neighbours in float32 by FMAs and rounding half to
-    even; neighbours outside the source take `border`."""
-    w_out, h_out = dsize
-    m = _invert_affine(m).astype(np.float32)
-    ys = np.arange(h_out, dtype=np.float32)[:, None]
-    xs = np.arange(w_out, dtype=np.float32)[None, :]
-    tail = np.arange(w_out) >= w_out // WARP_LANES * WARP_LANES
-
-    def source(r):
-        body = _fma32(xs, m[r], ys * m[r + 1] + m[r + 2])
-        scalar = _fma32(xs, m[r], ys * m[r + 1]) + m[r + 2]
-        return np.where(tail, scalar, body)
-    sx, sy = source(0), source(3)
+def _remap_u8(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, linear: bool,
+              border: int) -> np.ndarray:
+    """Sample a uint8 plane or frame at the float32 source points (sx, sy) of
+    each destination pixel, as OpenCV 5's warps do: INTER_NEAREST rounds the
+    point half to even, INTER_LINEAR blends the four neighbours in float32 by
+    FMAs and rounds half to even; neighbours outside the source take
+    `border`."""
     h, w = img.shape[:2]
     planes = img.reshape(h, w, -1)
 
@@ -483,7 +475,7 @@ def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, linear: bool = True,
         return np.where(inside[..., None], v, np.asarray(border, img.dtype))
     if not linear:
         out = pick(np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64))
-        return out.reshape((h_out, w_out) + img.shape[2:])
+        return out.reshape(sx.shape + img.shape[2:])
     x0, y0 = np.floor(sx), np.floor(sy)
     ax, ay = (sx - x0)[..., None], (sy - y0)[..., None]
     x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
@@ -491,7 +483,63 @@ def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, linear: bool = True,
                           for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)))
     top, bottom = _fma32(ax, p01 - p00, p00), _fma32(ax, p11 - p10, p10)
     out = np.clip(np.rint(_fma32(ay, bottom - top, top)), 0, 255).astype(np.uint8)
-    return out.reshape((h_out, w_out) + img.shape[2:])
+    return out.reshape(sx.shape + img.shape[2:])
+
+
+def _row_terms(m: np.ndarray, h_out: int, w_out: int):
+    """The float32 terms x·m[r] + (y·m[r+1] + m[r+2]) of each destination
+    pixel as OpenCV 5 computes them: by FMA in the SIMD passes of a row, and
+    (x·m[r] + y·m[r+1]) + m[r+2] in its scalar tail past a multiple of
+    WARP_LANES pixels. Returns a function of the row r of m."""
+    ys = np.arange(h_out, dtype=np.float32)[:, None]
+    xs = np.arange(w_out, dtype=np.float32)[None, :]
+    tail = np.arange(w_out) >= w_out // WARP_LANES * WARP_LANES
+
+    def term(r):
+        body = _fma32(xs, m[r], ys * m[r + 1] + m[r + 2])
+        scalar = _fma32(xs, m[r], ys * m[r + 1]) + m[r + 2]
+        return np.where(tail, scalar, body)
+    return term
+
+
+def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, linear: bool = True,
+                   border: int = 0) -> np.ndarray:
+    """cv2.warpAffine(img, m, dsize, flags=INTER_LINEAR or INTER_NEAREST,
+    borderValue=border) of a uint8 plane (h, w) or frame (h, w, c), as
+    OpenCV 5 computes it: the inverted matrix in float32, each destination
+    pixel's source point x·m0 + (y·m1 + m2) by FMA (the scalar tail of a row:
+    (x·m0 + y·m1) + m2), then `_remap_u8`."""
+    w_out, h_out = dsize
+    term = _row_terms(_invert_affine(m).astype(np.float32), h_out, w_out)
+    return _remap_u8(img, term(0), term(3), linear, border)
+
+
+def _invert_3x3(m: np.ndarray) -> np.ndarray:
+    """The inverse of a 3x3 matrix as cv::invert computes it for warpPerspective:
+    cofactors over the determinant in float64 (flattened to 9 values)."""
+    S = np.asarray(m, np.float64)
+    d = (S[0, 0] * (S[1, 1] * S[2, 2] - S[1, 2] * S[2, 1])
+         - S[0, 1] * (S[1, 0] * S[2, 2] - S[1, 2] * S[2, 0])
+         + S[0, 2] * (S[1, 0] * S[2, 1] - S[1, 1] * S[2, 0]))
+    d = 1.0 / d if d != 0 else 0.0
+    return np.array([
+        (S[1, 1] * S[2, 2] - S[1, 2] * S[2, 1]) * d, (S[0, 2] * S[2, 1] - S[0, 1] * S[2, 2]) * d,
+        (S[0, 1] * S[1, 2] - S[0, 2] * S[1, 1]) * d, (S[1, 2] * S[2, 0] - S[1, 0] * S[2, 2]) * d,
+        (S[0, 0] * S[2, 2] - S[0, 2] * S[2, 0]) * d, (S[0, 2] * S[1, 0] - S[0, 0] * S[1, 2]) * d,
+        (S[1, 0] * S[2, 1] - S[1, 1] * S[2, 0]) * d, (S[0, 1] * S[2, 0] - S[0, 0] * S[2, 1]) * d,
+        (S[0, 0] * S[1, 1] - S[0, 1] * S[1, 0]) * d])
+
+
+def warp_perspective_u8(img: np.ndarray, m: np.ndarray, dsize, border: int = 0) -> np.ndarray:
+    """cv2.warpPerspective(img, m, dsize, borderValue=border) (INTER_LINEAR)
+    of a uint8 plane or frame, as OpenCV 5 computes it: the inverted matrix in
+    float32, each destination pixel's numerator and denominator terms as
+    warp_affine_u8 computes its source point, their float32 quotients the
+    source point, then `_remap_u8`."""
+    w_out, h_out = dsize
+    term = _row_terms(_invert_3x3(m).astype(np.float32), h_out, w_out)
+    den = term(6)
+    return _remap_u8(img, term(0) / den, term(3) / den, True, border)
 
 
 def _reflect101(n: int, pad: int) -> np.ndarray:
@@ -511,3 +559,199 @@ def gaussian_blur5_u8(img: np.ndarray) -> np.ndarray:
     x = img.astype(np.int32)[_reflect101(h, 2)][:, _reflect101(w, 2)]
     rows = sum(k[j] * x[:, j:j + w] for j in range(5))
     return ((sum(k[j] * rows[j:j + h] for j in range(5)) + 128) >> 8).astype(np.uint8)
+
+
+# OpenCV's 8-bit COLOR_RGB2HSV divides through fixed-point tables with this
+# shift; its COLOR_HSV2RGB converts each row in SIMD blocks of this many pixels
+# (4 vectors of 8 float32 lanes), truncating to uint8, and the row's remaining
+# pixels in scalar code, rounding half to even.
+HSV_SHIFT = 12
+HSV_LANES = 32
+HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def _hsv_division_tables():
+    """OpenCV's sdiv_table and hdiv_table180: round((255 << 12) / i) and
+    round((180 << 12) / (6 i)), half to even, 0 at i = 0."""
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv, hdiv = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << HSV_SHIFT) / (6.0 * i))
+    return sdiv, hdiv
+
+
+_SDIV, _HDIV = _hsv_division_tables()
+
+
+def rgb_to_hsv_u8(im: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(im, cv2.COLOR_RGB2HSV) of a uint8 RGB frame: V the
+    largest channel, S and H by OpenCV's fixed-point division tables, hue in
+    [0, 180)."""
+    x = im.astype(np.int64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> HSV_SHIFT
+    h += np.where(h < 0, 180, 0)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB) of a uint8 (h, w, 3) frame, hue
+    range 180, as OpenCV computes it in float32: S and V scaled by 1/255, the
+    hue's sector and fraction f, the four values V, V(1 - S), V·fma(-S, f, 1)
+    and V·fma(-S, 1 - f, 1) picked by sector, times 255; truncated in a row's
+    SIMD blocks of HSV_LANES pixels, rounded half to even in its tail."""
+    one = np.float32(1)
+    h = hsv[..., 0].astype(np.float32) * np.float32(6.0 / 180)
+    s = hsv[..., 1].astype(np.float32) * np.float32(1 / 255.0)
+    v = hsv[..., 2].astype(np.float32) * np.float32(1 / 255.0)
+    pre = np.trunc(h)
+    f = h - pre
+    tabs = np.stack([v, v * (one - s), v * _fma32(-s, f, one), v * _fma32(-s, one - f, one)], -1)
+    bgr = np.take_along_axis(tabs, HSV_SECTORS[pre.astype(np.int64) % 6], -1) * np.float32(255)
+    w = hsv.shape[1]
+    simd = (np.arange(w) < w // HSV_LANES * HSV_LANES)[:, None]
+    out = np.where(simd, np.trunc(bgr), np.rint(bgr))
+    return np.clip(out, 0, 255).astype(np.uint8)[..., ::-1]
+
+
+def augment_hsv(im: np.ndarray, hgain=0.5, sgain=0.5, vgain=0.5, rng=None) -> np.ndarray:
+    """Random HSV jitter (JAX data/augment.py:49-61; reference
+    utils/augmentations.py:67-87): three gains drawn from `rng`, each channel
+    of the frame's HSV mapped through its lookup table, back to RGB."""
+    rng = rng or random
+    if hgain or sgain or vgain:
+        r = np.array([rng.uniform(-1, 1) for _ in range(3)]) * [hgain, sgain, vgain] + 1
+        hsv = rgb_to_hsv_u8(im)
+        x = np.arange(0, 256, dtype=r.dtype)
+        lut_hue = ((x * r[0]) % 180).astype(im.dtype)
+        lut_sat = np.clip(x * r[1], 0, 255).astype(im.dtype)
+        lut_val = np.clip(x * r[2], 0, 255).astype(im.dtype)
+        im = hsv_to_rgb_u8(np.stack([lut_hue[hsv[..., 0]], lut_sat[hsv[..., 1]],
+                                     lut_val[hsv[..., 2]]], -1))
+    return im
+
+
+def random_perspective(im, targets=(), segments=(), degrees=10, translate=0.1, scale=0.1,
+                       shear=10, perspective=0.0, border=(0, 0), rng=None):
+    """Random affine or perspective warp of a frame, its labels and polygons
+    (JAX data/augment.py:179-193; reference utils/segment/augmentations.py:16-88):
+    the matrix of sample_perspective_matrix, the pixels by warp_affine_u8 (or
+    warp_perspective_u8 when perspective is not 0) at border 114."""
+    M, s, (width, height) = sample_perspective_matrix(
+        im.shape[:2], degrees, translate, scale, shear, perspective, border, rng)
+    if (border[0] != 0) or (border[1] != 0) or (M != np.eye(3)).any():
+        if perspective:
+            im = warp_perspective_u8(im, M, (width, height), border=114)
+        else:
+            im = warp_affine_u8(im, M[:2], (width, height), border=114)
+    targets, new_segments = apply_perspective_to_labels(
+        M, s, perspective, targets, segments, width, height)
+    return im, targets, new_segments
+
+
+def _bbox_ioa_np(box: np.ndarray, boxes: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Intersection over the area of each of `boxes` (n, 4) with `box` (4,),
+    all xyxy (reference utils/metrics.py bbox_ioa)."""
+    ix = (np.minimum(box[2], boxes[:, 2]) - np.maximum(box[0], boxes[:, 0])).clip(0)
+    iy = (np.minimum(box[3], boxes[:, 3]) - np.maximum(box[1], boxes[:, 1])).clip(0)
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]) + eps
+    return ix * iy / area
+
+
+def copy_paste(im, labels, segments, p=0.5, rng=None):
+    """Copy-paste (JAX data/augment.py:204-226; reference
+    utils/augmentations.py:240-270): round(p · n) instances drawn from `rng`,
+    each mirrored left-right and pasted where its mirror overlaps no label's
+    box by 30% or more; the mirrored label and polygon are appended."""
+    rng = rng or random
+    n = len(segments)
+    if p and n:
+        h, w, _ = im.shape
+        im_new = np.zeros((h, w), np.uint8)
+        for j in rng.sample(range(n), k=round(p * n)):
+            l, seg = labels[j], segments[j]
+            box = w - l[3], l[2], w - l[1], l[4]
+            ioa = _bbox_ioa_np(np.asarray(box, np.float32), labels[:, 1:5].astype(np.float32))
+            if (ioa < 0.30).all():
+                labels = np.concatenate((labels, [[l[0], *box]]), 0)
+                segments.append(np.concatenate((w - seg[:, 0:1], seg[:, 1:2]), 1))
+                # cv2.drawContours(..., FILLED) of the int32 polygon
+                fill_poly(im_new, seg.astype(np.int32), 1)
+        i = im_new[:, ::-1].astype(bool)
+        im[i] = im[:, ::-1][i]
+    return im, labels, segments
+
+
+def mixup(im, labels, segments, im2, labels2, segments2, rng=None):
+    """Blend two frames by r ~ Beta(32, 32) and join their labels (JAX
+    data/augment.py:229-235; reference utils/segment/augmentations.py:91-104).
+    r comes from the numpy RandomState `rng` (numpy's global one by default,
+    which JAX's draws from)."""
+    r = (np.random if rng is None else rng).beta(32.0, 32.0)
+    im = (im * r + im2 * (1 - r)).astype(np.uint8)
+    labels = np.concatenate((labels, labels2), 0)
+    segments = list(segments) + list(segments2)
+    return im, labels, segments
+
+
+def cutout(im: np.ndarray, labels: np.ndarray, p: float = 0.5, rng=None):
+    """Random-erase patches of a frame with normalised xywh labels; labels
+    more than 60% covered by a patch of at least 1/32 of the frame are
+    dropped (JAX data/augment.py:247-268; reference utils/augmentations.py:262-286)."""
+    rng = rng or random
+    if rng.random() < p:
+        h, w = im.shape[:2]
+        scales = [0.5] * 1 + [0.25] * 2 + [0.125] * 4 + [0.0625] * 8 + [0.03125] * 16
+        for s in scales:
+            mask_h = rng.randint(1, max(1, int(h * s)))
+            mask_w = rng.randint(1, max(1, int(w * s)))
+            xmin = max(0, rng.randint(0, w) - mask_w // 2)
+            ymin = max(0, rng.randint(0, h) - mask_h // 2)
+            xmax = min(w, xmin + mask_w)
+            ymax = min(h, ymin + mask_h)
+            im[ymin:ymax, xmin:xmax] = [rng.randint(64, 191) for _ in range(3)]
+            if len(labels) and s > 0.03:
+                box = np.array([xmin, ymin, xmax, ymax], np.float32)
+                xyxy = xywhn2xyxy_np(labels[:, 1:5].astype(np.float32), w, h)
+                labels = labels[_bbox_ioa_np(box, xyxy) < 0.60]
+    return im, labels
+
+
+class Albumentations:
+    """The optional albumentations adapter (JAX data/augment.py:271-314;
+    reference utils/augmentations.py:22-53): Blur, MedianBlur, ToGray and
+    CLAHE at p 0.01 with YOLO box passthrough. A no-op, drawing nothing from
+    the generator, when the package does not import."""
+
+    def __init__(self, size: int = 640):
+        self.transform = None
+        try:
+            import albumentations as A
+            T = [A.Blur(p=0.01), A.MedianBlur(p=0.01), A.ToGray(p=0.01), A.CLAHE(p=0.01),
+                 A.RandomBrightnessContrast(p=0.0), A.RandomGamma(p=0.0),
+                 A.ImageCompression(quality_lower=75, p=0.0)]
+            self.transform = A.Compose(
+                T, bbox_params=A.BboxParams(format="yolo", label_fields=["class_labels"]))
+            LOGGER.info("albumentations: " + ", ".join(type(t).__name__ for t in T if t.p))
+        except ImportError:
+            pass
+        except Exception as e:  # a version of the package that refuses these arguments
+            LOGGER.warning(f"albumentations: disabled ({e})")
+            self.transform = None
+
+    def __call__(self, im, labels, p: float = 1.0, rng=None):
+        rng = rng or random
+        if self.transform and rng.random() < p:
+            new = self.transform(image=im, bboxes=labels[:, 1:5], class_labels=labels[:, 0])
+            im = new["image"]
+            if len(new["bboxes"]):
+                labels = np.array([[c, *b] for c, b in zip(new["class_labels"], new["bboxes"])],
+                                  np.float32)
+            else:
+                labels = np.zeros((0, 5), np.float32)
+        return im, labels

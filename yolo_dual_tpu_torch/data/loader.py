@@ -2,8 +2,7 @@
 of yolo_dual_tpu/data/loader.py; reference utils/dataloaders.py:103-186).
 
 One process reads the whole dataset: the JAX loader's per-host sharding has
-no counterpart here. The quad `collate` and `sample_weights` resampling
-(--image-weights) are not ported (ROADMAP A item 3).
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -23,15 +22,24 @@ class Loader:
 
     - deterministic per-epoch shuffling (set_epoch, reference seed_worker
       determinism utils/dataloaders.py:96-100)
-    - the final batch padded to `batch_size` by repeating its last sample, with
-      the count of real samples in `n_valid`, so every batch has one shape;
-      with `drop_last` a final partial batch is dropped instead
+    - `sample_weights` (--image-weights): when set and shuffling, each epoch
+      draws len(dataset) indices with replacement in proportion to them,
+      uniformly when they are all 0 (JAX data/loader.py:65-80)
+    - a dataset with aspect buckets (`bucket_of`, rect evaluation) is batched
+      bucket by bucket, so no batch straddles two shapes
+    - the final batch of each group padded to `batch_size` by repeating its
+      last sample, with the count of real samples in `n_valid`, so every batch
+      has one shape; with `drop_last` a final partial batch is dropped instead
+    - `collate`: a transform of each batch's sample list before stacking (the
+      quad collate of data/dataset.py), with JAX's `n_valid` rule: a collated
+      sample is real when it holds at least one real one
     - background thread prefetch (depth `prefetch`) overlapping host reads and
-      rasterisation with device compute
+      augmentation with device compute
     """
 
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False,
-                 seed: int = 0, prefetch: Optional[int] = 2, drop_last: bool = False):
+                 seed: int = 0, prefetch: Optional[int] = 2, drop_last: bool = False,
+                 collate=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -43,29 +51,59 @@ class Loader:
             prefetch = 0
         self.prefetch = prefetch
         self.epoch = 0
+        self.collate = collate
+        self.sample_weights = None
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
     def _indices(self):
-        idx = list(range(len(self.dataset)))
+        n = len(self.dataset)
+        if self.sample_weights is not None and self.shuffle:
+            w = list(self.sample_weights)
+            if sum(w) <= 0:  # random.choices refuses all-zero weights
+                w = [1.0] * n
+            return random.Random(self.seed + self.epoch).choices(range(n), weights=w, k=n)
+        idx = list(range(n))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
         return idx
 
-    def __len__(self):
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
-
-    def _batches(self):
+    def _chunks(self):
+        """The epoch's index chunks, bucket by bucket (in bucket order) when
+        the dataset has aspect buckets (JAX data/loader.py:85-103)."""
         idx = self._indices()
         bs = self.batch_size
-        for s in range(0, len(self) * bs, bs):
-            chunk = idx[s:s + bs]
+        bucket_of = getattr(self.dataset, "bucket_of", None)
+        groups = [idx]
+        if bucket_of is not None:
+            by_bucket = {}
+            for i in idx:
+                by_bucket.setdefault(int(bucket_of[i]), []).append(i)
+            groups = [by_bucket[b] for b in sorted(by_bucket)]
+        for g in groups:
+            stop = len(g) - len(g) % bs if self.drop_last else len(g)
+            for s in range(0, stop, bs):
+                yield g[s:s + bs]
+
+    def __len__(self):
+        return sum(1 for _ in self._chunks())
+
+    def _batches(self):
+        bs = self.batch_size
+        for chunk in self._chunks():
             samples = [self.dataset[i] for i in chunk]
             samples += [samples[-1]] * (bs - len(chunk))
+            n_valid = len(chunk)
+            if self.collate is not None:
+                samples = self.collate(samples)
+                if not samples:
+                    raise ValueError(f"collate fn returned no samples for a chunk of {bs}; "
+                                     "quad collate needs batch_size to be a multiple of 4")
+                factor = max(1, bs // len(samples))
+                n_valid = min(len(samples), -(-n_valid // factor))
             batch = {k: np.stack([x[k] for x in samples]) for k in samples[0]}
-            batch["n_valid"] = np.int32(len(chunk))
+            batch["n_valid"] = np.int32(n_valid)
             yield batch
 
     def __iter__(self) -> Iterator[dict]:

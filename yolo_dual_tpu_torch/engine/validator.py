@@ -85,7 +85,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
                      save_dir: str = ".", use_soft_nms: bool = False, augment: bool = False,
                      save_json: bool = False, fuse: bool = True, save_txt: bool = False,
                      save_conf: bool = False, save_hybrid: bool = False, mesh=None,
-                     device="cuda", amp_dtype=None):
+                     device="cuda", amp_dtype=None, verbose: bool = False):
     """Returns ((mp, mr, map50, map) of boxes + the same of masks, per-class
     maps (boxes' plus masks'), times_ms (pre, inference+NMS, post per image)).
 
@@ -102,7 +102,11 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     augment: the test-time augmentation of models/model.py:forward_augment,
     whose decoded predictions go through nms_batched, its masks from the
     identity pass' protos (JAX engine/validator.py:67-79). use_soft_nms:
-    Gaussian soft-NMS in place of the greedy one.
+    Gaussian soft-NMS in place of the greedy one. Batches may differ in
+    (h, w) (rect buckets, data/dataset.py): the head's grids, the NMS and the
+    masks follow each batch's shape. verbose: a row of the 8 metrics for each
+    class with labels (reference segment/val.py; JAX's evaluate_segment
+    takes the flag and prints none).
     """
     for name, on, item in (("plots", plots, "utils/plots, ROADMAP A item 7"),
                            ("save_json", save_json, "COCO JSON + COCOeval, ROADMAP A item 6"),
@@ -190,6 +194,12 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     LOGGER.info(("%22s" + "%11s" * 8) % ("Class", "P(B)", "R(B)", "mAP50(B)", "mAP50-95(B)",
                                          "P(M)", "R(M)", "mAP50(M)", "mAP50-95(M)"))
     LOGGER.info(("%22s" + "%11.3g" * 8) % ("all", *mean))
+    if verbose and nc > 1:
+        names = names or {i: str(i) for i in range(nc)}
+        nt = np.bincount(target_cls.astype(int), minlength=nc)
+        for i, c in enumerate(metrics.ap_class_index):
+            LOGGER.info(("%22s" + "%11i" * 2 + "%11.3g" * 8)
+                        % (names.get(int(c), str(c)), seen, nt[c], *metrics.class_result(i)))
     LOGGER.info(f"Speed: {t[0]:.1f}ms pre, {t[1]:.1f}ms inference+NMS, {t[2]:.1f}ms post per image")
     return mean, metrics.get_maps(nc), t
 

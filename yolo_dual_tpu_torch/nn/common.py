@@ -56,12 +56,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d whose training forward updates `running_var` with the biased
     batch variance, as flax's BatchNorm does (JAX nn/common.py:210-244);
     torch's own feeds in the unbiased one. The normalised output, the
-    gradients, the running mean and the state_dict keys are torch's."""
+    gradients, the running mean and the state_dict keys are torch's. With
+    `update_stats` False a training forward normalises by the batch
+    statistics as it does and leaves the running statistics and the batch
+    count alone (the recomputed forward of a rematerialised step,
+    train/trainer.py)."""
+
+    update_stats = True
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        self.num_batches_tracked.add_(1)
+        update = self.update_stats
+        if update:
+            self.num_batches_tracked.add_(1)
         m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
         n = x.numel() // x.shape[1]
         if n == 1:
@@ -71,18 +79,20 @@ class BatchNorm2d(nn.BatchNorm2d):
             mean = x.mean((0, 2, 3))
             y = (x - mean[:, None, None]) * torch.rsqrt(torch.full_like(mean, self.eps))[
                 :, None, None] * self.weight[:, None, None] + self.bias[:, None, None]
-            with torch.no_grad():
-                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m)
+            if update:
+                with torch.no_grad():
+                    self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1 - m)
             return y
         # momentum 1 makes F.batch_norm write the batch mean and unbiased variance
         # into these scratch buffers, so no second pass over x is needed
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        with torch.no_grad():
-            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
+        if update:
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
         return y
 
 

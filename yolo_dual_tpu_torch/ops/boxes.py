@@ -14,6 +14,29 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([xy - wh / 2, xy + wh / 2, x[..., 4:]], -1)
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(..., 4+) corner-xyxy -> center-xywh; columns past 4 pass through."""
+    tl, br = x[..., :2], x[..., 2:4]
+    return torch.cat([(tl + br) / 2, br - tl, x[..., 4:]], -1)
+
+
+def xywhn2xyxy(x: torch.Tensor, w: float = 640, h: float = 640, padw: float = 0,
+               padh: float = 0) -> torch.Tensor:
+    """Normalised xywh -> pixel xyxy, shifted by the pad (reference
+    utils/general.py:775)."""
+    scale = torch.tensor([w, h, w, h], dtype=x.dtype, device=x.device)
+    pad = torch.tensor([padw, padh, padw, padh], dtype=x.dtype, device=x.device)
+    return xywh2xyxy(x[..., :4] * scale) + pad
+
+
+def xyxy2xywhn(x: torch.Tensor, w: float = 640, h: float = 640, clip: bool = False,
+               eps: float = 0.0) -> torch.Tensor:
+    """Pixel xyxy -> normalised xywh, optionally clipped to (h - eps, w - eps)."""
+    if clip:
+        x = clip_boxes(x, (h - eps, w - eps))
+    return xyxy2xywh(x[..., :4]) / torch.tensor([w, h, w, h], dtype=x.dtype, device=x.device)
+
+
 def clip_boxes(boxes: torch.Tensor, shape) -> torch.Tensor:
     """Clip xyxy boxes to image shape (h, w)."""
     h, w = shape[:2]
@@ -99,3 +122,19 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bo
     c_area = cw * ch + eps
     return iou - (c_area - union) / c_area  # GIoU
 
+
+
+def wh_iou(wh1: torch.Tensor, wh2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """IoU of width-height pairs anchored at one corner: (N, 2) x (M, 2) -> (N, M)."""
+    wh1, wh2 = wh1[:, None], wh2[None]
+    inter = torch.minimum(wh1, wh2).prod(2)
+    return inter / (wh1.prod(2) + wh2.prod(2) - inter + eps)
+
+
+def bbox_ioa(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Intersection over box2's area of xyxy boxes: (N, 4) x (M, 4) -> (N, M)."""
+    a1, a2 = box1[:, None, :2], box1[:, None, 2:4]
+    b1, b2 = box2[None, :, :2], box2[None, :, 2:4]
+    inter = (torch.minimum(a2, b2) - torch.maximum(a1, b1)).clamp(min=0).prod(-1)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area2[None] + eps)

@@ -7,14 +7,22 @@
 or one `images/` set used for both splits) or a JSON data file `{path, train,
 val, nc, names}` (utils/general.py:check_dataset). Each epoch: the mosaic
 samples of data/dataset.py, composed, warped, HSV-jittered and flipped on the
-device (kernels/augment.py:mosaic_warp_hsv), the train step
-(train/trainer.py), box + mask mAP of the EMA model on the val set
+device (kernels/augment.py:mosaic_warp_hsv), or with --no-device-aug, or a
+hyp the device route cannot run (mosaic < 1, mixup, copy_paste: scratch-med,
+scratch-high, VOC), on the host (data/augment.py), the train step
+(train/trainer.py; --remat recomputes the forward in the backward), box +
+mask mAP of the EMA model on the val set
 (engine/validator.py:evaluate_segment, host letterbox), a row of
 `results.csv`, `last.pt` and, when the fitness is the best so far, `best.pt`
 (train/checkpoint.py); early stopping; `best.pt` stripped to its EMA weights
 at the end. The run's settings are saved as `opt.json` and `hyp.json`;
 `--resume` continues the newest run with a `last.pt` (or the given
 checkpoint) with them, flags typed on the command line winning.
+--image-weights draws each epoch's images in proportion to the weights of
+their classes, class_weights · (1 - per-class mAP)² / nc. --cache ram keeps
+the read frames in memory; --cache disk reads the `.npy` frames, which are
+already the decoded cache JAX's disk cache writes. --rect is ignored, as the
+mosaic is square (logged).
 
 Without --weights the model has random weights drawn from a generator seeded
 with 0. The device defaults to cuda; pass --device cpu to run on the CPU.
@@ -46,26 +54,27 @@ from yolo_dual_tpu_torch.train.ema import ModelEMA
 from yolo_dual_tpu_torch.train.optim import freeze_layers, smart_optimizer
 from yolo_dual_tpu_torch.train.trainer import EarlyStopping, Trainer
 from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size, find_cfg,
-                                               increment_path, init_seeds, json_save, load_config,
-                                               select_device)
+                                               increment_path, init_seeds, json_save,
+                                               labels_to_class_weights, labels_to_image_weights,
+                                               load_config, select_device)
 
 ROOT = Path(__file__).resolve().parents[2]
 CSV_HEADER = ["epoch", "box_loss", "seg_loss", "obj_loss", "cls_loss",
               "mAP50_B", "mAP_B", "mAP50_M", "mAP_M", "fitness"]
 
 
+def np_rng_state(rng: np.random.RandomState):
+    """A RandomState's state as plain Python values, which torch.load reads
+    with weights_only."""
+    name, keys, pos, has_gauss, cached = rng.get_state()
+    return name, keys.tolist(), int(pos), int(has_gauss), float(cached)
+
+
 def _refuse_unported(opt):
-    for on, flag, item in (
-            (not opt.device_aug, "--no-device-aug (the host pixel augmentation)", 2),
-            (opt.image_weights, "--image-weights", 3),
-            (opt.evolve, "--evolve", 7),
-            (opt.data_parallel, "--data-parallel", 7),
-            (opt.remat, "--remat", 3),
-            (opt.cache == "disk", "--cache disk", 2),
-            (any(s not in ("none", "csv") for s in opt.loggers or ()), "--loggers", 7)):
+    for on, flag in ((opt.evolve, "--evolve"), (opt.data_parallel, "--data-parallel"),
+                     (any(s not in ("none", "csv") for s in opt.loggers or ()), "--loggers")):
         if on:
-            raise NotImplementedError(f"segment.train {flag} is not ported yet "
-                                      f"(ROADMAP A item {item})")
+            raise NotImplementedError(f"segment.train {flag} is not ported yet (ROADMAP A item 7)")
 
 
 def train(opt):
@@ -125,7 +134,8 @@ def train(opt):
     if opt.freeze and (len(opt.freeze) > 1 or opt.freeze[0] > 0):
         freeze_layers(optimizer, opt.freeze)
     ema = ModelEMA(model, decay=hyp.get("ema_decay", 0.9999), tau=hyp.get("ema_tau", 2000.0))
-    trainer = Trainer(model, loss_fn, optimizer, ema, task="segment", amp_dtype=amp_dtype)
+    trainer = Trainer(model, loss_fn, optimizer, ema, task="segment", amp_dtype=amp_dtype,
+                      remat=opt.remat)
     state = trainer.init_state()
     start_epoch, best_fitness = 0, 0.0
     if resume_ckpt is not None:
@@ -137,6 +147,9 @@ def train(opt):
             optimizer.load_state_dict(ckpt["optimizer"])
         if ckpt.get("data_rng") is not None:
             dataset.rng.setstate(ckpt["data_rng"])
+        if ckpt.get("data_np_rng") is not None:
+            name, keys, *rest = ckpt["data_np_rng"]
+            dataset.np_rng.set_state((name, np.asarray(keys, np.uint32), *rest))
         start_epoch = int(ckpt.get("epoch", -1)) + 1
         best_fitness = float(ckpt.get("best_fitness", 0.0))
         LOGGER.info(f"resumed from epoch {start_epoch} (best fitness {best_fitness:.4f})")
@@ -151,17 +164,25 @@ def train(opt):
     LOGGER.info(f"Training {opt.cfg} on {data['train']} for {opt.epochs} epochs "
                 f"(batch {opt.batch_size}, imgsz {imgsz}, accumulate {accumulate}, {dev})...")
     t0 = time.time()
-    mean = np.zeros(8)
+    if opt.image_weights:
+        class_weights = labels_to_class_weights(dataset.labels, nc)
+    mean, maps = np.zeros(8), np.zeros(nc)
     pin = dev.type == "cuda"
     for epoch in range(start_epoch, opt.epochs):
         t_epoch = time.perf_counter()
         final_epoch = epoch == opt.epochs - 1
+        if opt.image_weights:  # rare and poorly detected classes drawn more often
+            cw = class_weights * (1 - maps) ** 2 / nc
+            train_loader.sample_weights = labels_to_image_weights(dataset.labels, nc, cw)
         train_loader.set_epoch(epoch)
         mloss = torch.zeros(4, dtype=torch.float64, device=dev)
         for i, batch in enumerate(train_loader):
-            image = mosaic_warp_hsv(*(to_device(batch[k], dev, pin) for k in (
-                "aug_tiles", "aug_dst", "aug_off", "aug_invm", "aug_hsv", "aug_flips")),
-                out_size=imgsz)
+            if "aug_tiles" in batch:  # the device route
+                image = mosaic_warp_hsv(*(to_device(batch[k], dev, pin) for k in (
+                    "aug_tiles", "aug_dst", "aug_off", "aug_invm", "aug_hsv", "aug_flips")),
+                    out_size=imgsz)
+            else:  # the host route: augmented uint8 frames
+                image = to_device(batch["image"], dev, pin)
             b = {"image": image, **{k: to_device(batch[k], dev, pin)
                                     for k in ("targets", "tmask", "masks")}}
             state, metrics = trainer.train_step(state, b)
@@ -169,7 +190,7 @@ def train(opt):
         mloss = mloss.cpu().numpy()  # waits for the epoch's last step
         t_val = time.perf_counter()
         if not opt.noval or final_epoch:  # --noval: validate the final epoch only
-            mean, _, _ = evaluate_segment(copy.deepcopy(ema.ema), val_loader, nc, nm=nm,
+            mean, maps, _ = evaluate_segment(copy.deepcopy(ema.ema), val_loader, nc, nm=nm,
                                           names=names, device=dev, amp_dtype=amp_dtype)
         fi = fitness_seg(np.asarray(mean))
         t_save = time.perf_counter()
@@ -180,7 +201,7 @@ def train(opt):
                     "updates": ema.updates,
                     "optimizer": None if opt.nosave_optimizer else optimizer.state_dict(),
                     "epoch": epoch, "best_fitness": float(max(fi, best_fitness)),
-                    "data_rng": dataset.rng.getstate()}
+                    "data_rng": dataset.rng.getstate(), "data_np_rng": np_rng_state(dataset.np_rng)}
             save_checkpoint(save_dir / "last.pt", ckpt)
             if fi >= best_fitness:
                 save_checkpoint(save_dir / "best.pt", ckpt)
@@ -221,9 +242,10 @@ def parse_opt(argv=None):
     p.add_argument("--rect", action="store_true",
                    help="accepted; the mosaic is square, so training ignores it")
     p.add_argument("--cache", type=str, default=False, nargs="?", const="ram",
-                   help="image cache: ram (disk is not ported)")
+                   help="image cache: ram, or disk (the .npy frames are the decoded cache)")
     p.add_argument("--quad", action="store_true", help="accepted and ignored for segment")
-    p.add_argument("--image-weights", action="store_true", help="not ported yet")
+    p.add_argument("--image-weights", action="store_true",
+                   help="weighted image resampling by class rarity x (1-mAP)^2")
     p.add_argument("--freeze", nargs="+", type=int, default=[0],
                    help="freeze layers: single N = layers 0..N-1, list = those indices")
     p.add_argument("--label-smoothing", type=float, default=0.0)
@@ -244,7 +266,8 @@ def parse_opt(argv=None):
     p.add_argument("--data-parallel", action="store_true", help="not ported yet")
     p.add_argument("--nosave-optimizer", action="store_true")
     p.add_argument("--evolve", type=int, default=0, help="not ported yet")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the forward in the backward (saves device memory)")
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16",
                    help="compute dtype: bf16 runs the forward and loss under torch.autocast "
                         "(parameters, BatchNorm statistics and the DCNv3 sampling stay float32)")
@@ -266,7 +289,7 @@ def parse_opt(argv=None):
     p.add_argument("--device-aug", dest="device_aug", action="store_true", default=True,
                    help="mosaic composite + warp + HSV + flips on the device (the default)")
     p.add_argument("--no-device-aug", dest="device_aug", action="store_false",
-                   help="the host pixel augmentation (not ported yet)")
+                   help="the host-side mosaic/copy-paste/warp/mixup/HSV/flip pipeline")
     args = p.parse_args(argv)
     # the flags typed on the command line: on --resume the others come from the run's opt.json
     tokens = {t.split("=", 1)[0] for t in (argv if argv is not None else sys.argv[1:])}

@@ -4,15 +4,24 @@ segment/val.py).
 Usage:
     python -m yolo_dual_tpu_torch.segment.val --data DIR --device-preprocess
     python -m yolo_dual_tpu_torch.segment.val --data data.json --weights best.pt --device-preprocess
+    python -m yolo_dual_tpu_torch.segment.val --data DIR --rect --task train --verbose
 
 `--data` is a directory holding `images/` (RGB uint8 `.npy` frames; with
-`images/val`, that split) and `labels/` (the reference's txt labels), whose
-classes are the model config's; or a JSON file with the data yaml's keys
-`path`, `val`, `nc` and `names` (utils/general.py:check_dataset). Without
---weights the model has random weights drawn from a generator seeded with 0.
-With --device-preprocess the raw frames (all of one shape) are letterboxed on
-the card by the letterbox kernel; without it, on the host
-(data/dataset.py), as the train CLI's per-epoch validation does.
+`images/train` and `images/val`, those splits) and `labels/` (the
+reference's txt labels), whose classes are the model config's; or a JSON
+file with the data yaml's keys `path`, `train`, `val`, `test`, `nc` and
+`names` (utils/general.py:check_dataset). `--task` picks the split (any of
+the data's split keys, else val), or `speed` (val at conf 0.25, iou 0.45) or
+`study` (val at 256..1536 px, a row of 8 metrics and 3 times a size in
+study_{data}_{weights}.txt). Without --weights the model has random weights
+drawn from a generator seeded with 0. With --device-preprocess the raw
+frames (all of one shape) are letterboxed on the card by the letterbox
+kernel; without it, on the host (data/dataset.py), as the train CLI's
+per-epoch validation does, and with --rect each frame to its aspect
+bucket's shape, batch by batch. --half runs the forward in bfloat16
+(torch.autocast), as JAX's flag maps to its bf16 policy. --cache ram keeps
+the frames in memory (disk: the `.npy` frames are the cache); --dnn,
+--workers and --no-download are accepted, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,24 +29,29 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from yolo_dual_tpu_torch.data.dataset import YoloDataset
-from yolo_dual_tpu_torch.data.loader import Loader
+from yolo_dual_tpu_torch.data.dataset import create_dataloader
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
 from yolo_dual_tpu_torch.io.weights import load_state_dict_file
 from yolo_dual_tpu_torch.models.model import SegmentationModel
 from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size,
                                                increment_path, select_device)
 
+STUDY_SIZES = tuple(range(256, 1536 + 128, 128))  # --task study's image sizes (JAX's)
+
 
 def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=640,
-        conf_thres=0.001, iou_thres=0.6, max_det=300, single_cls=False, mask_ratio=4,
-        save_txt=False, save_conf=False, save_hybrid=False, project="runs/val-seg", name="exp",
-        exist_ok=False, fuse=True, device="cuda", device_preprocess=False, augment=False,
-        save_json=False, plots=False, soft_nms=False, data_parallel=False):
-    """Evaluate `weights` (or the seeded random model) on `data`. Returns
-    evaluate_segment's (8 metrics, per-class maps, (pre, inference+NMS, post) ms)."""
+        conf_thres=0.001, iou_thres=0.6, max_det=300, task="val", single_cls=False,
+        verbose=False, mask_ratio=4, save_txt=False, save_conf=False, save_hybrid=False,
+        project="runs/val-seg", name="exp", exist_ok=False, fuse=True, device="cuda",
+        device_preprocess=False, augment=False, save_json=False, plots=False, soft_nms=False,
+        data_parallel=False, rect=False, cache=False, half=False, dnn=False, workers=0,
+        no_download=False):
+    """Evaluate `weights` (or the seeded random model) on the `task` split of
+    `data`. Returns evaluate_segment's (8 metrics, per-class maps, (pre,
+    inference+NMS, post) ms)."""
     dev = select_device(device)
     d = check_dataset(data)
     imgsz = check_img_size(imgsz, 32)
@@ -47,14 +61,18 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
         model.load_state_dict(load_state_dict_file(weights), strict=True)
     save_dir = str(increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)) \
         if save_txt else "."
-    ds = YoloDataset(d["val"], imgsz=imgsz, mask_ratio=mask_ratio, overlap=True,
-                     single_cls=single_cls, device_preprocess=device_preprocess)
+    loader, _ = create_dataloader(d[task if d.get(task) else "val"], imgsz, batch_size,
+                                  device_preprocess=device_preprocess, augment=False,
+                                  mask_downsample_ratio=mask_ratio, overlap_mask=True,
+                                  task="segment", single_cls=single_cls, rect=rect,
+                                  cache_images=cache)
     mean, maps, t = evaluate_segment(
-        model, Loader(ds, batch_size=batch_size), model.nc, conf_thres=conf_thres,
-        iou_thres=iou_thres, max_det=max_det, nm=model.model[-1].nm, names=d["names"],
-        plots=plots, save_dir=save_dir, use_soft_nms=soft_nms, augment=augment,
-        save_json=save_json, fuse=fuse, save_txt=save_txt, save_conf=save_conf,
-        save_hybrid=save_hybrid, mesh=True if data_parallel else None, device=dev)
+        model, loader, model.nc, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+        nm=model.model[-1].nm, names=d.get("names"), plots=plots, save_dir=save_dir,
+        use_soft_nms=soft_nms, augment=augment, save_json=save_json, fuse=fuse,
+        save_txt=save_txt, save_conf=save_conf, save_hybrid=save_hybrid,
+        mesh=True if data_parallel else None, device=dev,
+        amp_dtype=torch.bfloat16 if half else None, verbose=verbose)
     if save_txt:
         LOGGER.info(f"labels saved to {Path(save_dir) / 'labels'}")
     return mean, maps, t
@@ -71,8 +89,11 @@ def parse_opt(argv=None):
     p.add_argument("--conf-thres", type=float, default=0.001)
     p.add_argument("--iou-thres", type=float, default=0.6)
     p.add_argument("--max-det", type=int, default=300)
+    p.add_argument("--task", default="val",
+                   help="a split of the data (val, test, train), or speed or study")
     p.add_argument("--mask-ratio", type=int, default=4)
     p.add_argument("--single-cls", action="store_true")
+    p.add_argument("--verbose", action="store_true", help="a row of metrics per class")
     p.add_argument("--save-txt", action="store_true", help="save results to labels/*.txt")
     p.add_argument("--save-conf", action="store_true", help="include confidence in txt rows")
     p.add_argument("--save-hybrid", action="store_true",
@@ -86,8 +107,17 @@ def parse_opt(argv=None):
     p.add_argument("--device-preprocess", action="store_true",
                    help="letterbox + normalize raw frames on the card (uniform-shape datasets); "
                         "default: the host letterbox")
+    p.add_argument("--rect", action="store_true",
+                   help="aspect-bucket batches on the host letterbox (a fixed set of shapes)")
+    p.add_argument("--cache", type=str, default=False, nargs="?", const="ram",
+                   help="image cache: ram, or disk (the .npy frames are the decoded cache)")
+    p.add_argument("--half", action="store_true", help="the forward in bfloat16 (autocast)")
     p.add_argument("--augment", action="store_true", help="TTA: multi-scale + flip inference")
     p.add_argument("--soft-nms", action="store_true", help="Gaussian soft-NMS variant")
+    p.add_argument("--dnn", action="store_true", help="accepted for parity (OpenCV-DNN N/A)")
+    p.add_argument("--workers", type=int, default=0,
+                   help="accepted for parity (one prefetch thread reads the samples)")
+    p.add_argument("--no-download", action="store_true", help="accepted: nothing is downloaded")
     # JAX CLI flags not ported yet: each raises, naming its ROADMAP item
     p.add_argument("--save-json", action="store_true", help="COCO JSON (not ported yet)")
     p.add_argument("--plots", action="store_true", help="curves (not ported yet)")
@@ -95,5 +125,24 @@ def parse_opt(argv=None):
     return p.parse_args(argv)
 
 
+def main(opt):
+    """--task speed and study as JAX's segment/val.py:main runs them, any
+    other task as one run on that split."""
+    if opt.task == "speed":
+        return run(**{**vars(opt), "task": "val", "conf_thres": 0.25, "iou_thres": 0.45})
+    if opt.task == "study":
+        f = f"study_{Path(opt.data).stem}_{Path(str(opt.weights)).stem}.txt"
+        rows = []
+        for sz in STUDY_SIZES:
+            LOGGER.info(f"--- study imgsz {sz}")
+            mean, _, t = run(**{**vars(opt), "task": "val", "imgsz": sz})
+            rows.append(tuple(mean) + tuple(t))
+        np.savetxt(f, rows, fmt="%10.4g")
+        LOGGER.info(f"study saved to {f}")
+        LOGGER.info("study plot skipped: plots are not ported (ROADMAP A item 7)")
+        return rows
+    return run(**vars(opt))
+
+
 if __name__ == "__main__":
-    run(**vars(parse_opt()))
+    main(parse_opt())

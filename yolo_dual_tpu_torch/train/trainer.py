@@ -12,18 +12,30 @@ float32 (bs, 3, H, W) in [0, 1], as kernels/preprocess.py:semantic_preprocess
 returns it (the device route). Classify: `image` (bs, H, W, 3) float32,
 ImageNet-normalised (data/classify.py), and `label` (bs,) class ids. Arrays
 or tensors on any device; they are moved to the model's.
+
+`remat` (--remat) recomputes the forward in the backward instead of keeping
+its activations (torch.utils.checkpoint; JAX's jax.checkpoint): the
+recomputed forward normalises by the same batch statistics and leaves the
+BatchNorm running statistics alone, so a step updates them once, as without
+remat. On yolov5s-seg-dcnv3 the DCNv3 forward kernel then launches twice a
+micro-step for each of its 6 calls and the backward once. `dropout` gives
+each micro-step its own seeded generator for the heads' dropout (JAX folds
+the step into PRNGKey(17); the streams differ).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from yolo_dual_tpu_torch.data.loader import normalize_image
+from yolo_dual_tpu_torch.nn.common import BatchNorm2d
 from yolo_dual_tpu_torch.train.ema import ModelEMA
 from yolo_dual_tpu_torch.train.optim import SmartOptimizer
 from yolo_dual_tpu_torch.utils.general import LOGGER
@@ -67,6 +79,23 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
+DROPOUT_SEED = 17  # the dropout generator of micro-step t is seeded (17 << 32) + t
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(model: nn.Module):
+    """Training forwards inside leave every BatchNorm's running statistics and
+    batch count as they are (nn/common.py:BatchNorm2d.update_stats)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
 @dataclasses.dataclass
 class Trainer:
     """Train and eval steps of a Detect or Segment model. The optimizer
@@ -79,6 +108,8 @@ class Trainer:
     ema: Optional[ModelEMA] = None
     task: str = "segment"            # detect | segment | semantic | classify
     amp_dtype: Optional[torch.dtype] = None  # torch.bfloat16: forward and loss under autocast
+    remat: bool = False              # recompute the forward in the backward (saves memory)
+    dropout: bool = False            # a seeded generator a micro-step for the heads' dropout
 
     def __post_init__(self):
         if self.task not in ("detect", "segment", "semantic", "classify"):
@@ -110,19 +141,26 @@ class Trainer:
         dev = next(model.parameters()).device
         b = _on(batch, dev)
         x = self.model_input(b["image"])
+        kw = {} if self.task in ("semantic", "classify") else {"decode": False}
+
+        def forward(inp):
+            if not self.remat:
+                return model(inp, **kw)
+            return checkpoint(lambda t: model(t, **kw), inp, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  frozen_batch_stats(model)))
         with torch.autocast(dev.type, dtype=self.amp_dtype or torch.float32,
                             enabled=self.amp_dtype is not None):
             if self.task == "semantic":
-                loss, items = self.loss_fn(model(x), b["mask"])
+                loss, items = self.loss_fn(forward(x), b["mask"])
                 items = torch.stack(items).detach()
             elif self.task == "classify":
-                loss, items = self.loss_fn(model(x), b["label"])
+                loss, items = self.loss_fn(forward(x), b["label"])
                 items = torch.stack(items).detach()
             elif self.task == "segment":
-                loss, items = self.loss_fn(model(x, decode=False), b["targets"], b["tmask"],
-                                           b["masks"])
+                loss, items = self.loss_fn(forward(x), b["targets"], b["tmask"], b["masks"])
             else:
-                loss, items = self.loss_fn(model(x, decode=False), b["targets"], b["tmask"])
+                loss, items = self.loss_fn(forward(x), b["targets"], b["tmask"])
         if self.amp_dtype is not None:
             loss, items = loss.float(), items.float()
         return loss, items
@@ -143,10 +181,23 @@ class Trainer:
         items})."""
         state.model.train()
         state.model.zero_grad(set_to_none=True)
-        loss, items = self.forward_loss(state.model, batch)
-        loss.backward()
+        with self.dropout_rng(state):
+            loss, items = self.forward_loss(state.model, batch)
+            loss.backward()
         self.apply_gradients(state)
         return state, {"loss": loss.detach(), "items": items}
+
+    @contextlib.contextmanager
+    def dropout_rng(self, state: TrainState):
+        """With `dropout`, torch's generators seeded for this micro-step inside
+        (restored after); else nothing."""
+        if not self.dropout:
+            yield
+            return
+        dev = next(state.model.parameters()).device
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+            torch.manual_seed((DROPOUT_SEED << 32) + state.step)
+            yield
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, Any]):

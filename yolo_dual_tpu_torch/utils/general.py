@@ -3,7 +3,7 @@ selection, timers.
 
 Port of the parts of yolo_dual_tpu/utils/general.py that the port uses
 (make_divisible, check_img_size, LOGGER, Profile, increment_path, init_seeds,
-check_dataset), plus a config loader that reads the package's JSON config
+check_dataset, labels_to_class_weights, labels_to_image_weights), plus a config loader that reads the package's JSON config
 copies without PyYAML; run settings are saved as JSON for the same reason.
 """
 
@@ -154,6 +154,29 @@ def check_dataset(data) -> dict:
         raise FileNotFoundError(f"dataset {data}: val path not found: {missing} "
                                 "(nothing is downloaded)")
     return d
+
+
+def labels_to_class_weights(labels, nc: int = 80) -> np.ndarray:
+    """Inverse-frequency class weights of the training labels (each an
+    (n, 5+) array of [cls, xywh...]), summing to 1; uniform without labels
+    (JAX utils/general.py:199-209; reference utils/general.py:714-731)."""
+    if len(labels) == 0 or labels[0] is None:
+        return np.ones(nc, np.float32) / nc
+    classes = np.concatenate([np.asarray(lb)[:, 0] for lb in labels], 0).astype(int)
+    weights = np.bincount(classes, minlength=nc).astype(np.float64)
+    weights[weights == 0] = 1
+    weights = 1 / weights
+    return (weights / weights.sum()).astype(np.float32)
+
+
+def labels_to_image_weights(labels, nc: int = 80, class_weights=None) -> np.ndarray:
+    """Each image's sampling weight: the sum of its instances' class weights
+    (JAX utils/general.py:212-220; reference utils/general.py:733-738), for
+    --image-weights."""
+    cw = np.ones(nc, np.float32) if class_weights is None else np.asarray(class_weights)
+    counts = np.stack([np.bincount(np.asarray(lb)[:, 0].astype(int), minlength=nc)
+                       if len(lb) else np.zeros(nc) for lb in labels])
+    return (cw.reshape(1, nc) * counts).sum(1)
 
 
 def select_device(device="cuda") -> torch.device:
