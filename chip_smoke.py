@@ -161,6 +161,32 @@ which raises on failure:
    0.01), the NMS of one bs-32 batch timed by variant with the soft-NMS loop
    against JAX's loop and a fixed one, and segment.predict --augment at
    batch 1 (K1 a frame);
+6i. the model server and its client (`serve_path`, under build/phase6i):
+   (a) yolov5s-seg-dcnv3 as in 4, primed as in 6b, written as a .pt and
+   served by `yolo_dual_tpu_torch.serve` on the card (port 0, a daemon
+   thread): 24 480x640 and 8 720x1280 PNG requests through
+   `io/remote.py:RemoteModel`, each equal (same rows, boxes within 1e-2 px)
+   to the host letterbox, fused forward, nms_from_raw and scale_boxes run
+   directly on the card; the counts set to 0 before the server starts read
+   6 K2 launches a request plus the warm-up's and no K1; the server's parts
+   (body read, PNG decode, letterbox, device by CUDA events, JSON) at p50 /
+   p90, requests/s of one serial client, and 8 requests card against a CPU
+   server, TF32 off (each of the CPU's rows paired within 1e-2 px and 1e-4 or
+   an NMS near tie, but for at most 1% of them; each row count within 2%);
+   after phase 9 the card's busy share of a profiled
+   burst of 8 requests; (b) resnet50.json calibrated as in 6c, served with 8
+   PNG-encoded CamVid-style 720x960 frames: shape, class_pixels and the
+   decoded class-map PNG equal the direct card forward's; 2 frames card
+   against a CPU server, flips only at near ties of the CPU's scores (6c's
+   limits); (c) segment.predict on 8 `.npy` frames of 6b's primed
+   yolov5s-seg with --save-txt --save-crop --visualize --retina-masks --data
+   (a crop a kept detection and a feature map a 4-D layer output, `.npy`
+   without cv2 and matplotlib; the txt rows; K1 a frame), and segment.val
+   --save-json on 6b's 64 frames (an entry a row the validator's NMS keeps,
+   each RLE a mask of its frame's size, K1 a batch, COCOeval None without
+   pycocotools; 8 frames card against CPU, TF32 off, max_det 100: entries
+   paired within 1e-2 px, masks IoU >= 0.99; masks2segments ms a mask and
+   the JSON writer's ms a batch);
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -243,6 +269,7 @@ measurement of two versions in one call. It prints no result line.
 from __future__ import annotations
 
 import argparse
+import base64
 import concurrent.futures
 import contextlib
 import copy
@@ -2928,6 +2955,520 @@ def tta_path(card: str) -> dict:
     return {"val": val_k1, "predict": pred_k1}
 
 
+# Phase 6i: the HTTP model server (serve.py) and its client (io/remote.py) on the card, and
+# the prediction outputs: segment.predict's crops, feature maps and txt rows, segment.val
+# --save-json
+SERVE_SHAPES = {(480, 640): 24, (720, 1280): 8}  # the PNG requests of (a), RGB frames
+SERVE_CONF = 0.25
+SERVE_BOX_TOL = 1e-2   # px: a response against the direct card forward; --save-json card vs CPU
+SERVE_CONF_TOL = 1e-4  # card vs CPU, TF32 off (phase 5's)
+# card vs CPU, TF32 off, over the SERVE_CHECK requests: each of the CPU's rows is paired
+# with a card row of its class within SERVE_BOX_TOL px and SERVE_CONF_TOL, or is a near tie
+# (tests/detection_matching.py:pair_detections: NMS kept the other of two overlapping
+# boxes of one class within 1e-4 in confidence), but for at most SERVE_LEFT_SHARE of them;
+# each request's row count within SERVE_COUNT_SHARE of the CPU's (phase 5's). The primed
+# DCNv3 model keeps 200-300 rows at conf 0.25 on dense 480x640 frames, where NMS swaps
+# near-equal overlapping boxes and cascades (on an NVIDIA H100 80GB HBM3 at 700 W the card
+# kept 84-100% of the CPU's rows a request by phase 5's IoU > 0.99 rule; PERF.md)
+SERVE_LEFT_SHARE, SERVE_COUNT_SHARE = 0.01, 0.02
+SERVE_CHECK = 8  # requests card against CPU
+SERVE_SEM_FRAMES, SERVE_SEM_CHECK = 8, 2  # (b): 720x960 requests; of them card against CPU
+SERVE_BURST = 8  # requests of the profiled burst (after phase 9)
+PREDICT_OUT_FRAMES = 8  # (c): segment.predict's frames
+JSON_CHECK_MAX_DET = 100  # (c): the 8-frame --save-json check card vs CPU; the CPU's mask chain
+JSON_MASK_IOU = 0.99  # (c): an entry's mask card against CPU
+M2S_MASKS = 200  # (c): masks timed through masks2segments
+
+
+@contextlib.contextmanager
+def serving(server):
+    """`server` (serve.py:build_server) in a daemon thread; yields its URL, and
+    shuts the server down and closes it on the way out."""
+    import threading
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+
+
+def post_json(url: str, body: bytes) -> dict:
+    import urllib.request
+    req = urllib.request.Request(f"{url}/predict", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def percentiles(timings) -> dict:
+    """p50 and p90 of each part (ms) of a list of per-request dicts."""
+    return {k: {q: float(np.percentile([t[k] for t in timings], int(q[1:])))
+                for q in ("p50", "p90")} for k in timings[0]}
+
+
+def served_detections(model, frame_rgb: np.ndarray) -> np.ndarray:
+    """What the server computes for one RGB frame, run directly on the model's
+    device: host letterbox, the fused forward, nms_from_raw, scale_boxes.
+    Rows [x1, y1, x2, y2, conf, cls] in the frame's pixels."""
+    from yolo_dual_tpu_torch.data.augment import letterbox
+    from yolo_dual_tpu_torch.ops.boxes import scale_boxes
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    head = model.model[-1]
+    dev = next(model.parameters()).device
+    im, _, _ = letterbox(frame_rgb, 640)
+    with torch.inference_mode():
+        x = torch.from_numpy(im).to(dev).permute(2, 0, 1)[None].float() / 255.0
+        levels, _ = model(x, decode=False)
+        out, nv = nms_from_raw(levels, head.anchors, head.strides, conf_thres=SERVE_CONF,
+                               iou_thres=0.45, max_det=300, nm=head.nm)
+        d = out[0, :int(nv[0])].cpu()
+    boxes = scale_boxes((640, 640), d[:, :4], frame_rgb.shape[:2])
+    return np.concatenate([boxes.numpy(), d[:, 4:6].numpy()], 1)
+
+
+def served_class_map(model, frame_rgb: np.ndarray, scores_out: list = None) -> np.ndarray:
+    """The semantic server's class map of one RGB frame, run directly: host
+    letterbox, the fused forward, argmax, the content box cropped and resized
+    (nearest) to the frame. With `scores_out`, the top-two gap of the scores,
+    carried through the same crop and resize, is appended to it."""
+    from yolo_dual_tpu_torch.data.augment import letterbox
+    from yolo_dual_tpu_torch.data.json_dataset import resize_nearest_u8
+    dev = next(model.parameters()).device
+    h0, w0 = frame_rgb.shape[:2]
+    im, ratio, pad = letterbox(frame_rgb, 640)
+    with torch.inference_mode():
+        s = model(torch.from_numpy(im).to(dev).permute(2, 0, 1)[None].float() / 255.0)[0]
+        cmap = s.argmax(0).to(torch.uint8).cpu().numpy()
+        top2 = s.topk(2, dim=0).values.float().cpu().numpy()
+    bw, bh = int(round(w0 * ratio[0])), int(round(h0 * ratio[1]))
+    top, left = int(round(pad[1] - 0.1)), int(round(pad[0] - 0.1))
+
+    def fit(a):
+        return resize_nearest_u8(a[top:top + bh, left:left + bw], h0, w0)
+    if scores_out is not None:
+        scores_out.append(fit(top2[0] - top2[1]))
+    return fit(cmap)
+
+
+def min_box_gap(want: np.ndarray, got: np.ndarray) -> float:
+    """Largest, over the rows of `want`, of the smallest corner gap (px) to a
+    row of `got` of the same class."""
+    gaps = [np.abs(got[got[:, 5] == r[5], :4] - r[:4]).max(1, initial=0.0).min(initial=np.inf)
+            for r in want]
+    return float(max(gaps, default=0.0))
+
+
+def serve_detect(card: str, tmp: Path) -> dict:
+    """Phase 6i (a): yolov5s-seg-dcnv3 (full width and depth, the DCNv3 heads
+    drawn and BatchNorm calibrated as phase 4's, primed as phase 6b's so it
+    detects at conf 0.25) written as a .pt and served by serve.py on the card;
+    32 PNG requests through RemoteModel, each against the direct card
+    computation; K2 launches; parts and requests/s; 8 requests card against
+    a CPU server, TF32 off."""
+    from detection_matching import match_detections, pair_detections
+    from yolo_dual_tpu_torch import serve
+    from yolo_dual_tpu_torch.io.remote import RemoteModel
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.utils import png
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator().manual_seed(0)
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device="cuda", generator=gen)
+    draw_dcnv3_heads(model, gen)
+    prime_for_eval(calibrate_bn(model, make_frames(3, seed=1)))
+    weights = tmp / "yolov5s-seg-dcnv3-primed.pt"
+    torch.save(model.state_dict(), weights)
+    del model
+    frames = [f for shape, n in SERVE_SHAPES.items() for f in make_frames(n, seed=41 + n,
+                                                                          sizes=(shape,))]
+    t0 = time.perf_counter()
+    bodies = [png.encode(f[..., ::-1]) for f in frames]  # the client's PNG of each BGR frame
+    encode_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    argv = ["--weights", str(weights), "--cfg", "yolov5s-seg-dcnv3.json", "--port", "0",
+            "--conf-thres", str(SERVE_CONF)]
+    dcnv3_sampling.launches = letterbox_normalize.launches = 0
+    server = serve.build_server(serve.parse_opt(argv + ["--device", "cuda"]))
+    with serving(server) as url:
+        client = RemoteModel(url, timeout=120)
+        got, per_request = [], []
+        t0 = time.perf_counter()
+        for body in bodies:
+            t1 = time.perf_counter()
+            got.append(client(body))
+            per_request.append((time.perf_counter() - t1) * 1e3)
+        serial_s = time.perf_counter() - t0
+        launches = {"dcnv3_sampling": dcnv3_sampling.launches,
+                    "letterbox_normalize": letterbox_normalize.launches}
+        n_dcn = sum(DCN_PATH_SHAPES.values())
+        want_launches = {"dcnv3_sampling": n_dcn * (len(frames) + 1), "letterbox_normalize": 0}
+        direct = [served_detections(server.model, f) for f in frames]
+        array_reply = client(frames[0][..., ::-1])  # an array, encoded by the client
+        failures = []
+        for i, (g, d) in enumerate(zip(got, direct)):
+            if len(g) != len(d) or (len(d) and (np.abs(g[:, :4] - d[:, :4]).max() > SERVE_BOX_TOL
+                                                or (g[:, 5] != d[:, 5]).any())):
+                failures.append(f"request {i}: {len(g)} rows against the direct {len(d)}")
+        if not np.array_equal(array_reply, got[0]):
+            failures.append("an array request differs from its PNG bytes' request")
+        # the codec's two decode paths on a 720x1280 frame: Sub rows (the port's encoder)
+        # a row at a time, Paeth rows (libpng writes some) along anti-diagonals
+        decode_ms = {}
+        for kind in ("sub", "paeth"):
+            buf = png.encode(frames[-1][..., ::-1], filter_type=kind)
+            decode_ms[kind] = host_ms(lambda: png.decode(buf), iters=3)
+            if not np.array_equal(png.decode(buf), frames[-1][..., ::-1]):
+                failures.append(f"PNG {kind} rows decode to another frame")
+        # card against CPU, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        check = list(range(SERVE_CHECK // 2)) + list(range(len(frames) - SERVE_CHECK // 2,
+                                                           len(frames)))
+        cpu_server = serve.build_server(serve.parse_opt(argv + ["--device", "cpu"]))
+        with serving(cpu_server) as cpu_url:
+            cpu_client = RemoteModel(cpu_url, timeout=300)
+            pairs, matched = [], 0.0
+            for i in check:
+                c, g = cpu_client(bodies[i]), client(bodies[i])
+                n, ties, left_c, left_g = pair_detections(c, g, SERVE_CONF, box_tol=SERVE_BOX_TOL,
+                                                          conf_tol=SERVE_CONF_TOL)
+                share = match_detections(c, g)
+                matched += share * len(c)
+                pairs.append({"rows": [len(g), len(c)], "match_share": share,
+                              "paired_within_1e-2_px": n, "near_ties": ties,
+                              "left": [len(left_g), len(left_c)], "box_gap_px": min_box_gap(c, g)})
+                if abs(len(g) - len(c)) > SERVE_COUNT_SHARE * len(c):
+                    failures.append(f"request {i} card vs CPU: {len(g)} rows against {len(c)}")
+            n_cpu = max(sum(p["rows"][1] for p in pairs), 1)
+            pooled = matched / n_cpu
+            left_share = sum(p["left"][1] for p in pairs) / n_cpu
+            if left_share > SERVE_LEFT_SHARE:
+                failures.append(f"card vs CPU: {left_share} of the CPU's rows neither paired "
+                                f"nor near ties > {SERVE_LEFT_SHARE}")
+        torch.backends.cudnn.allow_tf32 = True
+    timings = server.timings[:len(frames)]
+    out = {"card": card, "requests": {f"{h}x{w}": n for (h, w), n in SERVE_SHAPES.items()},
+           "launches": launches, "rows_per_request": [len(g) for g in got],
+           "max_box_gap_px_vs_direct": max((float(np.abs(g[:, :4] - d[:, :4]).max())
+                                            for g, d in zip(got, direct) if len(d) == len(g)
+                                            and len(d)), default=0.0),
+           "server_parts_ms": percentiles(timings),
+           "decode_share_p50": float(np.median([t["decode"] / sum(
+               v for k, v in t.items() if k != "device_events_ms") for t in timings])),
+           "client_request_ms": percentiles([{"request": t} for t in per_request])["request"],
+           "client_png_encode_ms_per_frame": encode_ms,
+           "png_decode_ms_720x1280": decode_ms,
+           "requests_per_s_serial_client": len(frames) / serial_s,
+           "card_vs_cpu_tf32_off": pairs, "card_vs_cpu_match_share_pooled": pooled,
+           "card_vs_cpu_left_share": left_share}
+    print("serve detect (6i a) " + json.dumps(out), flush=True)
+    if launches != want_launches:
+        failures.append(f"launches {launches}, expected {want_launches}")
+    if not sum(len(g) for g in got):
+        failures.append("no detections at conf 0.25")
+    if failures:
+        raise AssertionError("serve detect (6i a): " + "; ".join(failures))
+    return {"launches": launches, "weights": weights, "bodies": bodies[:SERVE_BURST],
+            "argv": argv}
+
+
+def serve_semantic(card: str, tmp: Path) -> dict:
+    """Phase 6i (b): resnet50.json (nc 12, full width and depth, BatchNorm
+    calibrated as phase 6c's) served on the card; 8 PNG requests of CamVid-style
+    720x960 frames against the direct card computation (shape, class_pixels,
+    the decoded class-map PNG, all equal); 2 of them card against a CPU
+    server, TF32 off: argmax flips only at near ties of the CPU's scores."""
+    from yolo_dual_tpu_torch import serve
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    from yolo_dual_tpu_torch.utils import png
+    img_dir, _ = write_semantic_set(tmp / "camvid", SERVE_SEM_FRAMES, seed=31)
+    frames = [np.load(f) for f in sorted(img_dir.glob("*.npy"))]
+    model = SemanticSegModel("resnet50.json", device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    calibrate_bn(model, frames[:4], fill=128.0)
+    weights = tmp / "resnet50-calibrated.pt"
+    torch.save(model.state_dict(), weights)
+    del model
+    bodies = [png.encode(f[..., ::-1]) for f in frames]
+    argv = ["--weights", str(weights), "--cfg", "resnet50.json", "--port", "0"]
+    failures, flips = [], []
+    server = serve.build_server(serve.parse_opt(argv + ["--device", "cuda"]))
+    with serving(server) as url:
+        replies = [post_json(url, b) for b in bodies]
+        for i, (r, f) in enumerate(zip(replies, frames)):
+            want = served_class_map(server.model, f)
+            ids, counts = np.unique(want, return_counts=True)
+            got_map = png.decode(base64.b64decode(r["mask_png_b64"]))
+            if r["shape"] != list(f.shape[:2]) or not np.array_equal(got_map, want) or \
+                    r["class_pixels"] != {str(int(k)): int(c) for k, c in zip(ids, counts)}:
+                failures.append(f"request {i}: the reply differs from the direct card map")
+        torch.backends.cudnn.allow_tf32 = False
+        cpu_server = serve.build_server(serve.parse_opt(argv + ["--device", "cpu"]))
+        with serving(cpu_server) as cpu_url:
+            for i in range(SERVE_SEM_CHECK):
+                gaps = []
+                served_class_map(cpu_server.model, frames[i], gaps)
+                c = png.decode(base64.b64decode(post_json(cpu_url, bodies[i])["mask_png_b64"]))
+                g = png.decode(base64.b64decode(post_json(url, bodies[i])["mask_png_b64"]))
+                flip = g != c
+                largest = float(gaps[0][flip].max()) if flip.any() else 0.0
+                flips.append({"flips": int(flip.sum()), "share": float(flip.mean()),
+                              "largest_cpu_gap_of_a_flip": largest})
+                if flip.mean() > SEM_FLIP_SHARE or largest > SEM_NEAR_TIE:
+                    failures.append(f"request {i} card vs CPU: {flips[-1]}")
+        torch.backends.cudnn.allow_tf32 = True
+    out = {"card": card, "requests": SERVE_SEM_FRAMES, "shape": list(SEM_SHAPE),
+           "classes_per_reply": [len(r["class_pixels"]) for r in replies],
+           "server_parts_ms": percentiles(server.timings[:SERVE_SEM_FRAMES]),
+           "card_vs_cpu_tf32_off": flips}
+    print("serve semantic (6i b) " + json.dumps(out), flush=True)
+    if min(out["classes_per_reply"]) < 2:
+        failures.append(f"degenerate class maps: {out['classes_per_reply']}")
+    if failures:
+        raise AssertionError("serve semantic (6i b): " + "; ".join(failures))
+    return out
+
+
+def json_entry_pairs(cpu: list, card: list) -> dict:
+    """Pair two runs' predictions.json entries of one set: the same image and
+    category, scores within SERVE_CONF_TOL, bbox corners within SERVE_BOX_TOL
+    px. An entry left unpaired is a near tie when an unpaired entry of the
+    other run in its image has its category and a score within
+    SERVE_CONF_TOL, or when its score lies within SERVE_CONF_TOL of the
+    lowest kept score of its image (the max_det cut). Returns the counts, the
+    masks' smallest IoU over the pairs and the entries left."""
+    from yolo_dual_tpu_torch.utils.coco import rle_to_binary_mask
+    by_image = {}
+    for j, e in enumerate(card):
+        by_image.setdefault(e["image_id"], []).append(j)
+    used, left_cpu, ious = set(), [], []
+    for e in cpu:
+        hit = [j for j in by_image.get(e["image_id"], []) if j not in used
+               and card[j]["category_id"] == e["category_id"]
+               and abs(card[j]["score"] - e["score"]) <= SERVE_CONF_TOL
+               and np.abs(np.subtract(card[j]["bbox"], e["bbox"])).max() <= SERVE_BOX_TOL]
+        if not hit:
+            left_cpu.append(e)
+            continue
+        used.add(hit[0])
+        a, b = (rle_to_binary_mask(x["segmentation"]).astype(bool)
+                for x in (e, card[hit[0]]))
+        union = (a | b).sum()
+        ious.append(float((a & b).sum() / union) if union else 1.0)
+    left_card = [card[j] for j in range(len(card)) if j not in used]
+    lowest = {}
+    for e in cpu + card:
+        lowest[e["image_id"]] = min(lowest.get(e["image_id"], 1.0), e["score"])
+
+    def tie(e, others):
+        return abs(e["score"] - lowest[e["image_id"]]) <= SERVE_CONF_TOL or any(
+            o["image_id"] == e["image_id"] and o["category_id"] == e["category_id"]
+            and abs(o["score"] - e["score"]) <= SERVE_CONF_TOL for o in others)
+    bad = [e for e in left_cpu if not tie(e, left_card)] + \
+        [e for e in left_card if not tie(e, left_cpu)]
+    return {"entries": [len(cpu), len(card)], "paired": len(ious),
+            "near_ties": len(left_cpu) + len(left_card) - len(bad), "unexplained": len(bad),
+            "min_mask_iou": min(ious, default=1.0)}
+
+
+def predict_outputs(card: str, tmp: Path) -> dict:
+    """Phase 6i (c): the primed yolov5s-seg of phase 6b (as a .pt) through
+    segment.predict on PREDICT_OUT_FRAMES `.npy` 480x640 frames with
+    --save-txt --save-crop --visualize --retina-masks --data (names): a crop a
+    kept detection, a feature map a layer with a 4-D output, the txt rows, K1
+    a frame (crops and maps are `.npy` where cv2 and matplotlib are missing;
+    `host_packages` says which); then segment.val --save-json on phase 6b's 64-frame set: an entry
+    a kept detection (against the validator's own NMS run directly), every
+    RLE a mask of its frame's size, 8 frames card against CPU (TF32 off,
+    max_det JSON_CHECK_MAX_DET), COCOeval None without pycocotools;
+    masks2segments and the JSON writer timed."""
+    import shutil
+
+    from yolo_dual_tpu_torch.engine.validator import PRE_NMS_TOPK
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.ops.mask_ops import masks2segments
+    from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+    from yolo_dual_tpu_torch.segment import predict, val
+    from yolo_dual_tpu_torch.utils.coco import evaluate_coco_json, rle_to_binary_mask
+    import importlib.util
+    torch.backends.cudnn.allow_tf32 = True
+    frames = make_frames(EVAL_FRAMES, seed=5, sizes=(EVAL_SHAPE,))
+    model = SegmentationModel("yolov5s-seg.json", device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    prime_for_eval(calibrate_bn(model, frames[:3]))
+    weights = tmp / "yolov5s-seg-primed.pt"
+    torch.save(model.state_dict(), weights)
+    # which outputs take the package's format (.jpg / .png) and which the .npy fallback
+    failures, out = [], {"card": card, "host_packages": {
+        m: importlib.util.find_spec(m) is not None for m in ("cv2", "matplotlib", "mss",
+                                                              "pycocotools")}}
+
+    # segment.predict with every output
+    src = tmp / "predict_src"
+    src.mkdir()
+    for i, f in enumerate(frames[:PREDICT_OUT_FRAMES]):
+        np.save(src / f"{i:03d}.npy", f)
+    data = tmp / "names.json"
+    data.write_text(json.dumps({"nc": 80, "names": [f"class{i}" for i in range(80)]}))
+    letterbox_normalize.launches = 0
+    t0 = time.perf_counter()
+    dets = predict.run(weights=str(weights), source=str(src), data=str(data), save_txt=True,
+                       save_crop=True, visualize=True, retina_masks=True, nosave=True,
+                       project=str(tmp), name="predict", device="cuda")
+    predict_s = time.perf_counter() - t0
+    k1_predict = letterbox_normalize.launches
+    run = tmp / "predict"
+    crops = sorted((run / "crops").rglob("*"))
+    crops = [c for c in crops if c.is_file()]
+    fused = SegmentationModel("yolov5s-seg.json", device="cuda")
+    fused.load_state_dict(torch.load(weights, map_location="cuda", weights_only=True))
+    fused.eval().fuse()
+    four_d = []
+    hooks = [m.register_forward_hook(lambda mod, i, o, k=k: four_d.append(k) if isinstance(
+        o, torch.Tensor) and o.ndim == 4 else None) for k, m in enumerate(fused.model)]
+    with torch.inference_mode():
+        fused(letterbox_normalize(torch.from_numpy(frames[0])[None].cuda(), 640))
+    for hk in hooks:
+        hk.remove()
+    features = sorted((run / "features").glob("*"))
+    txt_rows = {p.stem: len(p.read_text().splitlines()) for p in (run / "labels").glob("*.txt")}
+    want_rows = {f"{i:03d}": len(d) for i, d in enumerate(dets) if len(d)}
+    out["predict"] = {"frames": PREDICT_OUT_FRAMES, "k1_launches": k1_predict,
+                      "rows": [len(d) for d in dets], "crops": len(crops),
+                      "crop_suffixes": sorted({c.suffix for c in crops}),
+                      "feature_files": len(features), "layers_with_4d_output": len(four_d),
+                      "feature_suffixes": sorted({f.suffix for f in features}),
+                      "run_s": predict_s}
+    if k1_predict != PREDICT_OUT_FRAMES or len(crops) != sum(len(d) for d in dets) \
+            or not len(crops) or len(features) != len(four_d) or txt_rows != want_rows:
+        failures.append(f"predict outputs: {out['predict']}, txt rows {txt_rows} against "
+                        f"{want_rows}")
+
+    # segment.val --save-json on phase 6b's set (labelled again, as 6b labels it)
+    root = write_val_set(tmp / "val", model, frames)
+    kw = dict(data=str(root), weights=str(weights), cfg="yolov5s-seg.json", batch_size=EVAL_BS,
+              imgsz=640, conf_thres=0.001, iou_thres=0.6, device_preprocess=True,
+              project=str(tmp), exist_ok=True)
+    letterbox_normalize.launches = 0
+    t0 = time.perf_counter()
+    mean, _, times = val.run(save_json=True, name="json", device="cuda", **kw)
+    json_run_s = time.perf_counter() - t0
+    k1_val = letterbox_normalize.launches
+    _, _, times_plain = val.run(name="plain", device="cuda", **kw)
+    entries = json.loads((tmp / "json" / "predictions.json").read_text())
+    kept = {}
+    with torch.inference_mode():
+        for i in range(0, EVAL_FRAMES, EVAL_BS):
+            x = letterbox_normalize(torch.from_numpy(np.stack(frames[i:i + EVAL_BS])).cuda(),
+                                    640, scaleup=False)
+            levels, _ = fused(x, decode=False)
+            head = fused.model[-1]
+            _, nv = nms_from_raw(levels, head.anchors, head.strides, conf_thres=0.001,
+                                 iou_thres=0.6, multi_label=True, max_det=300, nm=head.nm,
+                                 pre_nms_topk=PRE_NMS_TOPK)
+            kept.update({i + j: n for j, n in enumerate(nv.tolist()) if n})
+    per_image = {}
+    for e in entries:
+        per_image[int(e["image_id"])] = per_image.get(int(e["image_id"]), 0) + 1
+    masks = [rle_to_binary_mask(e["segmentation"]) for e in entries[:M2S_MASKS]]
+    sizes_ok = all(e["segmentation"]["size"] == list(EVAL_SHAPE) for e in entries) and all(
+        m.shape == EVAL_SHAPE for m in masks)
+    t0 = time.perf_counter()
+    segments = masks2segments(np.stack(masks))
+    m2s_ms = (time.perf_counter() - t0) / len(masks) * 1e3
+    coco_eval = evaluate_coco_json(tmp / "json" / "predictions.json", root / "instances.json")
+    out["save_json"] = {
+        "frames": EVAL_FRAMES, "entries": len(entries), "k1_launches": k1_val,
+        "metrics": [float(v) for v in mean], "run_s": json_run_s,
+        "post_ms_per_image": {"save_json": times[2], "plain": times_plain[2]},
+        "json_writer_ms_per_batch": (times[2] - times_plain[2]) * EVAL_BS,
+        "masks2segments_ms_per_mask": m2s_ms, "masks_timed": len(masks),
+        "points_per_segment_mean": float(np.mean([len(s) for s in segments])),
+        "coco_eval": coco_eval}
+    if per_image != kept or not sizes_ok or coco_eval is not None or \
+            k1_val != -(-EVAL_FRAMES // EVAL_BS):
+        failures.append(f"--save-json: entries a frame {per_image} against the kept rows "
+                        f"{kept}, sizes ok {sizes_ok}, COCOeval {coco_eval}, K1 {k1_val}")
+
+    # 8 frames card against CPU, TF32 off
+    sub = tmp / "val8"
+    for d in ("images", "labels"):
+        (sub / d).mkdir(parents=True)
+        for f in sorted((root / d).iterdir())[:EVAL_CHECK_FRAMES]:
+            shutil.copy(f, sub / d / f.name)
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        val.run(**{**kw, "data": str(sub), "batch_size": EVAL_CHECK_FRAMES,
+                   "max_det": JSON_CHECK_MAX_DET, "save_json": True, "name": f"json8_{dev}",
+                   "device": dev})
+        runs[dev] = json.loads((tmp / f"json8_{dev}" / "predictions.json").read_text())
+    torch.backends.cudnn.allow_tf32 = True
+    out["card_vs_cpu_8_frames_tf32_off"] = check = json_entry_pairs(runs["cpu"], runs["cuda"])
+    print("predict outputs and --save-json (6i c) " + json.dumps(out), flush=True)
+    if check["unexplained"] or check["min_mask_iou"] < JSON_MASK_IOU or not check["paired"]:
+        failures.append(f"--save-json card vs CPU: {check}")
+    del model, fused
+    if failures:
+        raise AssertionError("predict outputs (6i c): " + "; ".join(failures))
+    return {"predict": k1_predict, "val": k1_val}
+
+
+def serve_path(card: str):
+    """Phase 6i: (a) serve_detect, (b) serve_semantic, (c) predict_outputs,
+    under build/phase6i. Returns the launches of (a) and (c) and a function
+    that profiles a burst of SERVE_BURST requests to a fresh detection server
+    (after phase 9, as the other profiles) and then removes the phase's files."""
+    import shutil
+    from yolo_dual_tpu_torch import serve
+    from yolo_dual_tpu_torch.io.remote import RemoteModel
+    t_phase = time.perf_counter()
+    tmp = Path(__file__).resolve().parent / "build" / "phase6i"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    try:
+        det = serve_detect(card, tmp)
+        serve_semantic(card, tmp)
+        k1 = predict_outputs(card, tmp)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    torch.cuda.empty_cache()
+    print(f"phase 6i s {time.perf_counter() - t_phase:.2f}", flush=True)
+
+    def profile():
+        """The card's busy share of a burst of SERVE_BURST requests from one
+        serial client (torch.profiler device time over the burst's wall)."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        try:
+            server = serve.build_server(serve.parse_opt(det["argv"] + ["--device", "cuda"]))
+            with serving(server) as url:
+                client = RemoteModel(url, timeout=120)
+                client(det["bodies"][0])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    for body in det["bodies"]:
+                        client(body)
+                    torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+        return {"card": card, "requests": len(det["bodies"]), "burst_wall_ms": wall_ms,
+                "device_ms": device_ms if device_ms else "not measured",
+                "busy_share": device_ms / wall_ms if device_ms else "not measured",
+                "top_ms": [[e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count]
+                           for e in top]}
+    return det["launches"], k1, profile
+
+
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
     """One seeded synthetic batch as the JAX package's loader yields it: uint8
     NHWC images, targets (bs, M, 5) normalised [cls, x, y, w, h] with 1..M
@@ -3876,6 +4417,11 @@ def main(argv=None) -> int:
     by_path["tta soft-nms val"] = {"letterbox_normalize": tta_k1["val"]}
     by_path["tta predict"] = {"letterbox_normalize": tta_k1["predict"]}
     print(f"phase 6h s {time.perf_counter() - t6h:.2f}", flush=True)
+    # 6i. the HTTP model server and its client on yolov5s-seg-dcnv3 (K2 6 a request) and
+    # resnet50, segment.predict's outputs (K1 a frame) and segment.val --save-json (K1 a batch)
+    by_path["serve yolov5s-seg-dcnv3"], serve_k1, serve_profile = serve_path(card)
+    by_path["predict outputs"] = {"letterbox_normalize": serve_k1["predict"]}
+    by_path["val --save-json"] = {"letterbox_normalize": serve_k1["val"]}
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
     # 10. the train CLI on a dataset on disk
@@ -3907,6 +4453,8 @@ def main(argv=None) -> int:
     del semantic_train_profile
     print("auxota train profile " + json.dumps(auxota_profile()), flush=True)
     del auxota_profile
+    print("serve burst profile " + json.dumps(serve_profile()), flush=True)
+    del serve_profile
 
     # 11. kernels line: times are means over the launches of the main paths, each
     # launch weighted by the shape it ran at
@@ -3918,23 +4466,25 @@ def main(argv=None) -> int:
     lcalls = {n: len(MODELS) * [list(MAIN_SHAPES)[i % len(MAIN_SHAPES)]
                                 for i in range(N_FRAMES)].count(n) for n in MAIN_SHAPES}
     lcalls["val_480p_bs32_no_scaleup"] = by_path["eval yolov5s-seg"]["letterbox_normalize"] \
-        + tta_k1["val"]
-    lcalls["480p"] += tta_k1["predict"]
+        + tta_k1["val"] + serve_k1["val"]
+    lcalls["480p"] += tta_k1["predict"] + serve_k1["predict"]
     lcalls["semantic_720x960_bs16_fill128"] = \
         by_path["eval semantic resnet50"]["letterbox_normalize"] \
         + semantic_train_k1["semantic_720x960_bs16_fill128"] \
         + yolo_k1["semantic_720x960_bs16_fill128"]
     lcalls["semantic_train_96_bs4_fill128"] = semantic_train_k1["semantic_train_96_bs4_fill128"] \
         + yolo_k1["semantic_train_96_bs4_fill128"]
-    # K2: 16 frames at batch 1 (prediction), 8 micro-steps at bs 16 (training), and the
-    # CLIs' forwards at bs 16 (their micro-steps and val batches, both routes) and 10b's
-    # remat micro-steps (two forwards each); K3: the micro-steps
+    # K2: 16 frames at batch 1 (prediction) and the server's requests and warm-up (6i),
+    # 8 micro-steps at bs 16 (training), and the CLIs' forwards at bs 16 (their micro-steps
+    # and val batches, both routes) and 10b's remat micro-steps (two forwards each); K3: the
+    # micro-steps
     n_dcn = sum(DCN_PATH_SHAPES.values())
+    serve_fwd = by_path["serve yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn
     bs16 = ("train CLI yolov5s-seg-dcnv3", "train CLI host route", "remat micro-steps")
     cli_fwd = sum(by_path[k]["dcnv3_sampling"] for k in bs16) // n_dcn
     cli_bwd = sum(by_path[k]["dcnv3_sampling_backward"] for k in bs16) // n_dcn
     dcalls = {f"{b}x{h}x{w}x{c}": n * reps for (h, w, c), n in DCN_PATH_SHAPES.items()
-              for b, reps in ((1, N_FRAMES), (TRAIN_BS, TRAIN_MICRO_STEPS + cli_fwd))}
+              for b, reps in ((1, N_FRAMES + serve_fwd), (TRAIN_BS, TRAIN_MICRO_STEPS + cli_fwd))}
     bcalls = {f"{TRAIN_BS}x{h}x{w}x{c}": n * (TRAIN_MICRO_STEPS + cli_bwd)
               for (h, w, c), n in DCN_PATH_SHAPES.items()}
     rows = (("letterbox_normalize", "letterbox.cu", "preprocess.py:91", lres, lcalls),

@@ -166,8 +166,9 @@ def test_val_and_predict_match_jax(imageset, proof, tmp_path):
     for (_, go, gprob), (_, ao, aprob) in zip(got, again):
         np.testing.assert_array_equal(go, ao)
         np.testing.assert_array_equal(gprob, aprob)
-    with pytest.raises(NotImplementedError, match="6e"):
-        predict_cli.run(model=str(root / "mini.json"), source="clip.mp4", cutoff=2, device="cpu")
+    with pytest.raises(FileNotFoundError, match="clip.mp4"):   # video sources are read now
+        predict_cli.run(model=str(root / "mini.json"), source=str(tmp_path / "clip.mp4"),
+                        cutoff=2, device="cpu", nosave=True)
     with pytest.raises(NotImplementedError, match="item 7"):
         val_cli.run(model=str(root / "mini.json"), data_dir=str(root / "port"), cutoff=2,
                     device="cpu", plots=True)

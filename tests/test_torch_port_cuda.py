@@ -700,3 +700,104 @@ def test_classify_forward_on_the_card_equals_cpu(cuda, name):
     torch.backends.cudnn.allow_tf32 = True
     assert got.shape == (4, 1000)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+class _FileLoader(list):
+    """Batches with `index` and `shape0`, and the file names --save-json reads."""
+    dataset = type("DS", (), {"imgsz": 64, "im_files": [f"{100 + i}.jpg" for i in range(12)]})()
+
+
+def test_evaluate_segment_save_json_on_the_card_equals_cpu(cuda, tmp_path):
+    """evaluate_segment(save_json=True) on the card and on the CPU (TF32
+    off): the same entries, bbox within 1e-3 px (plus JSON's rounding), and
+    the masks, resized on each device in cv2's float32 arithmetic, equal but
+    for flips at proto values within float32 rounding of 0.5 (at most 1e-3 of
+    the pixels)."""
+    import copy
+    import json
+
+    from yolo_dual_tpu_torch.engine.validator import evaluate_segment
+    from yolo_dual_tpu_torch.utils.coco import rle_to_binary_mask
+    model = small_eval_model()
+    batches = self_labelled_raw_batches(model)
+    for k, b in enumerate(batches):
+        b["index"] = np.arange(4 * k, 4 * k + 4)
+        b["shape0"] = np.array([(96, 128), (48, 64), (72, 96), (50, 66)], np.int32)
+    loader = _FileLoader(batches)
+    kw = dict(nm=4, max_det=40, save_json=True)
+    evaluate_segment(copy.deepcopy(model), loader, 3, device="cpu", save_dir=str(tmp_path / "cpu"),
+                     **kw)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        evaluate_segment(model, loader, 3, device="cuda", save_dir=str(tmp_path / "cuda"), **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want, got = (json.loads((tmp_path / d / "predictions.json").read_text())
+                 for d in ("cpu", "cuda"))
+    assert len(got) == len(want) > 20
+    flips = pixels = 0
+    for w, g in zip(sorted(want, key=lambda e: (e["image_id"], -e["score"])),
+                    sorted(got, key=lambda e: (e["image_id"], -e["score"]))):
+        assert (g["image_id"], g["category_id"]) == (w["image_id"], w["category_id"])
+        assert abs(g["score"] - w["score"]) <= 2e-5
+        np.testing.assert_allclose(g["bbox"], w["bbox"], rtol=0, atol=2e-3)
+        assert g["segmentation"]["size"] == w["segmentation"]["size"]
+        gm, wm = (rle_to_binary_mask(e["segmentation"]) for e in (g, w))
+        flips, pixels = flips + int((gm != wm).sum()), pixels + gm.size
+    assert flips <= 1e-3 * pixels
+
+
+def test_server_launches_k2_per_request_and_equals_cpu(cuda, tmp_path):
+    """yolov5s-seg-dcnv3 (seeded weights, primed) served at 128 px on the card: 6 K2
+    launches a request plus the warm-up's, no K1; each reply holds the CPU
+    server's rows (TF32 off), boxes within 1e-2 px, confidences within 1e-4,
+    near ties counted by detection_matching.pair_detections."""
+    import threading
+
+    from detection_matching import pair_detections
+    from yolo_dual_tpu_torch import serve
+    from yolo_dual_tpu_torch.io.remote import RemoteModel
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.utils import png
+    gen = torch.Generator().manual_seed(5)
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device="cpu", generator=gen)
+    with torch.no_grad():   # seeded BatchNorm statistics; objectness and class biases raised
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+        head = model.model[-1]
+        for conv in head.m:
+            b = conv.bias.view(head.na, -1)
+            b[:, 4] += 6.0
+            b[:, 5:5 + head.nc] += 5.0
+    torch.save(model.state_dict(), tmp_path / "w.pt")
+    argv = ["--weights", str(tmp_path / "w.pt"), "--cfg", "yolov5s-seg-dcnv3.json",
+            "--imgsz", "128", "--conf-thres", "0.25", "--port", "0"]
+    rng = np.random.default_rng(1)
+    bodies = [png.encode(rng.integers(0, 256, shape, dtype=np.uint8))
+              for shape in ((96, 128, 3), (128, 80, 3), (60, 100, 3))]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    dcnv3_sampling.launches = letterbox_normalize.launches = 0
+    servers = [serve.build_server(serve.parse_opt(argv + ["--device", d])) for d in ("cuda", "cpu")]
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+    try:
+        card, cpu = (RemoteModel(f"http://127.0.0.1:{s.server_address[1]}", timeout=120)
+                     for s in servers)
+        for body in bodies:
+            g, c = card(body), cpu(body)
+            _, _, left_c, left_g = pair_detections(c, g, 0.25, box_tol=1e-2, conf_tol=1e-4)
+            assert len(g) and not len(left_c) and not len(left_g)
+        assert dcnv3_sampling.launches == 6 * (len(bodies) + 1)
+        assert letterbox_normalize.launches == 0
+        assert all("device_events_ms" in t for t in servers[0].timings)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        for s, t in zip(servers, threads):
+            s.shutdown()
+            s.server_close()
+            t.join(60)

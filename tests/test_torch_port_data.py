@@ -249,8 +249,30 @@ def test_val_cli_matches_jax(tmp_path):
         np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
                                    rtol=0, atol=1e-4, err_msg=flag)
         np.testing.assert_allclose(got_maps, want_maps, rtol=0, atol=1e-4, err_msg=flag)
-    for flag in ("save_json", "plots", "data_parallel"):
+    for flag in ("plots", "data_parallel"):
         with pytest.raises(NotImplementedError, match="ROADMAP A item"):
             val_cli.run(data=str(root / "port"), **{**kw, flag: True})
+    # --save-json: JAX's entries; a val path naming coco takes COCO's 91-id categories
+    jl, _ = loaders(root, bs=2)
+    jax_evaluate_segment(jm, v, jl, TINY_NC, conf_thres=0.001, iou_thres=0.6, nm=TINY_NM,
+                         max_det=20, save_json=True, save_dir=str(tmp_path / "jax_json"))
+    (tmp_path / "coco").symlink_to(root / "port", target_is_directory=True)
+    coco_json = tmp_path / "coco.json"
+    coco_json.write_text(json.dumps({"path": str(tmp_path / "coco"), "val": "images",
+                                     "nc": TINY_NC}))
+    entries = {}
+    for name, data in (("plain", root / "port"), ("coco", coco_json)):
+        val_cli.run(data=str(data), save_json=True, max_det=20, project=str(tmp_path / "json"),
+                    name=name, **kw)
+        entries[name] = json.loads((tmp_path / "json" / name / "predictions.json").read_text())
+    want = json.loads((tmp_path / "jax_json" / "predictions.json").read_text())
+    assert len(entries["plain"]) == len(entries["coco"]) == len(want) > 5
+    key = lambda e: (str(e["image_id"]), -e["score"], e["bbox"])  # noqa: E731
+    for g, c, w in zip(*(sorted(x, key=key) for x in (entries["plain"], entries["coco"], want))):
+        assert g["image_id"] == w["image_id"] and g["category_id"] == w["category_id"]
+        assert abs(g["score"] - w["score"]) <= 2e-5
+        np.testing.assert_allclose(g["bbox"], w["bbox"], rtol=0, atol=2e-3)
+        assert g["segmentation"] == w["segmentation"]
+        assert c["category_id"] == [1, 2, 3][g["category_id"]]
     opt = val_cli.parse_opt(["--data", "d", "--device-preprocess", "--batch-size", "8"])
     assert opt.device_preprocess and opt.batch_size == 8 and opt.conf_thres == 0.001

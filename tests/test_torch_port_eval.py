@@ -238,7 +238,67 @@ def test_evaluate_segment_matches_jax(tiny, raw, overlap):
     assert len(times) == 3 and all(t > 0 for t in times)
 
 
-@pytest.mark.parametrize("option", ["plots", "save_json", "mesh"])
+@pytest.mark.parametrize("option", ["plots", "mesh"])
 def test_evaluate_segment_refuses_what_is_not_ported(tiny, option):
     with pytest.raises(NotImplementedError, match="ROADMAP A item"):
         evaluate_segment(port_model(tiny[1]), [], TINY_NC, device="cpu", **{option: True})
+
+
+# Flipped mask pixels allowed between the port's predictions.json and JAX's, as a
+# share of the masks' pixels: a proto-resolution value within float32 rounding of
+# 0.5 flips a whole upsampled cell, a final value within cv2's Intel IPP gap
+# (tests/test_torch_port_predict_io.py) one pixel.
+JSON_FLIP_SHARE = 1e-3
+
+
+def test_evaluate_segment_save_json_matches_jax(tiny, tmp_path):
+    """evaluate_segment(save_json=True) on letterboxed frames whose original
+    shapes (`shape0`) make the masks really resized: JAX's entries, bbox
+    within 1e-3 px (plus JSON's 3-decimal rounding), scores within 1e-5,
+    the RLE masks equal but for counted flips, at most JSON_FLIP_SHARE of
+    their pixels; category ids through a class map."""
+    import json
+
+    from yolo_dual_tpu.utils.coco import coco80_to_coco91_class
+    from yolo_dual_tpu_torch.utils.coco import rle_to_binary_mask
+    jm, v = tiny
+    batches = self_labelled_batches(v, overlap=True, raw=False)
+    shapes0 = [(96, 128), (48, 64), (72, 96), (50, 66)]
+    k = 0
+    for b in batches:
+        n = len(b["image"])
+        b["index"] = np.arange(k, k + n)
+        b["shape0"] = np.array([shapes0[i % 4] for i in range(k, k + n)], np.int32)
+        k += n
+    loader = BatchLoader(batches)
+    loader.dataset.im_files = [f"{100 + i}.jpg" for i in range(k)]
+    kw = dict(conf_thres=0.001, iou_thres=0.6, nm=TINY_NM, max_det=40, save_json=True,
+              class_map=coco80_to_coco91_class())
+    jax_evaluate_segment(jm, v, loader, TINY_NC, save_dir=str(tmp_path / "jax"), **kw)
+    evaluate_segment(port_model(v), loader, TINY_NC, device="cpu", save_dir=str(tmp_path / "port"),
+                     **kw)
+    want = json.loads((tmp_path / "jax" / "predictions.json").read_text())
+    got = json.loads((tmp_path / "port" / "predictions.json").read_text())
+    assert len(got) == len(want) > 20
+    assert {e["category_id"] for e in got} <= {1, 2, 3}
+    flips = pixels = same = 0
+    by_image = {}
+    for g in got:
+        by_image.setdefault(g["image_id"], []).append(g)
+    for w in want:
+        pool = by_image[w["image_id"]]
+        hit = [j for j, g in enumerate(pool) if g["category_id"] == w["category_id"]
+               and abs(g["score"] - w["score"]) <= 2e-5
+               and np.abs(np.subtract(g["bbox"], w["bbox"])).max() <= 2e-3]
+        assert hit, w
+        g = pool.pop(hit[0])
+        assert g["segmentation"]["size"] == w["segmentation"]["size"] \
+            == list(shapes0[(w["image_id"] - 100) % 4])
+        gm, wm = rle_to_binary_mask(g["segmentation"]), rle_to_binary_mask(w["segmentation"])
+        flips += int((gm != wm).sum())
+        pixels += gm.size
+        same += g["segmentation"]["counts"] == w["segmentation"]["counts"]
+    print(f"save_json: {len(want)} entries, {same} RLE strings equal, {flips} of {pixels} "
+          "mask pixels flipped")
+    assert flips <= JSON_FLIP_SHARE * pixels, (flips, pixels)
+    assert same >= 0.9 * len(want)

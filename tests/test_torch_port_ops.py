@@ -130,8 +130,10 @@ def test_box_iou_and_xywh2xyxy_match_jax():
 
 
 def test_scale_image_close_to_cv2():
-    """The port un-letterboxes masks with a float bilinear F.interpolate; the
-    JAX package uses cv2.resize. They agree to 1e-4 on smooth masks."""
+    """The port un-letterboxes masks in OpenCV's own float32 INTER_LINEAR
+    arithmetic; the JAX package calls cv2.resize, which takes Intel IPP's
+    (tests/test_torch_port_predict_io.py holds the two within 3e-6). They
+    agree to 1e-4 on smooth masks."""
     pytest.importorskip("cv2")
     rng = np.random.default_rng(5)
     base = rng.uniform(0, 1, (3, 8, 8)).astype(np.float32)

@@ -27,9 +27,12 @@ from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize, semantic
 from yolo_dual_tpu_torch.metrics import (Metrics, SegmentationConfusionMatrix,
                                          ap_per_class_box_and_mask, match_predictions_device)
 from yolo_dual_tpu_torch.ops.boxes import box_iou, clip_boxes, scale_boxes, xywh2xyxy
-from yolo_dual_tpu_torch.ops.mask_ops import mask_iou, process_mask
+from yolo_dual_tpu_torch.ops.mask_ops import (mask_iou, process_mask, resize_linear_f32,
+                                              scale_image)
 from yolo_dual_tpu_torch.models.model import forward_augment
 from yolo_dual_tpu_torch.ops.nms import nms_batched, nms_from_raw
+from yolo_dual_tpu_torch.utils.coco import (evaluate_coco_json, save_one_json,
+                                            write_predictions_json)
 from yolo_dual_tpu_torch.utils.general import LOGGER, Profile, select_device
 
 PRE_NMS_TOPK = 4096  # candidates (box, class) ranked before NMS, as the JAX validator
@@ -83,9 +86,9 @@ def _txt_rows(boxes: torch.Tensor, cls, conf, shape_hw, shape0, save_conf: bool)
 def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thres: float = 0.6,
                      max_det: int = 300, nm: int = 32, names=None, plots: bool = False,
                      save_dir: str = ".", use_soft_nms: bool = False, augment: bool = False,
-                     save_json: bool = False, fuse: bool = True, save_txt: bool = False,
-                     save_conf: bool = False, save_hybrid: bool = False, mesh=None,
-                     device="cuda", amp_dtype=None, verbose: bool = False):
+                     save_json: bool = False, anno_json=None, class_map=None, fuse: bool = True,
+                     save_txt: bool = False, save_conf: bool = False, save_hybrid: bool = False,
+                     mesh=None, device="cuda", amp_dtype=None, verbose: bool = False):
     """Returns ((mp, mr, map50, map) of boxes + the same of masks, per-class
     maps (boxes' plus masks'), times_ms (pre, inference+NMS, post per image)).
 
@@ -106,13 +109,20 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     (h, w) (rect buckets, data/dataset.py): the head's grids, the NMS and the
     masks follow each batch's shape. verbose: a row of the 8 metrics for each
     class with labels (reference segment/val.py; JAX's evaluate_segment
-    takes the flag and prints none).
+    takes the flag and prints none). save_json: each kept detection of a
+    frame with `index` and `shape0` (and `loader.dataset.im_files`) in COCO's
+    results format, its category through `class_map`, its mask as compressed
+    RLE at the frame's own size, into `save_dir`/predictions.json (JAX
+    engine/validator.py:213-240): the proto masks binarised, resized to the
+    input with cv2's float32 INTER_LINEAR and un-letterboxed the same way
+    (ops/mask_ops.py:resize_linear_f32, scale_image, on the device),
+    then > 0.5; with `anno_json`, COCOeval where pycocotools is installed.
     """
-    for name, on, item in (("plots", plots, "utils/plots, ROADMAP A item 7"),
-                           ("save_json", save_json, "COCO JSON + COCOeval, ROADMAP A item 6"),
-                           ("mesh", mesh is not None, "data-parallel eval, ROADMAP A item 7")):
+    for name, on, what in (("plots", plots, "utils/plots"),
+                           ("mesh", mesh is not None, "data-parallel eval")):
         if on:
-            raise NotImplementedError(f"evaluate_segment({name}=...) is not ported yet ({item})")
+            raise NotImplementedError(f"evaluate_segment({name}=...) is not ported yet "
+                                      f"({what}, ROADMAP A item 7)")
     dev = select_device(device)
     model = model.to(dev).eval()
     if fuse:
@@ -122,6 +132,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     im_files = getattr(getattr(loader, "dataset", None), "im_files", None)
 
     stats = []
+    jdict = []
     dt = [Profile(device=dev), Profile(device=dev), Profile(device=dev)]
     seen = 0
     for batch in loader:
@@ -180,6 +191,24 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
                     lbl_dir.mkdir(parents=True, exist_ok=True)
                     (lbl_dir / f"{path.stem}.txt").write_text(
                         "\n".join(lines) + ("\n" if lines else ""))
+                if save_json and n and im_files is not None and "index" in batch:
+                    shape0 = tuple(int(v) for v in batch["shape0"][si])
+                    d = out[si, :n]
+                    with torch.inference_mode():
+                        pm = process_mask(protos[si], d[:, 6:6 + nm], d[:, :4], (h, w)).float()
+                        pm = scale_image((h, w), resize_linear_f32(pm, h, w), shape0) > 0.5
+                    save_one_json(jdict, im_files[int(batch["index"][si])],
+                                  scale_boxes((h, w), dets[:, :4], shape0).numpy(),
+                                  dets[:, 4].numpy(), dets[:, 5].numpy(), pred_masks=pm,
+                                  class_map=class_map)
+
+    if save_json and jdict:
+        pred_json = write_predictions_json(jdict, save_dir)
+        if anno_json is not None:
+            coco = evaluate_coco_json(pred_json, anno_json)
+            if coco is not None:
+                LOGGER.info(f"COCOeval: box mAP {coco[0]:.4f}/mAP50 {coco[1]:.4f}, "
+                            f"mask mAP {coco[2]:.4f}/mAP50 {coco[3]:.4f}")
 
     if not stats:
         return (0.0,) * 8, np.zeros(nc), (0.0, 0.0, 0.0)

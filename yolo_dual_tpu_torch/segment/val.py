@@ -18,7 +18,10 @@ drawn from a generator seeded with 0. With --device-preprocess the raw
 frames (all of one shape) are letterboxed on the card by the letterbox
 kernel; without it, on the host (data/dataset.py), as the train CLI's
 per-epoch validation does, and with --rect each frame to its aspect
-bucket's shape, batch by batch. --half runs the forward in bfloat16
+bucket's shape, batch by batch. --save-json writes each kept detection,
+its mask as COCO RLE, to predictions.json in the run directory (COCO's
+91-id categories when the val path names coco; COCOeval where pycocotools
+is installed and `path`/annotations/instances_val2017.json exists). --half runs the forward in bfloat16
 (torch.autocast), as JAX's flag maps to its bf16 policy. --cache ram keeps
 the frames in memory (disk: the `.npy` frames are the cache); --dnn,
 --workers and --no-download are accepted, as in JAX.
@@ -36,6 +39,7 @@ from yolo_dual_tpu_torch.data.dataset import create_dataloader
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
 from yolo_dual_tpu_torch.io.weights import load_state_dict_file
 from yolo_dual_tpu_torch.models.model import SegmentationModel
+from yolo_dual_tpu_torch.utils.coco import coco80_to_coco91_class
 from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size,
                                                increment_path, select_device)
 
@@ -60,7 +64,13 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
     if weights:
         model.load_state_dict(load_state_dict_file(weights), strict=True)
     save_dir = str(increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)) \
-        if save_txt else "."
+        if save_txt or save_json else "."
+    # COCO's 91-id category map and annotation file for COCOeval (JAX segment/val.py:86-101)
+    class_map = anno_json = None
+    if save_json and "coco" in str(d.get("val", "")):
+        class_map = coco80_to_coco91_class()
+        cand = Path(str(d.get("path", ""))) / "annotations" / "instances_val2017.json"
+        anno_json = cand if cand.exists() else None
     loader, _ = create_dataloader(d[task if d.get(task) else "val"], imgsz, batch_size,
                                   device_preprocess=device_preprocess, augment=False,
                                   mask_downsample_ratio=mask_ratio, overlap_mask=True,
@@ -69,7 +79,8 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
     mean, maps, t = evaluate_segment(
         model, loader, model.nc, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
         nm=model.model[-1].nm, names=d.get("names"), plots=plots, save_dir=save_dir,
-        use_soft_nms=soft_nms, augment=augment, save_json=save_json, fuse=fuse,
+        use_soft_nms=soft_nms, augment=augment, save_json=save_json, anno_json=anno_json,
+        class_map=class_map, fuse=fuse,
         save_txt=save_txt, save_conf=save_conf, save_hybrid=save_hybrid,
         mesh=True if data_parallel else None, device=dev,
         amp_dtype=torch.bfloat16 if half else None, verbose=verbose)
@@ -118,8 +129,9 @@ def parse_opt(argv=None):
     p.add_argument("--workers", type=int, default=0,
                    help="accepted for parity (one prefetch thread reads the samples)")
     p.add_argument("--no-download", action="store_true", help="accepted: nothing is downloaded")
+    p.add_argument("--save-json", action="store_true",
+                   help="save COCO-RLE predictions.json (+COCOeval if pycocotools is installed)")
     # JAX CLI flags not ported yet: each raises, naming its ROADMAP item
-    p.add_argument("--save-json", action="store_true", help="COCO JSON (not ported yet)")
     p.add_argument("--plots", action="store_true", help="curves (not ported yet)")
     p.add_argument("--data-parallel", action="store_true", help="not ported yet")
     return p.parse_args(argv)

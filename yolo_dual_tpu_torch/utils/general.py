@@ -119,7 +119,7 @@ def init_seeds(seed: int = 0):
     return seed
 
 
-def check_dataset(data) -> dict:
+def check_dataset(data, require_splits: bool = True) -> dict:
     """Resolve a dataset: a directory, or a JSON (YAML with PyYAML) data file
     with the data yaml's keys `path`, `train`, `val`, `nc`, `names` (JAX
     utils/general.py:143, local only: a `download` hook is never run).
@@ -128,7 +128,8 @@ def check_dataset(data) -> dict:
     split into `images/train` and `images/val` when both exist, else one set
     for both splits; its classes are the model config's (nc None). Returns
     {"train", "val", "nc", "names"} with the paths resolved; raises when the
-    val path is missing."""
+    val path is missing, unless `require_splits` is False (a predictor takes
+    only names and nc)."""
     p = Path(data)
     if p.is_dir():
         im = p / "images" if (p / "images").is_dir() else p
@@ -150,7 +151,7 @@ def check_dataset(data) -> dict:
         d.setdefault("nc", len(d["names"]) if d.get("names") else None)
     val = d.get("val")
     missing = [v for v in (val if isinstance(val, list) else [val]) if not v or not Path(v).exists()]
-    if missing:
+    if missing and require_splits:
         raise FileNotFoundError(f"dataset {data}: val path not found: {missing} "
                                 "(nothing is downloaded)")
     return d

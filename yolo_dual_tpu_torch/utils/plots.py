@@ -1,9 +1,13 @@
-"""Box and mask drawing for saved predictions, and the semantic path's
-CamVid colouring and panels (port of the parts of yolo_dual_tpu/utils/plots.py
-that the predictors and the semantic val CLI use). cv2 is imported only when
-a box or a legend's text is drawn."""
+"""Box and mask drawing for saved predictions, per-detection crops and
+feature maps, and the semantic path's CamVid colouring and panels (port of
+the parts of yolo_dual_tpu/utils/plots.py that the predictors and the
+semantic val CLI use). cv2 is imported only when a box or a legend's text is
+drawn or a crop written; matplotlib only when a feature map is drawn.
+Without them a crop and a feature map are saved as `.npy` arrays."""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -114,3 +118,73 @@ def semantic_panel(image: np.ndarray, gt: np.ndarray, pred: np.ndarray,
     if names is not None:
         panels.append(legend_strip(names, palette, height=img.shape[0]))
     return np.concatenate(panels, axis=1)
+
+
+def _importable(name: str) -> bool:
+    try:
+        __import__(name)
+    except ImportError:
+        return False
+    return True
+
+
+def feature_visualization(x, module_type: str, stage: int, n: int = 32,
+                          save_dir=Path("runs/features")):
+    """The first `n` channel maps of a feature tensor x (1, c, h, w) (JAX
+    utils/plots.py:300, which takes NHWC; reference utils/plots.py:184):
+    `stage{stage}_{module_type}.png`, 8 panels a row, where matplotlib is
+    installed, else the maps themselves, (min(n, c), h, w) float32, as
+    `stage{stage}_{module_type}.npy`. Returns the file, or None for a
+    tensor that is not 4-D."""
+    x = x.detach().float().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    if x.ndim != 4:
+        return None
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    blocks = x[0][:n]
+    f = save_dir / f"stage{stage}_{module_type.split('.')[-1]}.png"
+    if not _importable("matplotlib"):
+        np.save(f.with_suffix(".npy"), blocks.astype(np.float32))
+        return f.with_suffix(".npy")
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    cols = 8
+    rows = int(np.ceil(len(blocks) / cols))
+    fig, axes = plt.subplots(rows, cols, figsize=(cols * 1.5, rows * 1.5), tight_layout=True)
+    for ax, blk in zip(np.atleast_1d(axes).ravel(), blocks):
+        ax.imshow(blk, cmap="viridis")
+        ax.axis("off")
+    fig.savefig(f, dpi=150)
+    plt.close(fig)
+    return f
+
+
+def save_one_box(xyxy, im, file=Path("im.jpg"), gain: float = 1.02, pad: int = 10,
+                 square: bool = False, BGR: bool = False, save: bool = True):
+    """Crop a (gain-scaled, padded) box from an HWC image (JAX
+    utils/plots.py:321; reference utils/plots.py:560). The crop keeps the
+    channel order with BGR, else reverses it, as cv2 writes it. Saved with
+    an incremented name: a `.jpg` through cv2 where it is installed, else
+    the crop's pixels in RGB order as a `.npy`. Returns the crop."""
+    from yolo_dual_tpu_torch.utils.general import increment_path
+    b = np.asarray(xyxy, np.float32).reshape(4)
+    cx, cy = (b[0] + b[2]) / 2, (b[1] + b[3]) / 2
+    w, h = b[2] - b[0], b[3] - b[1]
+    if square:
+        w = h = max(w, h)
+    w, h = w * gain + pad, h * gain + pad
+    x1 = int(np.clip(cx - w / 2, 0, im.shape[1]))
+    x2 = int(np.clip(cx + w / 2, 0, im.shape[1]))
+    y1 = int(np.clip(cy - h / 2, 0, im.shape[0]))
+    y2 = int(np.clip(cy + h / 2, 0, im.shape[0]))
+    crop = im[y1:y2, x1:x2, :: (1 if BGR else -1)]
+    if save and crop.size:
+        file = Path(file)
+        file.parent.mkdir(parents=True, exist_ok=True)
+        if _importable("cv2"):
+            import cv2
+            cv2.imwrite(str(increment_path(file.with_suffix(".jpg"))), np.ascontiguousarray(crop))
+        else:
+            np.save(increment_path(file.with_suffix(".npy")), np.ascontiguousarray(crop[..., ::-1]))
+    return crop
