@@ -187,6 +187,24 @@ which raises on failure:
    pycocotools; 8 frames card against CPU, TF32 off, max_det 100: entries
    paired within 1e-2 px, masks IoU >= 0.99; masks2segments ms a mask and
    the JSON writer's ms a batch);
+6j. weights in and out (`weights_path`, under build/phase6j): (a)
+   yolov5s-seg-dcnv3 primed as in 6i and a second member (seed 1), each
+   written as a .pt, the first through `export.py --include torchpt`;
+   `io/multibackend.py:MultiBackend` of the export (fused) and
+   `io/ensemble.py:attempt_load` of both in "cat" and "mean" on a bs-8 640-px
+   batch on the card, within 1e-5 of the largest magnitude of the members'
+   own card forwards (the same computation); (b) the JAX package's orbax
+   checkpoint under tests/data/torch_port_orbax (JAX's save_checkpoint of
+   a nano yolov5n-seg with C3_DCNV3 rows, the trainers' layout) read by
+   `io/ocdbt.py` with no jax, orbax or tensorstore imported, served by
+   MultiBackend on the card with TF32 off, against the committed output of
+   JAX's MultiBackend within rtol and atol 1e-4; the K2 count set to 0 just
+   before the forwards of (a) and (b) reads 6 a full-width forward and the
+   fixture's, and no K1; (c) yolov5s-seg (nc 80, seeded, BatchNorm
+   calibrated) exported to ONNX at 640 and run by cv2.dnn on the host,
+   against the fused card forward with TF32 off within
+   tests/test_onnx_export.py's limits; the read, export, cv2.dnn and
+   MultiBackend-against-direct ms;
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -3469,6 +3487,179 @@ def serve_path(card: str):
     return det["launches"], k1, profile
 
 
+# Phase 6j: weights in and out. The port's export, MultiBackend and Ensemble on the full-width
+# yolov5s-seg-dcnv3 (K2); the JAX package's orbax checkpoint (tests/data/torch_port_orbax,
+# written by JAX's save_checkpoint) read and served without JAX; an ONNX file in cv2.dnn
+ORBAX_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "torch_port_orbax"
+WEIGHTS_BS = 8
+# (a) MultiBackend and Ensemble against the direct card forwards of the same weights: the
+# same computation on the same card, held within SAME_TOL of the largest magnitude
+SAME_TOL = 1e-5
+# (b) the fixture served on the card, TF32 off, against JAX's float32 CPU output (JAX's
+# MultiBackend, matmuls at "highest"): rtol and atol 1e-4, the float32 gap of two summation
+# orders over the nano graph that tests/test_torch_port_dcn.py holds the port's CPU forward
+# to, and that the port's CPU run of this fixture keeps (9.2e-5 at most, on a |pred| of 434)
+FIXTURE_TOL = 1e-4
+# (c) cv2.dnn against the port's card forward, TF32 off: tests/test_onnx_export.py's limits
+ONNX_PRED_TOL, ONNX_PROTOS_TOL = dict(atol=2e-3, rtol=1e-3), dict(atol=1e-3, rtol=1e-3)
+
+
+def max_rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def primed_dcnv3(seed: int):
+    """yolov5s-seg-dcnv3 on the card as phase 6i serves it: seeded weights, the
+    DCNv3 heads drawn, BatchNorm calibrated on three frames, primed."""
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    gen = torch.Generator().manual_seed(seed)
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device="cuda", generator=gen)
+    draw_dcnv3_heads(model, gen)
+    return prime_for_eval(calibrate_bn(model, make_frames(3, seed=1 + seed)))
+
+
+def weights_path(card: str) -> dict:
+    """Phase 6j, under build/phase6j: (a) the primed yolov5s-seg-dcnv3 and a
+    second seeded member written by export.py --include torchpt, MultiBackend
+    of the first and Ensemble of both (cat, mean) on a bs-8 640-px batch
+    against the models' own card forwards; (b) the orbax fixture read with no
+    JAX, orbax or tensorstore imported and served by MultiBackend on the card;
+    (c) yolov5s-seg (nc 80, fused) exported to ONNX at 640 and run by cv2.dnn
+    against the card forward. The K2 count is set to 0 just before the
+    MultiBackend and Ensemble forwards of (a) and (b) and read just after.
+    Returns {kernel: launches}."""
+    import shutil
+    from yolo_dual_tpu_torch import export
+    from yolo_dual_tpu_torch.io.ensemble import attempt_load
+    from yolo_dual_tpu_torch.io.multibackend import MultiBackend
+    from yolo_dual_tpu_torch.io.onnx_export import export_onnx
+    from yolo_dual_tpu_torch.io.weights import resolve_state_dict
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.nn.dcn import DCNv3
+    t_phase = time.perf_counter()
+    tmp = Path(__file__).resolve().parent / "build" / "phase6j"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    cfg = "yolov5s-seg-dcnv3.json"
+    failures, out = [], {"card": card}
+    try:
+        # (a) two members, their own card forwards (unfused, as attempt_load leaves them),
+        # then the first folded, as MultiBackend serves it
+        torch.backends.cudnn.allow_tf32 = True
+        x = torch.cat([letterbox_normalize(torch.from_numpy(f)[None].cuda(), 640)
+                       for f in make_frames(WEIGHTS_BS, seed=61, sizes=((480, 640),))])
+        members = [primed_dcnv3(0), primed_dcnv3(1)]
+        for i, m in enumerate(members):
+            torch.save(m.state_dict(), tmp / f"member{i}.pt")
+        with torch.inference_mode():
+            own = [m(x)[:2] for m in members]
+            direct = members[0].fuse()(x)[:2]
+        t0 = time.perf_counter()
+        exported = export.run(weights=str(tmp / "member0.pt"), cfg=cfg, imgsz=640,
+                              out_dir=str(tmp / "export"))["torchpt"]
+        out["export_torchpt_ms"] = (time.perf_counter() - t0) * 1e3
+        sources = [exported, tmp / "member1.pt"]
+        # (b) the fixture: read without JAX, then served
+        t0 = time.perf_counter()
+        fixture_sd = resolve_state_dict(ORBAX_FIXTURE / "ckpt")
+        out["fixture_read_ms"] = (time.perf_counter() - t0) * 1e3
+        out["fixture_tensors"] = len(fixture_sd)
+        foreign = sorted({m.split(".")[0] for m in sys.modules}
+                         & {"jax", "jaxlib", "flax", "orbax", "tensorstore", "yolo_dual_tpu"})
+        if foreign:
+            failures.append(f"reading the orbax fixture imported {foreign}")
+        fx = torch.from_numpy(np.load(ORBAX_FIXTURE / "input.npy")).cuda().permute(0, 3, 1, 2) \
+            .float() / 255
+
+        # the main path, counted: MultiBackend (a), Ensemble cat and mean (a), the fixture (b)
+        dcnv3_sampling.launches = letterbox_normalize.launches = 0
+        mb = MultiBackend(exported, cfg=cfg, nc=80, imgsz=640, device="cuda")
+        pred, protos = mb(x)
+        merged = {}
+        for mode in ("cat", "mean"):
+            ens = attempt_load([str(s) for s in sources], cfg, nc=80, mode=mode, device="cuda")
+            merged[mode] = ens(x)
+        torch.backends.cudnn.allow_tf32 = False
+        fmb = MultiBackend(ORBAX_FIXTURE / "ckpt", cfg=ORBAX_FIXTURE / "cfg.json", nc=80,
+                           imgsz=64, device="cuda")
+        fpred, fprotos = fmb(fx)
+        torch.cuda.synchronize()
+        launches = {"dcnv3_sampling": dcnv3_sampling.launches,
+                    "letterbox_normalize": letterbox_normalize.launches}
+        per_fwd = {k: sum(isinstance(m, DCNv3) for m in model.modules())
+                   for k, model in (("full", mb.model), ("fixture", fmb.model))}
+        want_k2 = per_fwd["full"] * (1 + 2 * 2) + per_fwd["fixture"]
+        if launches != {"dcnv3_sampling": want_k2, "letterbox_normalize": 0}:
+            failures.append(f"launches {launches}, expected K2 {want_k2} "
+                            f"({per_fwd} DCNv3 calls a forward) and no K1")
+        out["launches"] = launches
+
+        # (a) against the direct forwards
+        gaps = {"multibackend_pred": max_rel_gap(pred, direct[0]),
+                "multibackend_protos": max_rel_gap(protos, direct[1]),
+                "cat_pred": max_rel_gap(merged["cat"][0], torch.cat([o[0] for o in own], 1)),
+                "mean_pred": max_rel_gap(merged["mean"][0], (own[0][0] + own[1][0]) / 2),
+                "cat_protos": max_rel_gap(merged["cat"][1], own[0][1]),
+                "mean_protos": max_rel_gap(merged["mean"][1], own[0][1])}
+        out["max_rel_gap_vs_direct"] = gaps
+        failures += [f"(a) {k}: {v} > {SAME_TOL}" for k, v in gaps.items() if not v <= SAME_TOL]
+        if merged["cat"][0].shape[1] != 2 * pred.shape[1] or pred.shape[0] != WEIGHTS_BS:
+            failures.append(f"(a) shapes {list(pred.shape)}, cat {list(merged['cat'][0].shape)}")
+        out["multibackend_ms_bs8"] = cuda_ms(lambda: mb(x), 10)
+        with torch.inference_mode():
+            out["direct_forward_ms_bs8"] = cuda_ms(lambda: members[0](x), 10)
+        out["ensemble_mean_ms_bs8"] = cuda_ms(lambda: ens(x), 5)  # the last built: mean
+        del members, own, direct, mb, ens, merged
+
+        # (b) against JAX's saved output, TF32 off
+        fwant = (np.load(ORBAX_FIXTURE / "pred.npy"), np.load(ORBAX_FIXTURE / "protos.npy"))
+        fgot = (fpred.cpu().numpy(), fprotos.permute(0, 2, 3, 1).cpu().numpy())
+        out["fixture_max_abs_err"] = [float(np.abs(g - w).max()) for g, w in zip(fgot, fwant)]
+        for name, g, w in zip(("pred", "protos"), fgot, fwant):
+            if g.shape != w.shape or not np.allclose(g, w, rtol=FIXTURE_TOL, atol=FIXTURE_TOL):
+                failures.append(f"(b) fixture {name} against JAX's output: max abs "
+                                f"{float(np.abs(g - w).max()) if g.shape == w.shape else g.shape}")
+        out["fixture_multibackend_ms"] = cuda_ms(lambda: fmb(fx), 10)
+
+        # (c) ONNX at full width: export, cv2.dnn on the host, the card forward, TF32 off
+        import cv2
+        gen = torch.Generator().manual_seed(2)
+        model = calibrate_bn(SegmentationModel("yolov5s-seg.json", device="cuda", generator=gen),
+                             make_frames(3, seed=3))
+        t0 = time.perf_counter()
+        onnx_file = export_onnx(model, 640, tmp / "yolov5s-seg.onnx")
+        out["export_onnx_ms"] = (time.perf_counter() - t0) * 1e3
+        out["onnx_mb"] = onnx_file.stat().st_size / 2 ** 20
+        net = cv2.dnn.readNetFromONNX(str(onnx_file))
+        x1 = x[:1]
+        net.setInput(x1.cpu().numpy(), "images")
+        got = net.forward(["pred", "protos"])
+        out["cv2_dnn_forward_ms"] = host_ms(lambda: (net.setInput(x1.cpu().numpy(), "images"),
+                                                     net.forward(["pred", "protos"])), iters=3)
+        with torch.inference_mode():
+            want = [t.cpu().numpy() for t in model.fuse()(x1)[:2]]
+        torch.backends.cudnn.allow_tf32 = True
+        out["onnx_max_abs_err"] = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+        for name, g, w, tol in (("pred", got[0], want[0], ONNX_PRED_TOL),
+                                ("protos", got[1], want[1], ONNX_PROTOS_TOL)):
+            if g.shape != w.shape or not np.allclose(g, w, **tol):
+                failures.append(f"(c) cv2.dnn {name} against the card forward")
+        out["cv2_version"] = cv2.__version__
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_6j_s"] = time.perf_counter() - t_phase
+    print("weights in and out (6j) " + json.dumps(out), flush=True)
+    print(f"phase 6j s {out['phase_6j_s']:.2f}", flush=True)
+    if failures:
+        raise AssertionError("weights in and out (6j): " + "; ".join(failures))
+    return launches
+
+
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
     """One seeded synthetic batch as the JAX package's loader yields it: uint8
     NHWC images, targets (bs, M, 5) normalised [cls, x, y, w, h] with 1..M
@@ -4422,6 +4613,9 @@ def main(argv=None) -> int:
     by_path["serve yolov5s-seg-dcnv3"], serve_k1, serve_profile = serve_path(card)
     by_path["predict outputs"] = {"letterbox_normalize": serve_k1["predict"]}
     by_path["val --save-json"] = {"letterbox_normalize": serve_k1["val"]}
+    # 6j. weights in and out: export, MultiBackend and Ensemble at full width (K2 6 a forward),
+    # the JAX package's orbax fixture served without JAX (K2), ONNX through cv2.dnn
+    by_path["weights in and out"] = weights_path(card)
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     train_card_vs_cpu()
     # 10. the train CLI on a dataset on disk
@@ -4477,7 +4671,8 @@ def main(argv=None) -> int:
     # K2: 16 frames at batch 1 (prediction) and the server's requests and warm-up (6i),
     # 8 micro-steps at bs 16 (training), and the CLIs' forwards at bs 16 (their micro-steps
     # and val batches, both routes) and 10b's remat micro-steps (two forwards each); K3: the
-    # micro-steps
+    # micro-steps. 6j's launches (bs-8 forwards and the 64-px fixture) count in `launches`;
+    # the means weight the shapes phase 3 times
     n_dcn = sum(DCN_PATH_SHAPES.values())
     serve_fwd = by_path["serve yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn
     bs16 = ("train CLI yolov5s-seg-dcnv3", "train CLI host route", "remat micro-steps")

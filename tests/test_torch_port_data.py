@@ -119,6 +119,27 @@ def write_dataset(root, n=5, rects=True, seed=0):
     return root
 
 
+def relabel_with_model(root, v):
+    """Every frame's labels under root/{jax,port}: the primed TINY_SEG `v`'s
+    own boxes (up to 4 a frame) as rectangles, so both metric halves of a
+    validation are non-zero."""
+    model = port_model(v).eval()
+    for f in sorted((root / "port" / "images").glob("*.npy")):
+        x = letterbox_normalize(torch.from_numpy(np.load(f))[None], IMGSZ, scaleup=False)
+        with torch.no_grad():
+            levels, _ = model(x, decode=False)
+            out, nv = nms_from_raw(levels, model.model[-1].anchors, model.model[-1].strides,
+                                   conf_thres=1e-4, iou_thres=0.6, max_det=20, nm=TINY_NM)
+        lines = []
+        for d in out[0, :int(nv[0])].numpy()[:4]:
+            x1, x2 = np.clip(np.round(d[[0, 2]]), 0, IMGSZ) / IMGSZ
+            y1, y2 = (np.clip(np.round(d[[1, 3]]), 8, 56) - 8) / H0
+            if x2 - x1 > 2 / IMGSZ and y2 - y1 > 2 / H0:
+                lines.append(f"{int(d[5])} {x1} {y1} {x2} {y1} {x2} {y2} {x1} {y2}")
+        for side in ("jax", "port"):
+            (root / side / "labels" / f"{f.stem}.txt").write_text("\n".join(lines))
+
+
 def loaders(root, overlap=True, bs=2, shuffle=False):
     kw = dict(imgsz=IMGSZ, mask_ratio=4, overlap=overlap, max_labels=6)
     jds = JaxYoloDataset(str(root / "jax" / "images"), task="segment", device_preprocess=True, **kw)
@@ -193,22 +214,7 @@ def test_val_cli_matches_jax(tmp_path):
     cfg.write_text(json.dumps(TINY_SEG))
     weights = tmp_path / "tiny.pt"
     torch.save(state_dict_from_flax(v), weights)
-    # the gt: relabel every frame with the primed model's own boxes, as rectangles
-    model = port_model(v).eval()
-    for f in sorted((root / "port" / "images").glob("*.npy")):
-        x = letterbox_normalize(torch.from_numpy(np.load(f))[None], IMGSZ, scaleup=False)
-        with torch.no_grad():
-            levels, _ = model(x, decode=False)
-            out, nv = nms_from_raw(levels, model.model[-1].anchors, model.model[-1].strides,
-                                   conf_thres=1e-4, iou_thres=0.6, max_det=20, nm=TINY_NM)
-        lines = []
-        for d in out[0, :int(nv[0])].numpy()[:4]:
-            x1, x2 = np.clip(np.round(d[[0, 2]]), 0, IMGSZ) / IMGSZ
-            y1, y2 = (np.clip(np.round(d[[1, 3]]), 8, 56) - 8) / H0
-            if x2 - x1 > 2 / IMGSZ and y2 - y1 > 2 / H0:
-                lines.append(f"{int(d[5])} {x1} {y1} {x2} {y1} {x2} {y2} {x1} {y2}")
-        for side in ("jax", "port"):
-            (root / side / "labels" / f"{f.stem}.txt").write_text("\n".join(lines))
+    relabel_with_model(root, v)
     jl, _ = loaders(root, bs=2)
     jl.dataset.max_labels = 120
     want, want_maps, _ = jax_evaluate_segment(jm, v, jl, TINY_NC, conf_thres=0.001,

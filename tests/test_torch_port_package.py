@@ -4,6 +4,8 @@ package."""
 
 import ast
 import json
+import subprocess
+import sys
 
 import pytest
 import yaml
@@ -46,7 +48,23 @@ def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert {PORT / "nn" / "dcn.py", PORT / "kernels" / "dcn_sampling.py", PORT / "nn" / "spp.py",
-            PORT / "nn" / "attention.py", PORT / "engine" / "autoshape.py"} <= set(files)
+            PORT / "nn" / "attention.py", PORT / "engine" / "autoshape.py", PORT / "io" / "ocdbt.py",
+            PORT / "io" / "multibackend.py", PORT / "io" / "ensemble.py",
+            PORT / "io" / "onnx_export.py", PORT / "export.py"} <= set(files)
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_levels(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
+
+
+def test_weights_modules_load_without_jax_orbax_or_tensorstore():
+    """The orbax reader, MultiBackend, Ensemble and export import none of
+    jax, flax, orbax, tensorstore or the JAX package, in a fresh interpreter
+    (the card's machine has none of them)."""
+    code = ("import sys, yolo_dual_tpu_torch.io.ocdbt, yolo_dual_tpu_torch.io.multibackend, "
+            "yolo_dual_tpu_torch.io.ensemble, yolo_dual_tpu_torch.export; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'flax', 'orbax', 'tensorstore', 'yolo_dual_tpu'}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -321,3 +321,81 @@ def narrow_calibrated(name, div, seed, images):
                          (1, *images.shape[1:3], 3), seed=seed)
     x = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2).float() / 255
     return d, jm, calibrated_semantic(jm, spread_offsets(v, seed + 1, gain=0.1), d, x)
+
+
+# The orbax fixture that chip_smoke.py reads on the card, where no JAX is
+# installed: a checkpoint written by JAX's save_checkpoint in the trainers'
+# layout, the JAX package's MultiBackend output on a seeded frame, and the
+# model's config.
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "torch_port_orbax"
+FIXTURE_WIDTH = 0.0625  # yolov5n-seg's 0.25 cut to a quarter; see write_orbax_fixture
+
+
+def orbax_fixture_cfg():
+    """yolov5n-seg with backbone rows 4, 6 and 8 made C3_DCNV3 (the nano model
+    of tests/test_torch_port_dcn.py) at width_multiple FIXTURE_WIDTH."""
+    from yolo_dual_tpu_torch.utils.general import find_cfg, load_config
+    d = load_config(find_cfg("yolov5n-seg.json"))
+    for r in (4, 6, 8):
+        d["backbone"][r][2] = "C3_DCNV3"
+    d["width_multiple"] = FIXTURE_WIDTH
+    return d
+
+
+def _bf16_representable(t):
+    """float32 leaves rounded down to 16 significant bits: the checkpoint's
+    zstd chunks then shrink by ~1/3, and the values stay float32 ones."""
+    def cut(a):
+        a = np.asarray(a)
+        return (a.view(np.uint32) & 0xFFFF0000).view(np.float32) if a.dtype == np.float32 else a
+    return jax.tree_util.tree_map(cut, t)
+
+
+def write_orbax_fixture(out=ORBAX_FIXTURE, forward=True):
+    """Write the fixture under `out` with the JAX package: `ckpt/`, JAX's
+    save_checkpoint of {variables, ema: {ema, updates}, opt_state (the SGD
+    state of train/optim.py:smart_optimizer), epoch, best_fitness} for
+    orbax_fixture_cfg() on seeded weights; `cfg.json`; `input.npy`, a seeded
+    (1, 64, 64, 3) uint8 frame; and `pred.npy` / `protos.npy` (NHWC), the
+    output of JAX's MultiBackend on that checkpoint (its EMA, conv+BN
+    folded) for the frame / 255, matmuls at "highest" precision (skipped
+    with forward=False).
+
+    The width is cut from yolov5n-seg's 0.25 to FIXTURE_WIDTH, and the
+    weights rounded to 16 significant bits, to keep the committed files
+    small: the ~370 leaves a tree make _METADATA and the inline `.zarray`
+    records of the store's B-tree versions most of its size."""
+    import json
+    import shutil
+
+    from yolo_dual_tpu.io.multibackend import MultiBackend as JaxMultiBackend
+    from yolo_dual_tpu.models.model import SegmentationModel as JaxSegmentationModel
+    from yolo_dual_tpu.train import save_checkpoint
+    from yolo_dual_tpu.train.optim import smart_optimizer
+    out = Path(out)
+    cfg = orbax_fixture_cfg()
+    jm = JaxSegmentationModel(cfg)
+    v = random_variables(lambda k, x: jm.module.init(k, x, train=False), (1, 64, 64, 3), seed=0)
+    rng = np.random.default_rng(1)
+    ema = jax.tree_util.tree_map(
+        lambda a: (a + rng.normal(0, 0.02, a.shape)).astype(np.float32), v)
+    tx = smart_optimizer(v["params"], "SGD", {"lr0": 0.01, "momentum": 0.937,
+                                              "weight_decay": 5e-4}, epochs=3, steps_per_epoch=4)
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    save_checkpoint(out / "ckpt", {
+        "variables": _bf16_representable(v),
+        "ema": {"ema": _bf16_representable(ema), "updates": np.int32(12)},
+        "opt_state": tx.init(v["params"]), "epoch": 2, "best_fitness": 0.125})
+    (out / "cfg.json").write_text(json.dumps(cfg))
+    x = np.random.default_rng(2).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    np.save(out / "input.npy", x)
+    if not forward:
+        return out
+    with jax.default_matmul_precision("highest"):
+        pred, protos = JaxMultiBackend(out / "ckpt", cfg=cfg, nc=80, imgsz=64).forward(
+            x.astype(np.float32) / 255)
+    np.save(out / "pred.npy", np.asarray(pred))
+    np.save(out / "protos.npy", np.asarray(protos))
+    return out

@@ -18,7 +18,9 @@ pairs (a video or stream frame's to `labels/<stem>_<frame>.txt`). The
 annotated frames (the top-k as text) are saved unless --nosave, a video's or
 stream's as one mp4 a source, and shown with --view-img; drawing, saving
 and showing need cv2. --weights takes a `.pt` of classify.train (its EMA
-weights, and its class names); --update strips its optimizer state first.
+weights, and its class names), or an orbax checkpoint directory of the JAX
+package (its EMA first, and its `classes`); --update strips a `.pt`'s
+optimizer state first and raises on a directory (ROADMAP A item 7e).
 Without weights the model has JAX's initial weights under PRNGKey(0) and
 1000 classes.
 """
@@ -34,7 +36,8 @@ import torch
 from yolo_dual_tpu_torch.classify.train import build_classifier
 from yolo_dual_tpu_torch.data.classify import classify_transforms
 from yolo_dual_tpu_torch.engine.predictor import _cv2, iter_source, save_media_frame, source_stem
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.ocdbt import OrbaxCheckpoint
+from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.flax_init import flax_init_
 from yolo_dual_tpu_torch.train.checkpoint import load_checkpoint, strip_optimizer
 from yolo_dual_tpu_torch.utils.general import LOGGER, increment_path, select_device
@@ -52,14 +55,22 @@ def run(weights="", model="yolov5n.yaml", source="", imgsz=224, cutoff=10, topk=
     dev = select_device(device)
     cv2 = None if nosave and not view_img else _cv2("saving or showing annotated frames")
     classes, nc = None, 1000
-    if weights:
+    if weights and not str(weights).endswith(".pt"):  # an orbax checkpoint of the JAX package
+        if update:
+            raise NotImplementedError(
+                f"--update on the orbax checkpoint {weights}: JAX rewrites the directory "
+                "(strip_optimizer) and the port writes no orbax checkpoint yet (ROADMAP A item 7e)")
+        ckpt = OrbaxCheckpoint(weights)
+        classes = [str(c) for c in ckpt.read("classes")] if ckpt.has("classes") else None
+        nc = len(classes) if classes else nc
+    elif weights:
         if update:
             strip_optimizer(weights)
         classes = list(load_checkpoint(weights).get("classes") or []) or None
         nc = len(classes) if classes else nc
     m = build_classifier(model, nc, cutoff=cutoff, device=dev)
     if weights:
-        m.load_state_dict(load_state_dict_file(weights), strict=True)
+        m.load_state_dict(resolve_state_dict(weights), strict=True)
     else:
         flax_init_(m)
     m.eval()

@@ -7,8 +7,9 @@ classify/val.py; reference classify/val.py:1-170).
 
 The data directory holds `val/` (or `test/`), a folder a class of image files
 or RGB uint8 `.npy` frames (data/classify.py), center-cropped and resized on
-the host. --weights takes a `.pt` of classify.train (its EMA weights) or a
-state_dict, loaded strictly; without it the model has JAX's initial weights
+the host. --weights takes a `.pt` of classify.train (its EMA weights), a
+state_dict, or an orbax checkpoint directory of the JAX package (its EMA
+first), loaded strictly; without it the model has JAX's initial weights
 under PRNGKey(0). --verbose logs the per-class table.
 """
 
@@ -23,7 +24,7 @@ import torch
 from yolo_dual_tpu_torch.classify.train import build_classifier, topk_hits
 from yolo_dual_tpu_torch.data.classify import ClassificationDataset
 from yolo_dual_tpu_torch.data.loader import Loader
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.flax_init import flax_init_
 from yolo_dual_tpu_torch.utils.general import LOGGER, select_device
 
@@ -43,7 +44,7 @@ def run(weights="", model="yolov5n.yaml", data_dir="", imgsz=224, batch_size=64,
     nc = len(ds.classes)
     m = build_classifier(model, nc, cutoff=cutoff, device=dev)
     if weights:
-        m.load_state_dict(load_state_dict_file(weights), strict=True)
+        m.load_state_dict(resolve_state_dict(weights), strict=True)
     else:
         flax_init_(m)
     m.eval()

@@ -1,9 +1,12 @@
 """Carry weights into the port's modules.
 
-`state_dict_from_flax` maps the JAX package's variables to the port's
-state_dict; it is this package's own copy of the mapping in
-yolo_dual_tpu/train/checkpoint.py:92-143 (export_torch_state_dict). Orbax
-checkpoints are not read here.
+`resolve_state_dict` is the one rule every loader follows (JAX
+io/weights.py:12 resolve_variables): a `.pt` file is a torch state_dict, and
+anything else is an orbax checkpoint directory that the JAX package wrote,
+read by `io/ocdbt.py` without JAX. `state_dict_from_flax` maps the JAX
+package's variables to the port's state_dict; it is this package's own copy
+of the mapping in yolo_dual_tpu/train/checkpoint.py:92-143
+(export_torch_state_dict).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from yolo_dual_tpu_torch.io.ocdbt import OrbaxCheckpoint
 
 
 def _flatten(tree, path=()):
@@ -108,19 +113,47 @@ def _port_names(sd: dict) -> dict:
 
 
 def load_state_dict_file(path) -> dict:
-    """Read a reference-style `.pt` state_dict (a plain dict of tensors, or one
-    under an "ema", "model" or "state_dict" key, the EMA's first as the
-    reference loads a checkpoint) with `torch.load(weights_only=True)`, under
-    the port's names (`_port_names`)."""
+    """Read a reference-style torch state_dict file (a plain dict of tensors, or one
+    under an "ema", "model", "model_state_dict" or "state_dict" key, in that
+    order, as JAX's io/torch_import.py:load_torch_checkpoint unwraps them)
+    with `torch.load(weights_only=True)`, under the port's names
+    (`_port_names`)."""
     path = Path(path)
-    if path.suffix != ".pt":
-        raise ValueError(f"{path}: only .pt state_dicts are read; orbax checkpoints "
-                         "are not supported by this package yet")
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("ema", "model", "state_dict"):
+    for key in ("ema", "model", "model_state_dict", "state_dict"):
         if isinstance(sd, dict) and isinstance(sd.get(key), dict):
             sd = sd[key]
             break
     if not isinstance(sd, dict):
         raise ValueError(f"{path} does not hold a state_dict")
     return _port_names({k: v for k, v in sd.items() if k.rsplit(".", 1)[-1] not in _DERIVED})
+
+
+def orbax_variables(path, prefer_ema: bool = True):
+    """The flax variables tree of the orbax checkpoint at `path`, by JAX's
+    rule (io/weights.py:12): `ckpt["ema"]["ema"]` where the EMA is there and
+    not empty, else `ckpt["variables"]`, else the bare tree (a checkpoint
+    that is itself a variables tree). `prefer_ema=False` skips the EMA, as
+    JAX's segment/train.py:120-125 --weights does. Only the chosen subtree is
+    decoded: never the optimizer state."""
+    ckpt = OrbaxCheckpoint(path)
+    if prefer_ema and ckpt.has("ema") and ckpt.has("ema/ema"):
+        return ckpt.read("ema/ema")
+    return ckpt.read("variables" if ckpt.contains("variables") else "")
+
+
+def state_dict_from_orbax(path, prefer_ema: bool = True) -> dict:
+    """`orbax_variables(path, prefer_ema)` as a state_dict under the port's
+    names."""
+    return _port_names(state_dict_from_flax(orbax_variables(path, prefer_ema)))
+
+
+def resolve_state_dict(weights) -> dict:
+    """The state_dict of a weights path under the port's names (JAX
+    io/weights.py:12 resolve_variables): a `.pt` file through
+    `load_state_dict_file`, anything else as an orbax checkpoint directory
+    (`state_dict_from_orbax`, the EMA first). Load it with
+    `model.load_state_dict(..., strict=True)`."""
+    if str(weights).endswith(".pt"):
+        return load_state_dict_file(weights)
+    return state_dict_from_orbax(weights)

@@ -8,9 +8,11 @@ Usage:
 --source is an image, a video, an RGB uint8 `.npy` frame or a directory of
 them, a webcam index, a stream URL, a `.streams` list file or "screen"
 (engine/predictor.py:iter_source). Without --weights the model has random
-weights drawn from a generator seeded with 0; --update first strips the
-optimizer state from a training checkpoint given as --weights (a `.pt` with
-an `optimizer` entry; a plain state_dict is left as it is). --data takes the
+weights drawn from a generator seeded with 0. --weights takes a `.pt` state_dict
+or an orbax checkpoint directory of the JAX package (its EMA first). --update
+first strips the optimizer state from a training checkpoint given as --weights
+(a `.pt` with an `optimizer` entry; a plain state_dict is left as it is); on
+an orbax directory it raises, since the port writes no orbax checkpoint. --data takes the
 class names and count from a data file or directory, whose splits need not
 exist. --retina-masks, --half and --dnn are accepted and change nothing, as
 in JAX (masks are always upsampled to the frame). Reading image files and
@@ -27,7 +29,7 @@ from pathlib import Path
 import torch
 
 from yolo_dual_tpu_torch.engine.predictor import predict_images
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.model import SegmentationModel
 from yolo_dual_tpu_torch.train.checkpoint import load_checkpoint, strip_optimizer
 from yolo_dual_tpu_torch.utils.general import check_dataset, check_img_size, select_device
@@ -41,6 +43,10 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
         augment=False, vid_stride=1, max_frames=None, view_img=False, save_crop=False,
         visualize=False, update=False, half=False, dnn=False):
     dev = select_device(device)
+    if update and weights and not str(weights).endswith(".pt"):
+        raise NotImplementedError(
+            f"--update on the orbax checkpoint {weights}: JAX rewrites the directory "
+            "(strip_optimizer) and the port writes no orbax checkpoint yet (ROADMAP A item 7e)")
     if update and weights and load_checkpoint(weights).get("optimizer") is not None:
         strip_optimizer(weights)
     imgsz = check_img_size(imgsz, 32)
@@ -52,7 +58,7 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
         names = d.get("names")
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(load_state_dict_file(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights), strict=True)
     return predict_images(
         model, source, imgsz=imgsz, conf_thres=conf_thres, iou_thres=iou_thres,
         max_det=max_det, nm=model.model[-1].nm, classes=classes, agnostic_nms=agnostic_nms,
@@ -66,7 +72,7 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", type=str, default="", help="reference-style .pt state_dict")
+    p.add_argument("--weights", type=str, default="", help="a .pt state_dict or an orbax checkpoint directory of the JAX package")
     p.add_argument("--cfg", type=str, default="yolov5s-seg.json")
     p.add_argument("--source", type=str, default="data/images",
                    help="image/video/.npy file or directory, webcam index, URL, .streams, screen")

@@ -25,7 +25,9 @@ already the decoded cache JAX's disk cache writes. --rect is ignored, as the
 mosaic is square (logged).
 
 Without --weights the model has random weights drawn from a generator seeded
-with 0. The device defaults to cuda; pass --device cpu to run on the CPU.
+with 0. A `.pt` --weights fills the entries whose names and shapes match; an
+orbax checkpoint directory of the JAX package gives its `variables` whole,
+not its EMA, as JAX's segment/train.py:120-125 takes them. The device defaults to cuda; pass --device cpu to run on the CPU.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 from yolo_dual_tpu_torch.data.dataset import create_dataloader
 from yolo_dual_tpu_torch.data.loader import to_device
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.weights import load_state_dict_file, state_dict_from_orbax
 from yolo_dual_tpu_torch.kernels.augment import mosaic_warp_hsv
 from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
 from yolo_dual_tpu_torch.metrics.seg import fitness_seg
@@ -99,8 +101,10 @@ def train(opt):
     model = SegmentationModel(opt.cfg, nc=nc, device=dev,
                               generator=torch.Generator().manual_seed(0))
     nc = model.nc
-    if opt.weights:
+    if opt.weights and str(opt.weights).endswith(".pt"):
         load_weights(model, load_state_dict_file(opt.weights))
+    elif opt.weights:  # an orbax checkpoint: its trained variables, not its EMA (as JAX)
+        model.load_state_dict(state_dict_from_orbax(opt.weights, prefer_ema=False), strict=True)
     names = data.get("names") or {i: str(i) for i in range(nc)}
     if opt.label_smoothing:
         hyp["label_smoothing"] = opt.label_smoothing
@@ -229,7 +233,8 @@ def parse_opt(argv=None):
     p = argparse.ArgumentParser(description="Instance-segmentation training (PyTorch port)")
     p.add_argument("--weights", type=str, default="",
                    help="initial weights: a .pt state_dict (reference-style names, e.g. the "
-                        "JAX package's export_torch_state_dict) or a checkpoint of this CLI")
+                        "JAX package's export_torch_state_dict), a checkpoint of this CLI, or "
+                        "an orbax checkpoint directory of the JAX package (its variables)")
     p.add_argument("--resume", nargs="?", const=True, default="",
                    help="resume the newest run with a last.pt (or the given checkpoint)")
     p.add_argument("--cfg", type=str, default="yolov5n-seg.yaml", help="model config")

@@ -37,7 +37,7 @@ import torch
 
 from yolo_dual_tpu_torch.data.dataset import create_dataloader
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.model import SegmentationModel
 from yolo_dual_tpu_torch.utils.coco import coco80_to_coco91_class
 from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size,
@@ -62,7 +62,7 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
     nc = 1 if single_cls else d["nc"]
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(load_state_dict_file(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights), strict=True)
     save_dir = str(increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)) \
         if save_txt or save_json else "."
     # COCO's 91-id category map and annotation file for COCOeval (JAX segment/val.py:86-101)
@@ -93,7 +93,7 @@ def parse_opt(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--data", type=str, default="data",
                    help="dataset directory (images/*.npy, labels/*.txt) or .json data file")
-    p.add_argument("--weights", type=str, default="", help="reference-style .pt state_dict")
+    p.add_argument("--weights", type=str, default="", help="a .pt state_dict or an orbax checkpoint directory of the JAX package")
     p.add_argument("--cfg", type=str, default="yolov5s-seg.json")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--imgsz", "--img", "--img-size", type=int, default=640)

@@ -26,7 +26,7 @@ import torch
 
 from yolo_dual_tpu_torch.data.json_dataset import _load_json_mask, read_frame, resize_and_pad
 from yolo_dual_tpu_torch.data.loader import normalize_image
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.metrics.seg import SegmentationConfusionMatrix
 from yolo_dual_tpu_torch.models.model import SemanticSegModel
 from yolo_dual_tpu_torch.semantic.val import CLASS_NAMES, save_image
@@ -47,7 +47,7 @@ def run(weights="", cfg="resnet50.json", source="", imgsz=640, nc=12, gt_json_di
     names = list(names) if names else CLASS_NAMES[:nc]
     model = SemanticSegModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(load_state_dict_file(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights), strict=True)
     model.eval().fuse()
     src = Path(source)
     files = sorted(p for p in (src.iterdir() if src.is_dir() else [src])
@@ -91,7 +91,7 @@ def run(weights="", cfg="resnet50.json", source="", imgsz=640, nc=12, gt_json_di
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", type=str, default="", help="reference-style .pt state_dict")
+    p.add_argument("--weights", type=str, default="", help="a .pt state_dict or an orbax checkpoint directory of the JAX package")
     p.add_argument("--cfg", type=str, default="resnet50.json")
     p.add_argument("--source", type=str, required=True, help="frame file or directory")
     p.add_argument("--imgsz", "--img-size", type=int, default=640)

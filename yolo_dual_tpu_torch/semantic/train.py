@@ -208,7 +208,8 @@ def parse_opt(argv=None):
     p = argparse.ArgumentParser(description="Semantic-segmentation training (PyTorch port)")
     p.add_argument("--weights", type=str, default="",
                    help="pretrained weights (partial, shape-matched load): a .pt state_dict "
-                        "(e.g. the JAX package's export_torch_state_dict) or a checkpoint")
+                        "(e.g. the JAX package's export_torch_state_dict), a checkpoint, or an "
+                        "orbax checkpoint directory of the JAX package (its EMA first)")
     p.add_argument("--resume", nargs="?", const=True, default="",
                    help="resume from last checkpoint (optionally a path)")
     p.add_argument("--freeze", nargs="+", type=int, default=[0],

@@ -27,7 +27,7 @@ import torch
 from yolo_dual_tpu_torch.data.json_dataset import create_json_segment_dataloader
 from yolo_dual_tpu_torch.data.loader import normalize_image
 from yolo_dual_tpu_torch.engine.validator import evaluate_semantic
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.kernels.preprocess import semantic_preprocess
 from yolo_dual_tpu_torch.losses.semantic import SemanticSegLoss
 from yolo_dual_tpu_torch.models.model import SemanticSegModel
@@ -59,7 +59,7 @@ def run(weights="", cfg="resnet50.json", img_dir="", json_dir="", imgsz=640, bat
     dev = select_device(device)
     model = SemanticSegModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(load_state_dict_file(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights), strict=True)
     loader, _ = create_json_segment_dataloader(img_dir, json_dir, imgsz, batch_size,
                                                augment=False, num_classes=nc,
                                                drop_last=False,
@@ -91,7 +91,7 @@ def run(weights="", cfg="resnet50.json", img_dir="", json_dir="", imgsz=640, bat
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", type=str, default="", help="reference-style .pt state_dict")
+    p.add_argument("--weights", type=str, default="", help="a .pt state_dict or an orbax checkpoint directory of the JAX package")
     p.add_argument("--cfg", type=str, default="resnet50.json")
     p.add_argument("--img-dir", type=str, required=True)
     p.add_argument("--json-dir", type=str, required=True)

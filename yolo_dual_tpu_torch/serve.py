@@ -39,7 +39,7 @@ import torch
 
 from yolo_dual_tpu_torch.data.augment import letterbox
 from yolo_dual_tpu_torch.data.json_dataset import resize_nearest_u8
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file
+from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.model import SegmentationModel, SemanticSegModel
 from yolo_dual_tpu_torch.ops.boxes import scale_boxes
 from yolo_dual_tpu_torch.ops.nms import nms_from_raw
@@ -101,7 +101,7 @@ def build_server(opt) -> HTTPServer:
                                   device=dev, generator=gen)
         head = model.model[-1]
     if opt.weights:
-        model.load_state_dict(load_state_dict_file(opt.weights), strict=True)
+        model.load_state_dict(resolve_state_dict(opt.weights), strict=True)
     model.eval().fuse()
 
     @torch.inference_mode()
@@ -199,7 +199,7 @@ def main(opt):
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", default="", help="a .pt state_dict")
+    p.add_argument("--weights", default="", help="a .pt state_dict or an orbax checkpoint directory")
     p.add_argument("--cfg", default="yolov5s-seg.json")
     p.add_argument("--nc", type=int, default=None,
                    help="class-count override; default: the config's own nc")

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from yolo_dual_tpu_torch.io.weights import state_dict_from_orbax
 from yolo_dual_tpu_torch.utils.general import LOGGER
 
 
@@ -60,7 +61,12 @@ def load_weights(model: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
 
 def partial_load(model: torch.nn.Module, path) -> torch.nn.Module:
     """Load the shape-matching entries of a checkpoint into `model`,
-    preferring its EMA weights (JAX checkpoint.py:49)."""
+    preferring its EMA weights (JAX checkpoint.py:49): a `.pt` of the port or
+    a state_dict, or an orbax checkpoint directory of the JAX package, whose
+    source is JAX's: `ckpt["ema"]["ema"]` where the EMA is not empty, else
+    `variables`, else the bare tree."""
+    if not str(path).endswith(".pt"):
+        return load_weights(model, state_dict_from_orbax(path))
     ckpt = load_checkpoint(path)
     src = ckpt.get("ema") or ckpt.get("model") or ckpt
     return load_weights(model, src)
