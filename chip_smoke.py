@@ -268,6 +268,30 @@ which raises on failure:
    the batches a bucket, box mAP50 above 0.05, and
    RECT_CHECK_FRAMES frames a bucket on the card and on the CPU within
    RECT_MAP_TOL;
+6k. data parallelism and the utils layer (`data_parallel_path`, after 10b,
+   on a cut of phase 10's set: 16 train and 16 val 480x640 frames), TF32
+   off: `python -m torch.distributed.run --standalone --nproc-per-node 2
+   chip_smoke.py --dp-rank build/phase6k` starts 2 ranks sharing cuda:0,
+   over gloo (parallel/mesh.py's rule), each of which runs (a) one
+   accumulation cycle of yolov5s-seg-dcnv3 at 640 px (4 micro-steps, global
+   bs 16, 8 a rank) under DDP with the synchronised BatchNorm and again
+   with each rank's BatchNorm on its own rows (the fault reference), (b)
+   `segment.train --data-parallel --sync-bn --epochs 1` and (c) `segment.val
+   --data-parallel --device-preprocess` (K1 a rank's batch) on a set of 32
+   frames labelled by the primed model, each with the kernels' counts set
+   to 0 just before and read just after; this process runs (a) three times
+   as one process (twice with the global batch's rows in the ranks' order,
+   the reference and the card's spread, once in their own order) and (c)
+   once: the ranks' parameters equal each other, their updates and
+   BatchNorm statistics agree with the reference's within DP_UPDATE_TOL and
+   DP_STAT_TOL, which lie above the spread and below the fault reference's
+   gaps, (b)'s rank 0 wrote results.csv and a last.pt that loads
+   here, (c)'s 8 metrics agree within DP_MAP_TOL; then (d) autobatch at 640
+   px (bytes a candidate, mem_get_info's total), model_info and profile of
+   the fused bs-16 forward (GFLOPs, ms, TFLOP/s), check_bf16, a
+   torch.profiler trace under build/phase6k, `segment.train --evolve 2
+   --epochs 1` (2 rows of evolve.csv); a `data parallel and utils (6k)` JSON
+   line and the phase's seconds;
 11. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 
@@ -3688,10 +3712,12 @@ def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
 
 
 def train_setup(model, bs: int, accumulate: int, count: int = 0,
-                hyp_name: str = "hyp.scratch-low.json"):
+                hyp_name: str = "hyp.scratch-low.json", mesh=None, remat=False):
     """Trainer and state for `model`: SGD with `hyp_name` (weight decay scaled
     by bs · accumulate / 64), the EMA, the overlap segment loss; the
-    optimizer's inner step count starts at `count`."""
+    optimizer's inner step count starts at `count`; with `mesh` (a rank of a
+    data-parallel group) the trainer synchronises BatchNorm and wraps DDP;
+    `remat` recomputes the forward in the backward."""
     from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
     from yolo_dual_tpu_torch.train.ema import ModelEMA
     from yolo_dual_tpu_torch.train.optim import smart_optimizer
@@ -3703,7 +3729,7 @@ def train_setup(model, bs: int, accumulate: int, count: int = 0,
     opt = smart_optimizer(model, "SGD", hyp, epochs=EPOCHS, steps_per_epoch=STEPS_PER_EPOCH,
                           accumulate=accumulate, total_batch_size=bs)
     opt.count = count
-    trainer = Trainer(model, loss, opt, ModelEMA(model), task="segment")
+    trainer = Trainer(model, loss, opt, ModelEMA(model), task="segment", mesh=mesh, remat=remat)
     return trainer, trainer.init_state()
 
 
@@ -4284,8 +4310,7 @@ def remat_phase(batch: dict, card: str) -> dict:
     runs = {}
     for remat in (False, True):
         m = copy.deepcopy(base)
-        trainer, state = train_setup(m, TRAIN_BS, ACCUMULATE, hyp_name=HOST_HYP)
-        trainer.remat = remat
+        trainer, state = train_setup(m, TRAIN_BS, ACCUMULATE, hyp_name=HOST_HYP, remat=remat)
         # the checked step with TF32 off: with it on, the two runs' convolutions may take
         # algorithms of other TF32 roundings (their free memory differs), ~1e-3 apart
         torch.backends.cudnn.allow_tf32 = False
@@ -4512,6 +4537,350 @@ def host_route_path(card: str, device_epoch_img_s: float):
     return launches, remat_launches
 
 
+# --- phase 6k: data parallelism over torch.distributed and the utils layer ----------------
+
+DP_RANKS, DP_BS, DP_CYCLE = 2, TRAIN_BS, ACCUMULATE  # 2 ranks on cuda:0; global bs 16 (8 a rank)
+DP_CYCLE_SEED = 600  # micro-step k of 6k (a) draws its global batch from rng(DP_CYCLE_SEED + k)
+DP_UPDATE_TOL = 5e-3  # a parameter's update, 2 ranks against one process on the same rows: max
+DP_UPDATE_FLOOR = 1e-3  # gap over (its max update + DP_UPDATE_FLOOR x the model's largest update)
+DP_STAT_TOL = 1e-5  # BatchNorm statistics: max gap / max |statistic|
+# both limits are held above the card's spread (one process against itself) and below the
+# gaps of per-rank BatchNorm (the fault), each measured in the phase
+DP_MAP_TOL = 2e-3  # segment.val's 8 metrics, 2 ranks against one process
+DP_TIMEOUT_S = 420
+
+
+def dp_cycle(mesh, start: Path, device="cuda", rows=None, sync_bn=True):
+    """One accumulation cycle (DP_CYCLE micro-steps, the optimizer's step on the
+    last) of yolov5s-seg-dcnv3 at 640 px from the weights in `start`, on the
+    global batches rng(DP_CYCLE_SEED + k) of DP_BS: this rank's rows of each
+    under `mesh` (the port's synchronised BatchNorm and DDP), the whole batch
+    without one, its rows in the order `rows` where given. `sync_bn` False
+    leaves each rank's BatchNorm on its own rows (DDP without synchronised
+    BatchNorm: the fault that 6k (a)'s limit must catch). Returns
+    (state_dict, EMA state_dict, each micro-step's items and ms, the host
+    clock around it and a synchronise)."""
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.parallel.mesh import convert_sync_batchnorm, shard_batch
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device=device)
+    model.load_state_dict(torch.load(start, map_location=device, weights_only=True))
+    trainer, state = train_setup(model, DP_BS, DP_CYCLE, count=1000, mesh=mesh)
+    if not sync_bn:
+        convert_sync_batchnorm(model, None)
+    items, ms = [], []
+    for k in range(DP_CYCLE):
+        b = train_batch(np.random.default_rng(DP_CYCLE_SEED + k), DP_BS, TRAIN_IMGSZ, "cpu")
+        if rows is not None:
+            b = {key: v[rows] for key, v in b.items()}
+        b = {key: v.to(device) for key, v in (shard_batch(b, mesh) if mesh else b).items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, b)
+        items.append([float(v) for v in m["items"].tolist()])
+        ms.append((time.perf_counter() - t) * 1e3)
+    if state.optimizer.count != 1001 or state.ema.updates != 1:
+        raise AssertionError(f"6k cycle: {state.optimizer.count} steps, {state.ema.updates} EMA")
+    return ({k: v.detach().cpu() for k, v in model.state_dict().items()},
+            {k: v.detach().cpu() for k, v in state.ema.ema.state_dict().items()}, items, ms)
+
+
+def dp_rank(out: Path) -> int:
+    """A rank of phase 6k, started by torch.distributed.run: (a) the DDP cycle,
+    then its fault reference with per-rank BatchNorm, (b) segment.train --data-parallel --sync-bn, (c) segment.val
+    --data-parallel --device-preprocess, each with the kernels' counts set to 0
+    just before and read just after; writes out/rank{r}.json."""
+    from yolo_dual_tpu_torch.parallel.mesh import data_parallel
+    from yolo_dual_tpu_torch.segment import train as segment_train
+    from yolo_dual_tpu_torch.segment import val as segment_val
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    job = json.loads((out / "job.json").read_text())
+    mesh = data_parallel("cuda")
+    if mesh is None or mesh.size != DP_RANKS:
+        raise AssertionError(f"6k rank: no {DP_RANKS}-rank group ({mesh})")
+    res = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device)}
+    t = time.perf_counter()
+    (sd, ema, items, ms), res["cycle_launches"] = cli_launches(
+        lambda: dp_cycle(mesh, out / "start.pt"))
+    res["cycle_s"], res["cycle_items"], res["micro_step_ms"] = time.perf_counter() - t, items, ms
+    torch.save({"state": sd, "ema": ema}, out / f"cycle_rank{mesh.rank}.pt")
+    (sd, ema, _, _), res["fault_launches"] = cli_launches(
+        lambda: dp_cycle(mesh, out / "start.pt", sync_bn=False))
+    torch.save({"state": sd, "ema": ema}, out / f"cycle_rank{mesh.rank}_local_bn.pt")
+    t = time.perf_counter()
+    _, res["train_launches"] = cli_launches(lambda: segment_train.main(job["train_args"]))
+    res["train_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    (mean, _, times), res["val_launches"] = cli_launches(
+        lambda: segment_val.run(**job["val_kw"]))
+    res.update(val_s=time.perf_counter() - t, val_mean=[float(v) for v in mean],
+               val_times_ms=list(times))
+    (out / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_process_group(cmd, timeout: float, log: Path, env=None) -> int:
+    """Run cmd in a session of its own, its output to `log`; on the timeout the
+    whole session is killed, so no rank outlives the phase."""
+    import signal
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
+                             env=env)
+        try:
+            return p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            raise
+
+
+def max_gap(a: dict, b: dict, keys, floor: float = 0.0) -> tuple:
+    """The largest gap between two state dicts over `keys`, each relative to its
+    tensor's largest |b| plus `floor` (a bias whose update is rounding, ahead
+    of a BatchNorm, moves by next to nothing): (gap, key)."""
+    return max(((float((a[k].double() - b[k].double()).abs().max())
+                 / max(float(b[k].double().abs().max()) + floor, 1e-12), k) for k in keys),
+               default=(0.0, ""))
+
+
+def dp_cut_set(src: Path, dst: Path, n: int = 16) -> Path:
+    """The first n 480x640 frames of each of phase 10's splits, with their labels."""
+    import shutil
+    for split in ("train", "val"):
+        for sub in ("images", "labels"):
+            (dst / sub / split).mkdir(parents=True)
+        for f in sorted((src / "images" / split).glob("480x640_*.npy"))[:n]:
+            shutil.copy(f, dst / "images" / split / f.name)
+            shutil.copy(src / "labels" / split / f"{f.stem}.txt", dst / "labels" / split)
+    return dst
+
+
+def data_parallel_path(card: str) -> dict:
+    """Phase 6k: 2 ranks sharing cuda:0 over gloo (parallel/mesh.py's rule for
+    ranks that share a card), TF32 off. (a) One accumulation cycle of
+    yolov5s-seg-dcnv3 at 640 px, global bs 16 (8 a rank), synchronised
+    BatchNorm, against one process's bs-16 cycle from the same weights on
+    the global batch's rows in the ranks' order (rows 0, 2, ..., 1, 3, ...;
+    the row order alone moves the card's updates by more than the ranks do):
+    the ranks hold identical parameters, and the parameters' updates and the
+    BatchNorm statistics agree with one process's within DP_UPDATE_TOL and
+    DP_STAT_TOL. Those limits are held above the card's spread (that cycle
+    run again) and below the gaps of the same 2 ranks with per-rank
+    BatchNorm (DDP without synchronised statistics); the cycle on the rows
+    in their own order is reported. (b) segment.train --data-parallel --sync-bn --epochs 1 through
+    torch.distributed.run on 16 + 16 frames of phase 10's set: rank 0 writes
+    results.csv and last.pt, which then loads in this process. (c) segment.val
+    --data-parallel --device-preprocess (K1 on each rank's batch) of the primed
+    model on a self-labelled set of 32 frames: the 8 metrics within DP_MAP_TOL
+    of one process's. (d) autobatch at 640 px (the bytes at each candidate and
+    the card's mem_get_info total), model_info and profile of the fused bs-16
+    forward (GFLOPs, ms, TFLOP/s), check_bf16 (held on the seeded initial
+    weights; on the calibrated model with steep DCNv3 heads only recorded:
+    a random network amplifies bf16's rounding), a torch.profiler trace under
+    build/phase6k, and segment.train --evolve 2 --epochs 1 (2 rows of
+    evolve.csv; the plot is skipped with a logged line without matplotlib).
+    Returns the kernels' launches on the phase's paths, the ranks' included."""
+    import shutil
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.segment import train as segment_train
+    from yolo_dual_tpu_torch.segment import val as segment_val
+    from yolo_dual_tpu_torch.train.checkpoint import load_checkpoint
+    from yolo_dual_tpu_torch.utils import autobatch, profiling
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent / "build" / "phase6k"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    data = dp_cut_set(Path(__file__).resolve().parent / "build" / "phase10", root / "data")
+    launches = {"letterbox_normalize": 0, "dcnv3_sampling": 0, "dcnv3_sampling_backward": 0}
+
+    def count(part):
+        for k, v in part.items():
+            launches[k] += v
+
+    # the start weights (a) and the primed model's val set (c)
+    model = dcnv3_train_model()
+    torch.save(model.state_dict(), root / "start.pt")
+    prime_for_eval(model)
+    (val_root, _), part = cli_launches(lambda: (write_val_set(
+        root / "val", model, make_frames(32, seed=6, sizes=(EVAL_SHAPE,))), None))
+    count(part)
+    torch.save(model.state_dict(), root / "primed.pt")
+    del model
+    val_kw = dict(data=str(val_root), weights=str(root / "primed.pt"), cfg="yolov5s-seg-dcnv3.json",
+                  batch_size=DP_BS, imgsz=640, conf_thres=0.001, iou_thres=0.6, device="cuda",
+                  device_preprocess=True)
+    base_args = ["--cfg", "yolov5s-seg-dcnv3.json", "--data", str(data), "--hyp",
+                 "hyp.scratch-low.json", "--imgsz", str(TRAIN_IMGSZ), "--batch-size", str(DP_BS),
+                 "--nbs", str(DP_BS), "--epochs", "1", "--dtype", "f32", "--device", "cuda",
+                 "--project", str(root / "runs")]
+    train_args = base_args + ["--name", "dp", "--data-parallel", "--sync-bn"]
+    (root / "job.json").write_text(json.dumps({"train_args": train_args,
+                                               "val_kw": {**val_kw, "data_parallel": True}}))
+    # (a) one process's cycles: the global batch's rows in the ranks' order (0, 2, ..., 1,
+    # 3, ...) twice, the reference and the card's spread, and once in their own order (the
+    # row order alone moves the updates by more than the ranks do: summation orders)
+    rank_rows = torch.from_numpy(np.concatenate([np.arange(r, DP_BS, DP_RANKS)
+                                                 for r in range(DP_RANKS)]))
+    t = time.perf_counter()
+    (one_sd, one_ema, one_items, one_ms), part = cli_launches(
+        lambda: dp_cycle(None, root / "start.pt", rows=rank_rows))
+    count(part)
+    one_cycle_s = time.perf_counter() - t
+    (again_sd, _, _, _), part = cli_launches(
+        lambda: dp_cycle(None, root / "start.pt", rows=rank_rows))
+    count(part)
+    (own_sd, _, own_items, _), part = cli_launches(lambda: dp_cycle(None, root / "start.pt"))
+    count(part)
+    # (c) one process's val
+    (one_mean, _, _), part = cli_launches(lambda: segment_val.run(**val_kw))
+    count(part)
+    # the ranks
+    t = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(DP_RANKS), str(Path(__file__).resolve()), "--dp-rank", str(root)]
+    rc = run_process_group(cmd, DP_TIMEOUT_S, root / "ranks.log")
+    ranks_s = time.perf_counter() - t
+    if rc != 0:
+        print((root / "ranks.log").read_text()[-6000:], flush=True)
+        raise AssertionError(f"6k: torch.distributed.run exited {rc}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    for r in ranks:
+        for key in ("cycle_launches", "fault_launches", "train_launches", "val_launches"):
+            count(r[key])
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"6k: backends {[r['backend'] for r in ranks]}, gloo expected")
+    # (a) the ranks against each other and against one process
+    cyc = [torch.load(root / f"cycle_rank{r}.pt", weights_only=True) for r in range(DP_RANKS)]
+    start = torch.load(root / "start.pt", map_location="cpu", weights_only=True)
+    if not all(torch.equal(cyc[0][s][k], cyc[1][s][k]) for s in ("state", "ema") for k in start):
+        raise AssertionError("6k (a): the ranks' parameters, statistics or EMA differ")
+    params = [k for k in start if "running" not in k and "num_batches" not in k]
+    stats = [k for k in start if "running" in k]
+    dp_upd = {k: cyc[0]["state"][k] - start[k] for k in params}
+    one_upd = {k: one_sd[k] - start[k] for k in params}
+    floor = DP_UPDATE_FLOOR * max(float(u.abs().max()) for u in one_upd.values())
+    upd_gap, upd_key = max_gap(dp_upd, one_upd, params, floor)
+    stat_gap, stat_key = max_gap(cyc[0]["state"], one_sd, stats)
+    one_ema_upd = {k: one_ema[k] - start[k] for k in params}
+    ema_gap, ema_key = max_gap({k: cyc[0]["ema"][k] - start[k] for k in params}, one_ema_upd,
+                               params, DP_UPDATE_FLOOR * max(float(u.abs().max())
+                                                             for u in one_ema_upd.values()))
+    upd_gap_bare, upd_key_bare = max_gap(dp_upd, one_upd, params)
+    items_gap = float(np.abs(np.array(ranks[0]["cycle_items"]) - np.array(one_items)).max())
+    local = torch.load(root / "cycle_rank0_local_bn.pt", weights_only=True)["state"]
+    spread = {}
+    for name, sd in (("again", again_sd), ("local_bn", local), ("own_row_order", own_sd)):
+        gap, key = max_gap({k: sd[k] - start[k] for k in params}, one_upd, params, floor)
+        bare, bare_key = max_gap({k: sd[k] - start[k] for k in params}, one_upd, params)
+        sgap, skey = max_gap(sd, one_sd, stats)
+        spread[name] = {"update_gap": gap, "key": key, "update_gap_without_floor": bare,
+                        "its_key": bare_key, "stat_gap": sgap, "stat_key": skey}
+    spread["own_row_order"]["items_gap"] = float(
+        np.abs(np.array(own_items) - np.array(one_items)).max())
+    if upd_gap > DP_UPDATE_TOL or ema_gap > DP_UPDATE_TOL or stat_gap > DP_STAT_TOL:
+        raise AssertionError(f"6k (a): update gap {upd_gap} ({upd_key}), EMA {ema_gap}, "
+                             f"statistics {stat_gap} ({stat_key}); spread {spread}")
+    again, fault = spread["again"], spread["local_bn"]
+    if not (again["update_gap"] <= DP_UPDATE_TOL < fault["update_gap"]
+            and again["stat_gap"] <= DP_STAT_TOL < fault["stat_gap"]):
+        raise AssertionError(f"6k (a): the limits {DP_UPDATE_TOL}, {DP_STAT_TOL} do not lie "
+                             f"between the card's spread and the fault's gaps: {spread}")
+    # (b) rank 0's run directory; last.pt loads in one process
+    run = root / "runs" / "dp"
+    res = cli_results(run)
+    if res.shape != (1, 10) or not np.isfinite(res).all():
+        raise AssertionError(f"6k (b): results.csv {res}")
+    ckpt = load_checkpoint(run / "last.pt")
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device="cuda")
+    model.load_state_dict(ckpt["model"], strict=True)
+    (levels, _), part = cli_launches(lambda: model.eval()(torch.zeros(1, 3, 640, 640,
+                                                                      device="cuda"),
+                                                          decode=False))
+    count(part)
+    if ckpt["epoch"] != 0 or len(ckpt.get("data_rng_ranks", [])) != DP_RANKS:
+        raise AssertionError(f"6k (b): last.pt epoch {ckpt['epoch']}")
+    # (c) the ranks' metrics against one process's
+    map_gap = max(float(np.abs(np.array(r["val_mean"]) - np.array(one_mean)).max()) for r in ranks)
+    if map_gap > DP_MAP_TOL or not (one_mean[2] > 0.05 and one_mean[6] > 0.05):
+        raise AssertionError(f"6k (c): metrics {ranks[0]['val_mean']} against {list(one_mean)}")
+    val_batches = -(-32 // DP_BS)
+    if any(r["val_launches"]["letterbox_normalize"] != val_batches for r in ranks):
+        raise AssertionError(f"6k (c): K1 launches {[r['val_launches'] for r in ranks]}")
+    out = {"card": card, "ranks": DP_RANKS, "backend": ranks[0]["backend"],
+           "global_bs": DP_BS, "ranks_s": ranks_s,
+           "a": {"one_process_cycle_s": one_cycle_s, "rank_cycle_s": [r["cycle_s"] for r in ranks],
+                 "one_process_micro_step_ms": one_ms,
+                 "rank_micro_step_ms": [r["micro_step_ms"] for r in ranks],
+                 "update_gap": upd_gap, "update_gap_key": upd_key, "ema_gap": ema_gap,
+                 "update_gap_without_floor": upd_gap_bare, "its_key": upd_key_bare,
+                 "largest_update": floor / DP_UPDATE_FLOOR,
+                 "stat_gap": stat_gap, "stat_gap_key": stat_key, "items_gap": items_gap,
+                 "tol": {"update": DP_UPDATE_TOL, "floor": DP_UPDATE_FLOOR, "stat": DP_STAT_TOL},
+                 "spread": spread,
+                 "launches_a_rank": ranks[0]["cycle_launches"]},
+           "b": {"train_s": [r["train_s"] for r in ranks], "results": res[0].tolist(),
+                 "launches_a_rank": ranks[0]["train_launches"]},
+           "c": {"val_s": [r["val_s"] for r in ranks], "map_gap": map_gap, "tol": DP_MAP_TOL,
+                 "metrics": ranks[0]["val_mean"], "one_process": [float(v) for v in one_mean],
+                 "launches_a_rank": ranks[0]["val_launches"]}}
+    # (d) the utilities, in this process
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device="cuda")
+    model.load_state_dict(start)
+    record = {}
+    t = time.perf_counter()
+    pick, part = cli_launches(lambda: autobatch.autobatch(model, imgsz=640, record=record))
+    count(part)
+    total = torch.cuda.mem_get_info()[1]
+    (n_layers, n_params, gflops), part = cli_launches(lambda: profiling.model_info(model, 640))
+    count(part)
+    model.fuse()
+    x = torch.rand(DP_BS, 3, 640, 640, device="cuda")
+    fwd = lambda t: model(t, decode=False)  # noqa: E731
+    (t_min, t_med, fl), part = cli_launches(lambda: profiling.profile(fwd, x, n=10, warmup=2,
+                                                                      model=model))
+    count(part)
+    # bf16 against float32 on the seeded initial weights; the calibrated random model with
+    # its steep DCNv3 heads amplifies bf16's rounding past JAX's atol (recorded, not held)
+    model2 = SegmentationModel("yolov5s-seg-dcnv3.json", device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    bf16_ok, part = cli_launches(lambda: profiling.check_bf16(model2, imgsz=256))
+    count(part)
+    model2.load_state_dict(start)
+    bf16_calibrated, part = cli_launches(lambda: profiling.check_bf16(model2, imgsz=256))
+    count(part)
+    _, part = cli_launches(lambda: profiling.trace(fwd, x, log_dir=str(root / "trace")))
+    count(part)
+    trace_bytes = (root / "trace" / "trace.json").stat().st_size
+    evolve_csv, part = cli_launches(lambda: segment_train.main(
+        base_args + ["--name", "evo", "--evolve", "2", "--noplots"]))
+    count(part)
+    evolve_rows = len(Path(evolve_csv).read_text().strip().splitlines()) - 1
+    try:
+        import matplotlib  # noqa: F401
+        plotted = (Path(evolve_csv).parent / "evolve.png").exists()
+    except ImportError:
+        plotted = None  # skipped, with the logged line
+    if evolve_rows != 2 or plotted is False or not bf16_ok or trace_bytes == 0:
+        raise AssertionError(f"6k (d): evolve rows {evolve_rows}, plot {plotted}, bf16 {bf16_ok}, "
+                             f"trace {trace_bytes} bytes")
+    out["d"] = {"autobatch_pick": pick, "autobatch_bytes": record, "mem_get_info_total": total,
+                "model_info": {"layers": n_layers, "parameters": n_params,
+                               "gflops_640_bs1": gflops},
+                "profile_bs16_fused": {"min_ms": t_min * 1e3, "median_ms": t_med * 1e3,
+                                       "gflop": fl / 1e9, "tflops": fl / t_min / 1e12},
+                "check_bf16": bf16_ok, "check_bf16_calibrated": bf16_calibrated,
+                "trace_bytes": trace_bytes, "evolve_rows": evolve_rows,
+                "evolve_plot": plotted, "utils_s": time.perf_counter() - t}
+    out["launches"] = launches
+    out["phase_6k_s"] = time.perf_counter() - t_phase
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    print("data parallel and utils (6k) " + json.dumps(out), flush=True)
+    print(f"phase 6k s {out['phase_6k_s']:.2f}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device-times", metavar="ROOT", nargs="?",
@@ -4521,11 +4890,15 @@ def main(argv=None) -> int:
     ap.add_argument("--proof-spread", metavar="RUNS", type=int,
                     help="only the four learning proofs, each RUNS times with deterministic "
                          "algorithms and RUNS times without")
+    ap.add_argument("--dp-rank", metavar="DIR",
+                    help="run as a rank of phase 6k under torch.distributed.run (DIR: its job)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.dp_rank:
+        return dp_rank(Path(args.dp_rank))
     root = Path(args.device_times or Path(__file__).resolve().parent).resolve()
     sys.path.insert(0, str(root))
     from yolo_dual_tpu_torch.kernels.build import library_path, load_library
@@ -4624,6 +4997,9 @@ def main(argv=None) -> int:
     # 10b. the host augmentation route, --remat and rect validation on phase 10's set
     by_path["train CLI host route"], by_path["remat micro-steps"] = \
         host_route_path(card, device_epoch_img_s)
+    # 6k. data parallelism on 2 ranks sharing the card (K2, K3 and K1 on the ranks' paths)
+    # and the utils layer, on a cut of phase 10's set
+    by_path["data parallel and utils"] = data_parallel_path(card)
 
     # 9. the kernels' own device times, on seeded and on the trained model's DCNv3 inputs;
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
@@ -4671,8 +5047,9 @@ def main(argv=None) -> int:
     # K2: 16 frames at batch 1 (prediction) and the server's requests and warm-up (6i),
     # 8 micro-steps at bs 16 (training), and the CLIs' forwards at bs 16 (their micro-steps
     # and val batches, both routes) and 10b's remat micro-steps (two forwards each); K3: the
-    # micro-steps. 6j's launches (bs-8 forwards and the 64-px fixture) count in `launches`;
-    # the means weight the shapes phase 3 times
+    # micro-steps. 6j's launches (bs-8 forwards and the 64-px fixture) and 6k's (the ranks'
+    # bs-8 forwards and micro-steps, the utilities') count in `launches`; the means weight the
+    # shapes phase 3 times
     n_dcn = sum(DCN_PATH_SHAPES.values())
     serve_fwd = by_path["serve yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn
     bs16 = ("train CLI yolov5s-seg-dcnv3", "train CLI host route", "remat micro-steps")

@@ -21,6 +21,7 @@ import importlib.util
 import json
 import sys
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,11 +170,20 @@ def test_val_and_predict_match_jax(imageset, proof, tmp_path):
     with pytest.raises(FileNotFoundError, match="clip.mp4"):   # video sources are read now
         predict_cli.run(model=str(root / "mini.json"), source=str(tmp_path / "clip.mp4"),
                         cutoff=2, device="cpu", nosave=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        val_cli.run(model=str(root / "mini.json"), data_dir=str(root / "port"), cutoff=2,
-                    device="cpu", plots=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_cli.main(["--data-dir", str(root / "port"), "--data-parallel", "--device", "cpu"])
+    # --plots draws JAX's val_images.jpg mosaic, pixel for pixel
+    jax_script("val").run(weights=str(tmp_path / "jax_weights"), model=str(root / "mini.yaml"),
+                          data_dir=str(root / "jax"), plots=True, save_dir=str(tmp_path / "jp"),
+                          **common)
+    val_cli.run(weights=str(run / "last.pt"), model=str(root / "mini.json"), plots=True,
+                data_dir=str(root / "port"), device="cpu", save_dir=str(tmp_path / "pp"), **common)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "pp" / "val_images.jpg")),
+                                  cv2.imread(str(tmp_path / "jp" / "val_images.jpg")))
+    # --data-parallel runs; in one process (no torch.distributed.run) as without the flag
+    top1 = train_cli.main(["--model", str(root / "mini.json"), "--data-dir", str(root / "port"),
+                           "--data-parallel", "--device", "cpu", "--epochs", "1", "--imgsz", "32",
+                           "--cutoff", "2", "--batch-size", "8", "--project", str(tmp_path),
+                           "--name", "dp"])
+    assert 0.0 <= top1 <= 1.0 and len(results(tmp_path / "dp")) == 1
     if not torch.cuda.is_available():
         for call in (lambda: val_cli.main(["--data-dir", str(root / "port")]),
                      lambda: predict_cli.main(["--source", str(root / "port")]),

@@ -255,9 +255,14 @@ def test_val_cli_matches_jax(tmp_path):
         np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
                                    rtol=0, atol=1e-4, err_msg=flag)
         np.testing.assert_allclose(got_maps, want_maps, rtol=0, atol=1e-4, err_msg=flag)
-    for flag in ("plots", "data_parallel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item"):
-            val_cli.run(data=str(root / "port"), **{**kw, flag: True})
+    # --plots draws the curves into the run directory; --data-parallel in one
+    # process (no torch.distributed.run) evaluates as without it
+    got, got_maps, _ = val_cli.run(data=str(root / "port"), plots=True, data_parallel=True,
+                                   project=str(tmp_path / "runs"), name="plots", **kw)
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                               rtol=0, atol=1e-4)
+    assert sorted(p.name for p in (tmp_path / "runs" / "plots").glob("*.png")) == sorted(
+        f"{k}{c}_curve.png" for k in ("Box", "Mask") for c in ("F1", "P", "PR", "R"))
     # --save-json: JAX's entries; a val path naming coco takes COCO's 91-id categories
     jl, _ = loaders(root, bs=2)
     jax_evaluate_segment(jm, v, jl, TINY_NC, conf_thres=0.001, iou_thres=0.6, nm=TINY_NM,

@@ -29,6 +29,7 @@ from yolo_dual_tpu_torch.metrics import (Metrics, ap_per_class, ap_per_class_box
                                          match_predictions, match_predictions_device)
 from yolo_dual_tpu_torch.ops import mask_ops
 from yolo_dual_tpu_torch.ops.nms import nms_from_raw
+from yolo_dual_tpu_torch.parallel import make_mesh
 
 ANCHORS = ((10, 13, 16, 30, 33, 23), (30, 61, 62, 45, 59, 119), (116, 90, 156, 198, 373, 326))
 STRIDES = (8, 16, 32)
@@ -239,9 +240,19 @@ def test_evaluate_segment_matches_jax(tiny, raw, overlap):
 
 
 @pytest.mark.parametrize("option", ["plots", "mesh"])
-def test_evaluate_segment_refuses_what_is_not_ported(tiny, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item"):
-        evaluate_segment(port_model(tiny[1]), [], TINY_NC, device="cpu", **{option: True})
+def test_evaluate_segment_refuses_what_is_not_ported(tiny, option, tmp_path):
+    """Both are ported: `plots` draws the boxes' and masks' PR, F1, P and R
+    curves (the metrics unchanged); a one-rank mesh gives the one-process
+    metrics (tests/test_torch_port_dist.py holds two ranks against JAX)."""
+    loader = BatchLoader(self_labelled_batches(tiny[1], True, False))
+    kw = dict(conf_thres=0.001, iou_thres=0.6, nm=TINY_NM, device="cpu")
+    want, want_maps, _ = evaluate_segment(port_model(tiny[1]), loader, TINY_NC, **kw)
+    extra = {"plots": True, "save_dir": str(tmp_path)} if option == "plots" else \
+        {"mesh": make_mesh(device="cpu")}
+    got, got_maps, _ = evaluate_segment(port_model(tiny[1]), loader, TINY_NC, **kw, **extra)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(got_maps, want_maps)
+    assert len(list(tmp_path.glob("*_curve.png"))) == (8 if option == "plots" else 0)
 
 
 # Flipped mask pixels allowed between the port's predictions.json and JAX's, as a

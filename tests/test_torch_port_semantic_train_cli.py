@@ -230,8 +230,13 @@ def test_class_weights_and_mask_dir(run_set, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(run_set, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 7"):
-        port_train.main(_port_args(run_set, tmp_path, epochs=1) + ["--data-parallel"])
+    # --data-parallel runs: in one process (no torch.distributed.run) as without it
+    port_train.main(_port_args(run_set, tmp_path / "plain", epochs=1))
+    port_train.main(_port_args(run_set, tmp_path / "dp", epochs=1) + ["--data-parallel"])
+    plain, dp = (np.loadtxt(next((tmp_path / d).rglob("results.csv")), delimiter=",", skiprows=1)
+                 for d in ("plain", "dp"))
+    np.testing.assert_array_equal(dp, plain)
+    assert list((tmp_path / "dp").rglob("events.out.tfevents.*"))  # the TB scalars and panels
     jax_opt = vars(_jax_cli().parse_opt([]))
     port_opt = vars(port_train.parse_opt([]))
     assert set(jax_opt) == set(port_opt)

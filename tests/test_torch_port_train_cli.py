@@ -162,10 +162,21 @@ def test_resume_continues_exactly(run_set, tmp_path, one_thread):
 def test_cli_refuses_what_is_not_ported(run_set, tmp_path):
     base = _port_args(run_set, "f32", tmp_path, epochs=1)
     # --no-device-aug, --image-weights, --remat and --cache disk run
-    # (tests/test_torch_port_train_flags.py); item 7's flags still raise
-    for flags in (["--evolve", "2"], ["--data-parallel"], ["--loggers", "wandb"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 7"):
-            port_train.main(base + flags)
+    # (tests/test_torch_port_train_flags.py); so do --data-parallel (in one
+    # process: as without it), --sync-bn, --loggers (TensorBoard; wandb is a
+    # no-op without its package) and --evolve
+    port_train.main(base)
+    port_train.main(base + ["--data-parallel", "--sync-bn", "--loggers", "wandb", "--name", "dp"])
+    np.testing.assert_array_equal(_results(tmp_path / "dp"), _results(tmp_path / "exp"))
+    assert (tmp_path / "dp" / "labels.jpg").exists() and (tmp_path / "dp" / "results.png").exists()
+    assert list((tmp_path / "dp").glob("events.out.tfevents.*"))
+    port_train.main(base + ["--evolve", "2", "--noplots"])
+    evolve_dir = tmp_path / "exp-evolve"
+    rows = np.loadtxt(evolve_dir / "evolve.csv", delimiter=",", skiprows=1, ndmin=2)
+    assert rows.shape[0] == 2 and (evolve_dir / "evolve.png").exists()
+    from yolo_dual_tpu.utils.evolve import mutate as jax_mutate
+    assert json.loads((evolve_dir / "hyp_gen0.json").read_text()) == \
+        jax_mutate(yaml.safe_load(HYP_YAML.read_text()), evolve_dir / "absent.csv", seed=0)
     jax_opt = vars(_jax_cli().parse_opt([]))
     port_opt = vars(port_train.parse_opt([]))
     assert set(jax_opt) == set(port_opt)

@@ -22,6 +22,13 @@ and shapes match. Dropout (--dropout) draws from a generator seeded for each
 micro-step (train/trainer.py:Trainer.dropout), as JAX's trainer folds the step
 into its key, but not JAX's stream. The device defaults to cuda; pass
 --device cpu to run on the CPU.
+
+--data-parallel under `python -m torch.distributed.run --nproc-per-node N -m
+yolo_dual_tpu_torch.classify.train ...` trains one rank a process
+(parallel/mesh.py): --batch-size is the global batch, each rank loads its
+rows of it, BatchNorm and the cross-entropy's mean span the global batch.
+Every rank scores the whole val set (the same numbers everywhere, so early
+stopping agrees) and rank 0 alone writes the run directory.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ import torch
 from yolo_dual_tpu_torch.data.classify import create_classification_dataloader
 from yolo_dual_tpu_torch.models.flax_init import flax_init_
 from yolo_dual_tpu_torch.models.model import ClassificationModel
+from yolo_dual_tpu_torch.parallel.mesh import (data_parallel, from_rank0, is_main, rank0_first,
+                                               shard_loader)
 from yolo_dual_tpu_torch.train.checkpoint import partial_load, save_checkpoint
 from yolo_dual_tpu_torch.train.ema import ModelEMA
 from yolo_dual_tpu_torch.train.optim import smart_optimizer
@@ -75,19 +84,21 @@ def topk_hits(logits: np.ndarray, labels: np.ndarray):
 
 def train(opt):
     """Train as JAX classify/train.py:train does; returns the best top-1."""
+    mesh = data_parallel(opt.device) if opt.data_parallel else None
+    rank0 = is_main(mesh)
     dev = select_device(opt.device)
-    if opt.data_parallel:
-        raise NotImplementedError("classify.train --data-parallel is not ported yet "
-                                  "(ROADMAP A item 7)")
     init_seeds(opt.seed)
-    save_dir = increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok, mkdir=True)
+    save_dir = from_rank0(lambda: increment_path(Path(opt.project) / opt.name,
+                                                 exist_ok=opt.exist_ok, mkdir=True), mesh)
     data = Path(opt.data_dir)
-    train_loader, train_ds = create_classification_dataloader(
-        data / "train", imgsz=opt.imgsz, batch_size=opt.batch_size, augment=not opt.no_augment,
-        cache=opt.cache, shuffle=True, seed=opt.seed)
-    val_loader, _ = create_classification_dataloader(
-        data / ("val" if (data / "val").exists() else "test"), imgsz=opt.imgsz,
-        batch_size=opt.batch_size, augment=False, cache=opt.cache, shuffle=False)
+    with rank0_first(mesh):  # a disk cache is written once
+        train_loader, train_ds = create_classification_dataloader(
+            data / "train", imgsz=opt.imgsz, batch_size=opt.batch_size,
+            augment=not opt.no_augment, cache=opt.cache, shuffle=True, seed=opt.seed)
+        val_loader, _ = create_classification_dataloader(
+            data / ("val" if (data / "val").exists() else "test"), imgsz=opt.imgsz,
+            batch_size=opt.batch_size, augment=False, cache=opt.cache, shuffle=False)
+    shard_loader(train_loader, mesh)
     nc = len(train_ds.classes)
 
     model = build_classifier(opt.model, nc, cutoff=opt.cutoff, dropout=opt.dropout or 0.0,
@@ -106,13 +117,14 @@ def train(opt):
     trainer = Trainer(model, lambda logits, labels: classify_loss(logits, labels,
                                                                    opt.label_smoothing),
                       optimizer, ema=ModelEMA(model, decay=0.9999, tau=2000.0), task="classify",
-                      dropout=bool(opt.dropout))
+                      dropout=bool(opt.dropout), mesh=mesh)
     state = trainer.init_state()
     stopper = EarlyStopping(opt.patience)
     best = 0.0
     csv_path = save_dir / "results.csv"
-    with open(csv_path, "w", newline="") as f:
-        csv.writer(f).writerow(["epoch", "train_loss", "top1", "top5"])
+    if rank0:
+        with open(csv_path, "w", newline="") as f:
+            csv.writer(f).writerow(["epoch", "train_loss", "top1", "top5"])
     t0 = time.time()
     for epoch in range(opt.epochs):
         train_loader.set_epoch(epoch)
@@ -130,9 +142,10 @@ def train(opt):
         top1, top5 = float(top1 / max(n, 1)), float(top5 / max(n, 1))
         LOGGER.info(f"epoch {epoch}: loss {mloss:.4f} top1 {top1:.4f} top5 {top5:.4f} "
                     f"({(time.time() - t0) / (epoch + 1):.1f}s/epoch)")
-        with open(csv_path, "a", newline="") as f:
-            csv.writer(f).writerow([epoch, mloss, top1, top5])
-        if not opt.nosave or epoch == opt.epochs - 1:
+        if rank0:
+            with open(csv_path, "a", newline="") as f:
+                csv.writer(f).writerow([epoch, mloss, top1, top5])
+        if rank0 and (not opt.nosave or epoch == opt.epochs - 1):
             ckpt = {"model": state.model.state_dict(), "ema": state.ema.ema.state_dict(),
                     "updates": state.ema.updates, "epoch": epoch, "best_fitness": max(best, top1),
                     "classes": list(train_ds.classes)}
@@ -178,7 +191,8 @@ def parse_opt(argv=None):
     p.add_argument("--name", default="exp")
     p.add_argument("--exist-ok", action="store_true")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one rank a process under torch.distributed.run; --batch-size is global")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     return p.parse_args(argv)
 

@@ -10,7 +10,9 @@ or RGB uint8 `.npy` frames (data/classify.py), center-cropped and resized on
 the host. --weights takes a `.pt` of classify.train (its EMA weights), a
 state_dict, or an orbax checkpoint directory of the JAX package (its EMA
 first), loaded strictly; without it the model has JAX's initial weights
-under PRNGKey(0). --verbose logs the per-class table.
+under PRNGKey(0). --verbose logs the per-class table; --plots saves the first
+batch's mosaic with true and predicted classes as `save_dir`/val_images.jpg
+(utils/plots.py:imshow_cls, matplotlib).
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import numpy as np
 import torch
 
 from yolo_dual_tpu_torch.classify.train import build_classifier, topk_hits
-from yolo_dual_tpu_torch.data.classify import ClassificationDataset
+from yolo_dual_tpu_torch.data.classify import ClassificationDataset, denormalize_imagenet
 from yolo_dual_tpu_torch.data.loader import Loader
 from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.flax_init import flax_init_
 from yolo_dual_tpu_torch.utils.general import LOGGER, select_device
+from yolo_dual_tpu_torch.utils.plots import imshow_cls
 
 
 def run(weights="", model="yolov5n.yaml", data_dir="", imgsz=224, batch_size=64, cutoff=10,
@@ -34,9 +37,6 @@ def run(weights="", model="yolov5n.yaml", data_dir="", imgsz=224, batch_size=64,
     """Evaluate; returns (top1, top5). The eval loop's logits of every image,
     in the dataset's order, stay readable afterwards as `run.logits`."""
     dev = select_device(device)
-    if plots:
-        raise NotImplementedError("classify.val --plots (imshow_cls) is not ported yet "
-                                  "(ROADMAP A item 7)")
     data = Path(data_dir)
     ds = ClassificationDataset(data / ("val" if (data / "val").exists() else "test"), imgsz,
                                augment=False)
@@ -49,16 +49,26 @@ def run(weights="", model="yolov5n.yaml", data_dir="", imgsz=224, batch_size=64,
         flax_init_(m)
     m.eval()
     hits1, hits5, labels, logits = [], [], [], []
+    first = None  # the first batch (images, labels, logits) for --plots
     for batch in loader:
         with torch.inference_mode():
             x = torch.from_numpy(batch["image"]).to(dev).permute(0, 3, 1, 2)
             out = m(x).float().cpu().numpy()
+        if first is None:
+            first = (batch["image"], batch["label"], out)
         bsz = int(batch["n_valid"])
         lab = batch["label"][:bsz]
         hit1, hit5 = topk_hits(out[:bsz], lab)
         hits1.append(hit1), hits5.append(hit5), labels.append(lab), logits.append(out[:bsz])
     hit1, hit5, labels = np.concatenate(hits1), np.concatenate(hits5), np.concatenate(labels)
     run.logits = np.concatenate(logits)
+    if plots and first is not None:
+        # the first batch with true and predicted captions (JAX classify/val.py:65-76;
+        # reference imshow_cls), its ImageNet normalisation undone for display
+        ims, labs, lgt = first
+        f = imshow_cls(denormalize_imagenet(ims), labels=labs, pred=np.argsort(-lgt, axis=1)[:, 0],
+                       names=ds.classes, f=Path(save_dir) / "val_images.jpg")
+        LOGGER.info(f"mosaic saved to {f}")
     n = max(len(labels), 1)
     top1, top5 = float(hit1.sum() / n), float(hit5.sum() / n)
     LOGGER.info(f"top1 {top1:.4f} top5 {top5:.4f} over {len(labels)} images")
@@ -80,7 +90,7 @@ def parse_opt(argv=None):
     p.add_argument("--data-dir", "--data", type=str, required=True)
     p.add_argument("--imgsz", "--img", "--img-size", type=int, default=224)
     p.add_argument("--verbose", action="store_true", help="per-class accuracy")
-    p.add_argument("--plots", action="store_true", help="not ported yet")
+    p.add_argument("--plots", action="store_true", help="save the val_images.jpg mosaic")
     p.add_argument("--save-dir", type=str, default=".")
     p.add_argument("--half", action="store_true", help="parity flag")
     p.add_argument("--dnn", action="store_true", help="parity flag")

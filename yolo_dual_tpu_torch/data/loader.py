@@ -1,8 +1,8 @@
 """Host batch loader with background prefetch, and input normalisation (port
 of yolo_dual_tpu/data/loader.py; reference utils/dataloaders.py:103-186).
 
-One process reads the whole dataset: the JAX loader's per-host sharding has
-no counterpart here.
+Under data parallelism (`num_shards` ranks, parallel/mesh.py) each rank
+reads only its rows of every global batch.
 """
 
 from __future__ import annotations
@@ -33,13 +33,22 @@ class Loader:
     - `collate`: a transform of each batch's sample list before stacking (the
       quad collate of data/dataset.py), with JAX's `n_valid` rule: a collated
       sample is real when it holds at least one real one
+    - `num_shards` / `shard_index` (one rank of a data-parallel run): each
+      global batch of `batch_size · num_shards` indices is cut as JAX's
+      per-host shard idx[r::W] cuts it (data/loader.py:79 there), so rank r's
+      batch is rows r, r + W, ... of the global one and the union of the
+      ranks' batches is the global batch. Every rank yields the same number
+      of batches: where the last global batch leaves a rank no row, its batch
+      is padding with `n_valid` 0 (JAX's shard yields none there, and its
+      data-parallel val rounds the batch up instead); with `drop_last` the
+      partial global batch is dropped on every rank
     - background thread prefetch (depth `prefetch`) overlapping host reads and
       augmentation with device compute
     """
 
     def __init__(self, dataset, batch_size: int = 16, shuffle: bool = False,
                  seed: int = 0, prefetch: Optional[int] = 2, drop_last: bool = False,
-                 collate=None):
+                 collate=None, num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -53,6 +62,9 @@ class Loader:
         self.epoch = 0
         self.collate = collate
         self.sample_weights = None
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} of {num_shards} shards")
+        self.num_shards, self.shard_index = num_shards, shard_index
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -70,10 +82,16 @@ class Loader:
         return idx
 
     def _chunks(self):
-        """The epoch's index chunks, bucket by bucket (in bucket order) when
-        the dataset has aspect buckets (JAX data/loader.py:85-103)."""
+        """This rank's index chunks of the epoch (empty where a padding batch
+        stands)."""
+        return (mine for mine, _ in self._shards())
+
+    def _shards(self):
+        """(this rank's indices, the global chunk's last index) for each global
+        chunk of the epoch, bucket by bucket (in bucket order) when the
+        dataset has aspect buckets (JAX data/loader.py:85-103)."""
         idx = self._indices()
-        bs = self.batch_size
+        bs = self.batch_size * self.num_shards
         bucket_of = getattr(self.dataset, "bucket_of", None)
         groups = [idx]
         if bucket_of is not None:
@@ -84,16 +102,17 @@ class Loader:
         for g in groups:
             stop = len(g) - len(g) % bs if self.drop_last else len(g)
             for s in range(0, stop, bs):
-                yield g[s:s + bs]
+                chunk = g[s:s + bs]
+                yield chunk[self.shard_index::self.num_shards], chunk[-1]
 
     def __len__(self):
         return sum(1 for _ in self._chunks())
 
     def _batches(self):
         bs = self.batch_size
-        for chunk in self._chunks():
-            samples = [self.dataset[i] for i in chunk]
-            samples += [samples[-1]] * (bs - len(chunk))
+        for chunk, last in self._shards():
+            samples = [self.dataset[i] for i in chunk or [last]]
+            samples += [samples[-1]] * (bs - len(samples))
             n_valid = len(chunk)
             if self.collate is not None:
                 samples = self.collate(samples)

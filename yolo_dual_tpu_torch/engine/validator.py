@@ -11,6 +11,15 @@ or, with `use_soft_nms`, Gaussian soft-NMS), and the whole TP matching,
 batched over images: box IoU against the gt, the proto masks, mask IoU, and
 `match_predictions_device` for both. The host only slices the padded results
 and runs the AP curves (metrics/).
+
+With `mesh` (parallel/mesh.py, one process a rank) each rank evaluates its
+rows of every global batch (data/loader.py:Loader's shards, or
+parallel/mesh.py:shard_batch), and the ranks' statistics are gathered in
+global-batch order (segment: each image's matches; semantic: the
+confusion matrices summed, the val loss taken over the global batch), so the
+metrics equal the one-process run's, as JAX's mesh evaluation does
+(tests/test_eval_dp.py). Every rank returns them; the times are the rank's
+own per image.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from yolo_dual_tpu_torch.ops.mask_ops import (mask_iou, process_mask, resize_lin
                                               scale_image)
 from yolo_dual_tpu_torch.models.model import forward_augment
 from yolo_dual_tpu_torch.ops.nms import nms_batched, nms_from_raw
+from yolo_dual_tpu_torch.parallel.mesh import across, gather_batches, global_sum
 from yolo_dual_tpu_torch.utils.coco import (evaluate_coco_json, save_one_json,
                                             write_predictions_json)
 from yolo_dual_tpu_torch.utils.general import LOGGER, Profile, select_device
@@ -118,11 +128,6 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     (ops/mask_ops.py:resize_linear_f32, scale_image, on the device),
     then > 0.5; with `anno_json`, COCOeval where pycocotools is installed.
     """
-    for name, on, what in (("plots", plots, "utils/plots"),
-                           ("mesh", mesh is not None, "data-parallel eval")):
-        if on:
-            raise NotImplementedError(f"evaluate_segment({name}=...) is not ported yet "
-                                      f"({what}, ROADMAP A item 7)")
     dev = select_device(device)
     model = model.to(dev).eval()
     if fuse:
@@ -131,7 +136,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     anchors, strides = head.anchors, head.strides
     im_files = getattr(getattr(loader, "dataset", None), "im_files", None)
 
-    stats = []
+    per_batch = []  # a list a batch of its images' (tp boxes, tp masks, conf, class, gt classes)
     jdict = []
     dt = [Profile(device=dev), Profile(device=dev), Profile(device=dev)]
     seen = 0
@@ -166,6 +171,8 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
             protos = protos.float()
             cb, cm = batch_matches(out, n_valid, protos, targets, tmask.bool(), gmasks, h, w, nm)
         bsz = int(batch.get("n_valid", image.shape[0]))
+        stats = []
+        per_batch.append(stats)
         with dt[2]:
             out_h, nv, cb, cm = out.cpu(), n_valid.cpu().numpy(), cb.cpu().numpy(), cm.cpu().numpy()
             for si in range(bsz):
@@ -202,7 +209,10 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
                                   dets[:, 4].numpy(), dets[:, 5].numpy(), pred_masks=pm,
                                   class_map=class_map)
 
-    if save_json and jdict:
+    stats = gather_batches(per_batch, mesh)
+    if save_json:
+        jdict = gather_batches([jdict], mesh)
+    if save_json and jdict and (mesh is None or mesh.rank == 0):
         pred_json = write_predictions_json(jdict, save_dir)
         if anno_json is not None:
             coco = evaluate_coco_json(pred_json, anno_json)
@@ -217,6 +227,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     if tp_b.any() or len(conf):
         metrics.update(ap_per_class_box_and_mask(
             tp_b, tp_m, conf, pred_cls, target_cls, save_dir=save_dir,
+            plot=plots and (mesh is None or mesh.rank == 0),
             names=names or {i: str(i) for i in range(nc)}))
     mean = metrics.mean_results()
     t = tuple(x.t / max(seen, 1) * 1e3 for x in dt)
@@ -228,7 +239,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
         nt = np.bincount(target_cls.astype(int), minlength=nc)
         for i, c in enumerate(metrics.ap_class_index):
             LOGGER.info(("%22s" + "%11i" * 2 + "%11.3g" * 8)
-                        % (names.get(int(c), str(c)), seen, nt[c], *metrics.class_result(i)))
+                        % (names.get(int(c), str(c)), len(stats), nt[c], *metrics.class_result(i)))
     LOGGER.info(f"Speed: {t[0]:.1f}ms pre, {t[1]:.1f}ms inference+NMS, {t[2]:.1f}ms post per image")
     return mean, metrics.get_maps(nc), t
 
@@ -247,9 +258,6 @@ def evaluate_semantic(model, loader, nc: int, ignore_index: Optional[int] = 11, 
     a batch, timed with the forward as JAX times it); optional `n_valid`.
     The argmax runs on the device, the confusion matrix on the host;
     `loss_fn` (a SemanticSegLoss) gives the mean val loss over batches."""
-    if mesh is not None:
-        raise NotImplementedError("evaluate_semantic(mesh=...): data-parallel eval is not "
-                                  "ported yet (ROADMAP A item 7, A10)")
     dev = select_device(device)
     model = model.to(dev).eval().fuse()
     cm = SegmentationConfusionMatrix(nc, ignore_index=ignore_index)
@@ -267,12 +275,14 @@ def evaluate_semantic(model, loader, nc: int, ignore_index: Optional[int] = 11, 
         with dt, torch.inference_mode():
             out = model(normalize_image(image).contiguous())
         bsz = int(batch.get("n_valid", image.shape[0]))
-        with torch.inference_mode():
+        with torch.inference_mode(), across(mesh):
             cm.update(out[:bsz].argmax(1).cpu().numpy(), gt[:bsz].cpu().numpy())
-            if loss_fn is not None:
-                total_loss += float(loss_fn(out[:bsz], gt[:bsz])[0])
+            if loss_fn is not None:  # the global batch's loss under a mesh
+                total_loss += float(global_sum(loss_fn(out[:bsz], gt[:bsz])[0]))
                 n_batches += 1
         seen += bsz
+    with across(mesh):
+        cm.matrix = global_sum(torch.from_numpy(cm.matrix)).numpy()
     miou, iou = cm.compute_iou()
     avg_loss = total_loss / max(n_batches, 1)
     t = dt.t / max(seen, 1) * 1e3

@@ -10,6 +10,11 @@ a masked sum, which gives the reference's filtered-tensor math.
 The objectness target of a cell hit by several candidates is the largest of
 their IoUs (scatter-max), as in JAX; the reference's overwrite leaves the
 winner undefined unless sort_obj_iou (ROADMAP §C, docs/PARITY.md #1).
+
+Inside parallel/mesh.py:across(mesh) each rank's call returns its share of
+the global batch's loss and items: the positives, the objectness cells and
+the batch size are counted over every rank (global_sum, mean_share), as JAX's
+jit over the sharded global batch counts them; the shares sum to that loss.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_dual_tpu_torch.ops.boxes import bbox_iou
+from yolo_dual_tpu_torch.parallel.mesh import global_sum, mean_share
 
 
 def smooth_bce(eps: float = 0.1) -> Tuple[float, float]:
@@ -146,7 +152,7 @@ class ComputeLoss:
         (lbox, lcls, tobj (bs, na, ny, nx))."""
         bs, na, ny, nx, _ = pi.shape
         rows = pi[asgn.b, asgn.a, asgn.gj, asgn.gi]                          # (K, no)
-        n_pos = asgn.valid.sum().clamp(min=1).to(pi.dtype)
+        n_pos = global_sum(asgn.valid.sum()).clamp(min=1).to(pi.dtype)
 
         pxy = torch.sigmoid(rows[:, 0:2]) * 2.0 - 0.5
         pwh = (torch.sigmoid(rows[:, 2:4]) * 2.0) ** 2 * asgn.anch
@@ -171,13 +177,14 @@ class ComputeLoss:
 
     def __call__(self, p: Sequence[torch.Tensor], targets: torch.Tensor, tmask: torch.Tensor):
         h = self.hyp
-        bs = p[0].shape[0]
+        bs = int(global_sum(torch.tensor(p[0].shape[0])))
         lbox = lobj = lcls = 0.0
         for i, pi in enumerate(p):
             lb, lc, tobj = self._cls_obj_box(pi, self._assign(i, pi, targets, tmask))
             lbox = lbox + lb
             lcls = lcls + lc
-            lobj = lobj + self._bce(pi[..., 4], tobj, h.get("obj_pw", 1.0)).mean() * self.balance[i]
+            lobj = lobj + mean_share(self._bce(pi[..., 4], tobj, h.get("obj_pw", 1.0))) \
+                * self.balance[i]
         lbox = lbox * h.get("box", 0.05)
         lobj = lobj * h.get("obj", 1.0)
         lcls = lcls * h.get("cls", 0.5)

@@ -32,6 +32,7 @@ import torch
 
 from yolo_dual_tpu_torch.losses.detect import ComputeLoss, bce_with_logits, build_targets_level
 from yolo_dual_tpu_torch.ops.boxes import bbox_iou, box_iou, xywh2xyxy
+from yolo_dual_tpu_torch.parallel.mesh import global_sum, mean_share
 
 BIG_COST = 1e9  # the cost of a (gt, candidate) pair that is not valid
 
@@ -153,7 +154,7 @@ class ComputeLossOTA(ComputeLoss):
         for i, pi in enumerate(p):
             _, na, ny, nx, _ = pi.shape
             mine = fg & (clvl == i)
-            n_pos = mine.sum().clamp(min=1).to(pi.dtype)
+            n_pos = global_sum(mine.sum()).clamp(min=1).to(pi.dtype)
             pxy = torch.sigmoid(cand_rows[:, :2]) * 2.0 - 0.5
             pwh = (torch.sigmoid(cand_rows[:, 2:4]) * 2.0) ** 2 * canch
             gain = torch.tensor([nx, ny, nx, ny], dtype=torch.float32, device=fg.device)
@@ -167,7 +168,7 @@ class ComputeLossOTA(ComputeLoss):
             tobj = torch.zeros(bs * na * ny * nx, dtype=pi.dtype, device=pi.device) \
                 .scatter_reduce_(0, torch.where(mine, flat, 0), vals, "amax", include_self=True)
             tobj = tobj.clamp(min=0.0).reshape(bs, na, ny, nx)
-            lobj = lobj + bce_with_logits(pi[..., 4], tobj, h.get("obj_pw", 1.0)).mean() \
+            lobj = lobj + mean_share(bce_with_logits(pi[..., 4], tobj, h.get("obj_pw", 1.0))) \
                 * self.balance[i]
             if self.nc > 1:
                 pcls = cand_rows[:, 5:5 + self.nc]
@@ -178,6 +179,7 @@ class ComputeLossOTA(ComputeLoss):
         lbox = lbox * h.get("box", 0.05)
         lobj = lobj * h.get("obj", 1.0)
         lcls = lcls * h.get("cls", 0.5)
+        bs = int(global_sum(torch.tensor(bs)))
         return (lbox + lobj + lcls) * bs, torch.stack([lbox, lobj, lcls]).detach()
 
     def __call__(self, p: Sequence[torch.Tensor], targets: torch.Tensor, tmask: torch.Tensor,

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from yolo_dual_tpu_torch.losses.detect import Assignment, ComputeLoss, bce_with_logits
 from yolo_dual_tpu_torch.ops.boxes import xywh2xyxy
 from yolo_dual_tpu_torch.ops.mask_ops import crop_mask
+from yolo_dual_tpu_torch.parallel.mesh import global_sum, mean_share
 
 
 def _compact_per_image(asgn: Assignment, bs: int, capacity: int):
@@ -38,7 +39,8 @@ def _compact_per_image(asgn: Assignment, bs: int, capacity: int):
 
 class ComputeSegmentLoss(ComputeLoss):
     """Loss for the (raw levels, protos) output of a Segment model in
-    training. Returns (loss · bs, [lbox, lseg, lobj, lcls])."""
+    training. Returns (loss · bs, [lbox, lseg, lobj, lcls]); inside
+    parallel/mesh.py:across, this rank's share of them (losses/detect.py)."""
 
     def __init__(self, anchors, strides: Sequence[int], nc: int, nm: int, hyp: Dict,
                  overlap: bool = True):
@@ -65,7 +67,8 @@ class ComputeSegmentLoss(ComputeLoss):
             lb, lc, tobj = self._cls_obj_box(pi, asgn)
             lbox = lbox + lb
             lcls = lcls + lc
-            lobj = lobj + bce_with_logits(pi[..., 4], tobj, h.get("obj_pw", 1.0)).mean() * self.balance[i]
+            lobj = lobj + mean_share(bce_with_logits(pi[..., 4], tobj, h.get("obj_pw", 1.0))) \
+                * self.balance[i]
 
             # mask branch on the per-image compacted positives
             idx, val = _compact_per_image(asgn, bs, capacity)                 # (bs, C)
@@ -90,6 +93,7 @@ class ComputeSegmentLoss(ComputeLoss):
         lbox = lbox * h.get("box", 0.05)
         lobj = lobj * h.get("obj", 1.0)
         lcls = lcls * h.get("cls", 0.5)
+        bs = int(global_sum(torch.tensor(bs)))  # the global batch under a mesh, as JAX's
         lseg = lseg * h.get("box", 0.05) / bs
         loss = lbox + lobj + lcls + lseg
         return loss * bs, torch.stack([lbox, lseg, lobj, lcls]).detach()

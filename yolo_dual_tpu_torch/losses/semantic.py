@@ -10,6 +10,10 @@ The reference's quirks are kept, as JAX keeps them:
   NLL normalised by the sum of the target pixels' weights;
 - Dice/Jaccard weight the prediction only, and average over (batch, class);
 - no ignore_index in the loss (class 11 is ignored only in evaluation).
+
+Inside parallel/mesh.py:across(mesh) a rank's loss is its share of the global
+batch's: the CE's pixel weights and the Dice / Jaccard (image, class) terms
+are counted over every rank, as JAX's jit over the sharded batch counts them.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from yolo_dual_tpu_torch.parallel.mesh import global_sum, mean_share
 
 
 def _one_hot(target: torch.Tensor, nc: int, dtype=torch.float32) -> torch.Tensor:
@@ -45,7 +51,7 @@ def weighted_cross_entropy(pred: torch.Tensor, target: torch.Tensor,
     smooth = -(logp * class_weights[None, :, None, None]).sum(1)
     s = label_smoothing
     nll = (1.0 - s) * main + (s / nc) * smooth
-    return nll.sum() / (pix_w.sum() + 1e-12)
+    return nll.sum() / (global_sum(pix_w.sum()) + 1e-12)
 
 
 def _overlaps(pred_prob, target, class_weights):
@@ -60,14 +66,14 @@ def dice_loss(pred_prob: torch.Tensor, target: torch.Tensor, class_weights: torc
               eps: float = 1e-6):
     """1 - mean Dice over (batch, class), the prediction weighted by class."""
     inter, psum, tsum = _overlaps(pred_prob, target, class_weights)
-    return 1.0 - ((2.0 * inter + eps) / (psum + tsum + eps)).mean()
+    return mean_share(1.0 - (2.0 * inter + eps) / (psum + tsum + eps))
 
 
 def jaccard_loss(pred_prob: torch.Tensor, target: torch.Tensor, class_weights: torch.Tensor,
                  eps: float = 1e-6):
     """1 - mean IoU over (batch, class), the prediction weighted by class."""
     inter, psum, tsum = _overlaps(pred_prob, target, class_weights)
-    return 1.0 - ((inter + eps) / (psum + tsum - inter + eps)).mean()
+    return mean_share(1.0 - (inter + eps) / (psum + tsum - inter + eps))
 
 
 class SemanticSegLoss:

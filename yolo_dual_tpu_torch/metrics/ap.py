@@ -1,11 +1,14 @@
 """Detection metrics: AP curves, confusion matrix, fitness (port of
 yolo_dual_tpu/metrics/ap.py; reference utils/metrics.py:17-222).
 
-Host numpy: they aggregate over a whole evaluation. Plotting (`plot=True`)
-waits for the port of utils/plots and raises.
+Host numpy: they aggregate over a whole evaluation. `plot=True` draws the
+PR, F1, P and R curves with matplotlib (utils/plots.py) and raises without it,
+as JAX's does.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,9 +47,6 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=".",
     tp: (n, niou) bool; conf: (n,); pred_cls: (n,); target_cls: (m,).
     Returns tp, fp, p, r, f1, ap (nc, niou), unique_classes.
     """
-    if plot:
-        raise NotImplementedError("ap_per_class(plot=True): PR/F1 curve plots come with "
-                                  "utils/plots (ROADMAP A item 7)")
     i = np.argsort(-conf)
     tp, conf, pred_cls = tp[i], conf[i], pred_cls[i]
     unique_classes, nt = np.unique(target_cls, return_counts=True)
@@ -56,6 +56,7 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=".",
     ap = np.zeros((nc, tp.shape[1]))
     p_curve = np.zeros((nc, 1000))
     r_curve = np.zeros((nc, 1000))
+    py = []
     for ci, c in enumerate(unique_classes):
         sel = pred_cls == c
         n_l = nt[ci]
@@ -69,9 +70,19 @@ def ap_per_class(tp, conf, pred_cls, target_cls, plot=False, save_dir=".",
         precision = tpc / (tpc + fpc)
         p_curve[ci] = np.interp(-px, -conf[sel], precision[:, 0], left=1)
         for j in range(tp.shape[1]):
-            ap[ci, j], _, _ = compute_ap(recall[:, j], precision[:, j])
+            ap[ci, j], mpre, mrec = compute_ap(recall[:, j], precision[:, j])
+            if plot and j == 0:
+                py.append(np.interp(px, mrec, mpre))
 
     f1 = 2 * p_curve * r_curve / (p_curve + r_curve + eps)
+    if plot:
+        from yolo_dual_tpu_torch.utils.plots import plot_mc_curve, plot_pr_curve
+        names = dict(enumerate(v for k, v in dict(names).items() if k in unique_classes))
+        plot_pr_curve(px, py, ap, Path(save_dir) / f"{prefix}PR_curve.png", names)
+        for curve, tag, label in ((f1, "F1", "F1"), (p_curve, "P", "Precision"),
+                                  (r_curve, "R", "Recall")):
+            plot_mc_curve(px, curve, Path(save_dir) / f"{prefix}{tag}_curve.png", names,
+                          ylabel=label)
     i = smooth(f1.mean(0), 0.1).argmax()
     p, r, f1v = p_curve[:, i], r_curve[:, i], f1[:, i]
     tp_count = (r * nt).round()

@@ -60,9 +60,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     `update_stats` False a training forward normalises by the batch
     statistics as it does and leaves the running statistics and the batch
     count alone (the recomputed forward of a rematerialised step,
-    train/trainer.py)."""
+    train/trainer.py). With `mesh` set (parallel/mesh.py:convert_sync_batchnorm)
+    the training statistics cover every rank's batch: flax's E[x²] − E[x]² of
+    the all-reduced per-channel sums, differentiable through the all-reduce."""
 
     update_stats = True
+    mesh = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
@@ -71,6 +74,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if update:
             self.num_batches_tracked.add_(1)
         m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        if self.mesh is not None:
+            return self._forward_sync(x, m, update)
         n = x.numel() // x.shape[1]
         if n == 1:
             # one value a channel (GAM's pooled maps at batch 1): F.batch_norm refuses
@@ -94,6 +99,23 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(1 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
         return y
+
+    def _forward_sync(self, x, m: float, update: bool):
+        from yolo_dual_tpu_torch.parallel.mesh import all_reduce_sum
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        local = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                             xf.new_full((x.shape[1],), x.numel() // x.shape[1])])
+        tot = all_reduce_sum(local)
+        n = tot[2]
+        mean = tot[0] / n
+        var = (tot[1] / n - mean * mean).clamp(min=0.0)
+        y = (xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+        y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        if update:
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        return y.to(x.dtype)
 
 
 class Conv(nn.Module):

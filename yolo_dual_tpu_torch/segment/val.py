@@ -24,7 +24,13 @@ its mask as COCO RLE, to predictions.json in the run directory (COCO's
 is installed and `path`/annotations/instances_val2017.json exists). --half runs the forward in bfloat16
 (torch.autocast), as JAX's flag maps to its bf16 policy. --cache ram keeps
 the frames in memory (disk: the `.npy` frames are the cache); --dnn,
---workers and --no-download are accepted, as in JAX.
+--workers and --no-download are accepted, as in JAX. --plots draws the PR,
+F1, P and R curves of boxes and masks into the run directory (matplotlib);
+--task study draws study.png where matplotlib is installed, else logs the
+skip. --data-parallel under `python -m torch.distributed.run
+--nproc-per-node N -m yolo_dual_tpu_torch.segment.val ...` evaluates each
+rank's rows of every batch (the batch size rounded up to a multiple of N,
+as JAX's) and gathers the statistics: the metrics equal one process's.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from yolo_dual_tpu_torch.data.dataset import create_dataloader
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
 from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.model import SegmentationModel
+from yolo_dual_tpu_torch.parallel.mesh import data_parallel as join_data_parallel
+from yolo_dual_tpu_torch.parallel.mesh import from_rank0, rank0_first, shard_loader
 from yolo_dual_tpu_torch.utils.coco import coco80_to_coco91_class
 from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size,
                                                increment_path, select_device)
@@ -56,6 +64,10 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
     """Evaluate `weights` (or the seeded random model) on the `task` split of
     `data`. Returns evaluate_segment's (8 metrics, per-class maps, (pre,
     inference+NMS, post) ms)."""
+    mesh = join_data_parallel(device) if data_parallel else None
+    if mesh is not None and batch_size % mesh.size:
+        batch_size = -(-batch_size // mesh.size) * mesh.size
+        LOGGER.info(f"--data-parallel: batch size rounded up to {batch_size} ({mesh.size} ranks)")
     dev = select_device(device)
     d = check_dataset(data)
     imgsz = check_img_size(imgsz, 32)
@@ -63,26 +75,29 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
         model.load_state_dict(resolve_state_dict(weights), strict=True)
-    save_dir = str(increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)) \
-        if save_txt or save_json else "."
+    save_dir = from_rank0(lambda: str(increment_path(Path(project) / name, exist_ok=exist_ok,
+                                                     mkdir=True)), mesh) \
+        if save_txt or save_json or plots else "."
     # COCO's 91-id category map and annotation file for COCOeval (JAX segment/val.py:86-101)
     class_map = anno_json = None
     if save_json and "coco" in str(d.get("val", "")):
         class_map = coco80_to_coco91_class()
         cand = Path(str(d.get("path", ""))) / "annotations" / "instances_val2017.json"
         anno_json = cand if cand.exists() else None
-    loader, _ = create_dataloader(d[task if d.get(task) else "val"], imgsz, batch_size,
-                                  device_preprocess=device_preprocess, augment=False,
-                                  mask_downsample_ratio=mask_ratio, overlap_mask=True,
-                                  task="segment", single_cls=single_cls, rect=rect,
-                                  cache_images=cache)
+    with rank0_first(mesh):  # the label cache is written once
+        loader, _ = create_dataloader(d[task if d.get(task) else "val"], imgsz, batch_size,
+                                      device_preprocess=device_preprocess, augment=False,
+                                      mask_downsample_ratio=mask_ratio, overlap_mask=True,
+                                      task="segment", single_cls=single_cls, rect=rect,
+                                      cache_images=cache)
+    shard_loader(loader, mesh)
     mean, maps, t = evaluate_segment(
         model, loader, model.nc, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
         nm=model.model[-1].nm, names=d.get("names"), plots=plots, save_dir=save_dir,
         use_soft_nms=soft_nms, augment=augment, save_json=save_json, anno_json=anno_json,
         class_map=class_map, fuse=fuse,
         save_txt=save_txt, save_conf=save_conf, save_hybrid=save_hybrid,
-        mesh=True if data_parallel else None, device=dev,
+        mesh=mesh, device=dev,
         amp_dtype=torch.bfloat16 if half else None, verbose=verbose)
     if save_txt:
         LOGGER.info(f"labels saved to {Path(save_dir) / 'labels'}")
@@ -131,9 +146,9 @@ def parse_opt(argv=None):
     p.add_argument("--no-download", action="store_true", help="accepted: nothing is downloaded")
     p.add_argument("--save-json", action="store_true",
                    help="save COCO-RLE predictions.json (+COCOeval if pycocotools is installed)")
-    # JAX CLI flags not ported yet: each raises, naming its ROADMAP item
-    p.add_argument("--plots", action="store_true", help="curves (not ported yet)")
-    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    p.add_argument("--plots", action="store_true", help="PR/F1/P/R curves (matplotlib)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one rank a process under torch.distributed.run, batches split over them")
     return p.parse_args(argv)
 
 
@@ -151,7 +166,11 @@ def main(opt):
             rows.append(tuple(mean) + tuple(t))
         np.savetxt(f, rows, fmt="%10.4g")
         LOGGER.info(f"study saved to {f}")
-        LOGGER.info("study plot skipped: plots are not ported (ROADMAP A item 7)")
+        try:
+            from yolo_dual_tpu_torch.utils.plots import plot_val_study
+            plot_val_study(dir=".", x=STUDY_SIZES)
+        except Exception as e:
+            LOGGER.info(f"study plot skipped: {e}")
         return rows
     return run(**vars(opt))
 

@@ -13,7 +13,11 @@ installed), the JSON directory one `{stem}.json` dense mask a frame
 from a generator seeded with 0. With --device-preprocess the native frames
 (all of one shape) and masks are letterboxed on the device
 (kernels/preprocess.py:semantic_preprocess, K1 on the card); without it, on
-the host (data/json_dataset.py:resize_and_pad).
+the host (data/json_dataset.py:resize_and_pad). --data-parallel under
+`python -m torch.distributed.run --nproc-per-node N -m
+yolo_dual_tpu_torch.semantic.val ...` evaluates each rank's rows of every
+batch (the batch size rounded up to a multiple of N, as JAX's) and sums the
+confusion matrices; --visualize then draws rank 0's first rows.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.kernels.preprocess import semantic_preprocess
 from yolo_dual_tpu_torch.losses.semantic import SemanticSegLoss
 from yolo_dual_tpu_torch.models.model import SemanticSegModel
+from yolo_dual_tpu_torch.parallel.mesh import data_parallel as join_data_parallel
+from yolo_dual_tpu_torch.parallel.mesh import from_rank0, is_main, rank0_first, shard_loader
 from yolo_dual_tpu_torch.utils.general import LOGGER, increment_path, select_device
 
 CLASS_NAMES = ["sky", "building", "pole", "road", "pavement", "tree", "signsymbol",
@@ -53,23 +59,27 @@ def run(weights="", cfg="resnet50.json", img_dir="", json_dir="", imgsz=640, bat
         name="exp", device="cuda", data_parallel=False, device_preprocess=False):
     """Evaluate `weights` (or the seeded random model) on the JSON set.
     Returns evaluate_semantic's ((mIoU, val loss, 0, 0), per-class IoU, (ms an image,))."""
-    if data_parallel:
-        raise NotImplementedError("--data-parallel: data-parallel eval is not ported yet "
-                                  "(ROADMAP A item 7, A10)")
+    mesh = join_data_parallel(device) if data_parallel else None
+    if mesh is not None and batch_size % mesh.size:
+        batch_size = -(-batch_size // mesh.size) * mesh.size
+        LOGGER.info(f"--data-parallel: batch size rounded up to {batch_size} ({mesh.size} ranks)")
     dev = select_device(device)
     model = SemanticSegModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
         model.load_state_dict(resolve_state_dict(weights), strict=True)
-    loader, _ = create_json_segment_dataloader(img_dir, json_dir, imgsz, batch_size,
-                                               augment=False, num_classes=nc,
-                                               drop_last=False,
-                                               device_preprocess=device_preprocess)
+    with rank0_first(mesh):  # the parsed masks are cached once
+        loader, _ = create_json_segment_dataloader(img_dir, json_dir, imgsz, batch_size,
+                                                   augment=False, num_classes=nc,
+                                                   drop_last=False,
+                                                   device_preprocess=device_preprocess)
+    shard_loader(loader, mesh)
     result = evaluate_semantic(model, loader, nc, ignore_index=ignore_index,
                                loss_fn=SemanticSegLoss(nc, flavor=loss), verbose=True,
-                               names=dict(enumerate(CLASS_NAMES)), device=dev)
+                               names=dict(enumerate(CLASS_NAMES)), mesh=mesh, device=dev)
     if visualize:
         from yolo_dual_tpu_torch.utils.plots import semantic_panel
-        save_dir = increment_path(Path(project) / name, mkdir=True)
+        save_dir = from_rank0(lambda: increment_path(Path(project) / name, mkdir=True), mesh)
+    if visualize and is_main(mesh):
         batch = next(iter(loader))
         with torch.inference_mode():
             if "image_raw" in batch:
@@ -106,7 +116,8 @@ def parse_opt(argv=None):
                    help="resize-pad on the device (kernels/preprocess.py:semantic_preprocess)")
     p.add_argument("--project", default="runs/val-semantic")
     p.add_argument("--name", default="exp")
-    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one rank a process under torch.distributed.run, batches split over them")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     return p.parse_args(argv)
 

@@ -18,9 +18,24 @@ its activations (torch.utils.checkpoint; JAX's jax.checkpoint): the
 recomputed forward normalises by the same batch statistics and leaves the
 BatchNorm running statistics alone, so a step updates them once, as without
 remat. On yolov5s-seg-dcnv3 the DCNv3 forward kernel then launches twice a
-micro-step for each of its 6 calls and the backward once. `dropout` gives
+micro-step for each of its 6 calls and the backward once. Under a mesh the
+recompute sits inside DistributedDataParallel (`Rematerialised`), so the
+backward reruns the model's forward and never DDP's. `dropout` gives
 each micro-step its own seeded generator for the heads' dropout (JAX folds
 the step into PRNGKey(17); the streams differ).
+
+`mesh` (parallel/mesh.py:make_mesh, one process a rank) trains data-parallel
+as JAX's Trainer(mesh=...) does on a batch sharded over its devices: each
+rank's batch is its rows of the global batch, every BatchNorm takes its
+statistics over the global batch (convert_sync_batchnorm), the loss is the
+rank's share of the global-batch loss (the losses under parallel/mesh.py:across),
+and DistributedDataParallel averages W · share's gradients, which gives
+the global loss's gradient on every rank. The optimizer and the EMA then
+take the same steps on every rank. DDP runs with find_unused_parameters:
+some graphs hold layers that feed no output (yolov5_seg's head rows 12-20,
+ROADMAP §C); their gradients stay None, which the optimizer reads as zeros,
+as JAX's gradient of them is zero. The BatchNorm buffers are not broadcast
+at each forward: the synchronised statistics are the same on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from yolo_dual_tpu_torch.data.loader import normalize_image
 from yolo_dual_tpu_torch.nn.common import BatchNorm2d
+from yolo_dual_tpu_torch.parallel.mesh import across, convert_sync_batchnorm, global_sum, mean_share
 from yolo_dual_tpu_torch.train.ema import ModelEMA
 from yolo_dual_tpu_torch.train.optim import SmartOptimizer
 from yolo_dual_tpu_torch.utils.general import LOGGER
@@ -96,6 +112,23 @@ def frozen_batch_stats(model: nn.Module):
             m.update_stats = True
 
 
+class Rematerialised(nn.Module):
+    """`model` whose activations are recomputed in the backward; the recompute
+    leaves the BatchNorm running statistics alone. Under a mesh DDP wraps
+    this module, so the recompute runs the model and not DDP's forward, which
+    would prepare DDP's reducer a second time in the middle of its
+    reduction."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, **kw):
+        return checkpoint(lambda t: self.model(t, **kw), x, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_batch_stats(self.model)))
+
+
 @dataclasses.dataclass
 class Trainer:
     """Train and eval steps of a Detect or Segment model. The optimizer
@@ -108,13 +141,25 @@ class Trainer:
     ema: Optional[ModelEMA] = None
     task: str = "segment"            # detect | segment | semantic | classify
     amp_dtype: Optional[torch.dtype] = None  # torch.bfloat16: forward and loss under autocast
-    remat: bool = False              # recompute the forward in the backward (saves memory)
+    remat: bool = False              # recompute the forward in the backward; read at construction
     dropout: bool = False            # a seeded generator a micro-step for the heads' dropout
+    mesh: Any = None                 # parallel/mesh.py:Mesh: data-parallel over its ranks
 
     def __post_init__(self):
         if self.task not in ("detect", "segment", "semantic", "classify"):
             raise ValueError(f"task {self.task!r}: the port trains detect, segment, "
                              "semantic and classify models")
+        # the module a train step runs: the model, rematerialised with `remat`,
+        # under DDP with a mesh
+        self.net = Rematerialised(self.model) if self.remat else self.model
+        self.ddp = None
+        if self.mesh is not None and self.mesh.size > 1:
+            from torch.nn.parallel import DistributedDataParallel
+            convert_sync_batchnorm(self.model, self.mesh)
+            dev = next(self.model.parameters()).device
+            self.ddp = DistributedDataParallel(
+                self.net, device_ids=[dev] if dev.type == "cuda" else None,
+                find_unused_parameters=True, broadcast_buffers=False)
 
     def init_state(self) -> TrainState:
         return TrainState(self.model, self.optimizer, self.ema)
@@ -142,25 +187,19 @@ class Trainer:
         b = _on(batch, dev)
         x = self.model_input(b["image"])
         kw = {} if self.task in ("semantic", "classify") else {"decode": False}
-
-        def forward(inp):
-            if not self.remat:
-                return model(inp, **kw)
-            return checkpoint(lambda t: model(t, **kw), inp, use_reentrant=False,
-                              context_fn=lambda: (contextlib.nullcontext(),
-                                                  frozen_batch_stats(model)))
         with torch.autocast(dev.type, dtype=self.amp_dtype or torch.float32,
                             enabled=self.amp_dtype is not None):
+            out = model(x, **kw)
             if self.task == "semantic":
-                loss, items = self.loss_fn(forward(x), b["mask"])
+                loss, items = self.loss_fn(out, b["mask"])
                 items = torch.stack(items).detach()
             elif self.task == "classify":
-                loss, items = self.loss_fn(forward(x), b["label"])
+                loss, items = self.loss_fn(out, b["label"])
                 items = torch.stack(items).detach()
             elif self.task == "segment":
-                loss, items = self.loss_fn(forward(x), b["targets"], b["tmask"], b["masks"])
+                loss, items = self.loss_fn(out, b["targets"], b["tmask"], b["masks"])
             else:
-                loss, items = self.loss_fn(forward(x), b["targets"], b["tmask"])
+                loss, items = self.loss_fn(out, b["targets"], b["tmask"])
         if self.amp_dtype is not None:
             loss, items = loss.float(), items.float()
         return loss, items
@@ -181,9 +220,13 @@ class Trainer:
         items})."""
         state.model.train()
         state.model.zero_grad(set_to_none=True)
-        with self.dropout_rng(state):
-            loss, items = self.forward_loss(state.model, batch)
-            loss.backward()
+        # this rank's share of the global loss; DDP averages W · share's gradients
+        # (without a mesh: the loss itself, W = 1, and the sums are the values)
+        model, w = (self.net, 1) if self.ddp is None else (self.ddp, self.mesh.size)
+        with self.dropout_rng(state), across(self.mesh):
+            loss, items = self.forward_loss(model, batch)
+            (loss * w).backward()
+            loss, items = global_sum(loss.detach()), global_sum(items)
         self.apply_gradients(state)
         return state, {"loss": loss.detach(), "items": items}
 
@@ -217,6 +260,6 @@ def classify_loss(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: f
     target = F.one_hot(labels.long(), nc).to(logits.dtype)
     if label_smoothing:
         target = target * (1 - label_smoothing) + label_smoothing / nc
-    loss = -(target * F.log_softmax(logits, -1)).sum(-1).mean()
-    acc = (logits.argmax(-1) == labels).to(logits.dtype).mean()
+    loss = mean_share(-(target * F.log_softmax(logits, -1)).sum(-1))
+    acc = mean_share((logits.argmax(-1) == labels).to(logits.dtype))
     return loss, (loss, acc)
