@@ -92,7 +92,8 @@ which raises on failure:
    bs 4, --nbs 4 --no-ema --no-augment, its hyp, seed 3) on the device
    route (K1 at 96 -> 96, 180 launches), under deterministic algorithms
    (torch.use_deterministic_algorithms, cuDNN's deterministic ones), reaches
-   mIoU >= 0.9285 - 0.05;
+   mIoU >= 0.9285 - 0.05; it runs in a process of its own beside 6e's three
+   (`learning_proofs`, `--learning-proof`), all four at once;
    after phase 9 one more resumed device-route epoch under torch.profiler;
 6e. the YOLO semantic family (yolo_semantic_path): yolov5_seg.json (18 DCNv2
    calls in three C3_DCN rows), yolov8_seg.json (C2f, three C2f_DCN) and
@@ -110,9 +111,9 @@ which raises on failure:
    float64 CPU step; (c) `semantic.train` in-process: one device-route epoch
    (K1 3, results.csv finite, last.pt loads strict), and for yolov5_seg a bare
    --resume to a second epoch against an uninterrupted 2-epoch run within
-   RESUME_TOL (atomics); (d) each config's learning proof, as 6d (c), at or
-   above its controlled golden (tests/test_semantic_golden.py:54-63) less
-   0.05;
+   RESUME_TOL (atomics); (d) each config's learning proof, as 6d (c) and
+   run beside it, at or above its controlled golden
+   (tests/test_semantic_golden.py:54-63) less 0.05;
 6f. the detect zoo (detect_zoo_path): the 17 configs of the SPP, attention,
    Ghost, Transformer and YOLOv3 modules, the 11 torchvision-backbone configs
    (backbone/*.json) and yolov5s as the control, each at its published width
@@ -205,6 +206,22 @@ which raises on failure:
    against the fused card forward with TF32 off within
    tests/test_onnx_export.py's limits; the read, export, cv2.dnn and
    MultiBackend-against-direct ms;
+6l. weights out (`weights_out_path`, under build/phase6l): (a) a copy of the
+   orbax fixture stripped by `train/checkpoint.py:strip_optimizer` through
+   the port's orbax writer (the write's ms and MB), read back by
+   `io/ocdbt.py` (optimizer state and EMA None, epoch -1, variables the
+   EMA bit for bit), served by MultiBackend on the card with TF32 off within
+   SAME_TOL of the unstripped checkpoint's (EMA-first) forward, and
+   `segment.predict --update` on another copy (stripped, then predicted);
+   the K2 and K1 counts set to 0 just before these and read just after;
+   (b) yolov5s-seg (nc 80, 640, seeded, BatchNorm calibrated) exported by
+   `export.py`'s export_savedmodel and export_tflite (float, and int8
+   calibrated on JAX's 16 default frames with the lowered graph run on the
+   card), each file's ms and MB, and the lowered graph
+   (`io/tf_graph.py:run_tf_graph`) on the card no further from the float64
+   forward than twice the fused float32 forward is (TF32 off); the machine
+   has no tensorflow, so the files' outputs are
+   held by tests/test_torch_port_tf_export.py on the CPU;
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -257,9 +274,10 @@ which raises on failure:
    training and a val forward and 6 K3 a micro-step: 36 and 24), its epoch
    img/s beside phase 10's; one bs-16 host batch built in this thread and
    timed by part (load_image, canvas, copy_paste, the warp's pixels and
-   labels, mixup, HSV, rasterise); that batch's first micro-step (forward,
-   loss, backward) on the card and on the CPU, TF32 off: loss items and
-   gradients within HOST_STEP_TOL of the largest; (b) --remat on that batch:
+   labels, mixup, HSV, rasterise); the first micro-step (forward, loss,
+   backward) of its first HOST_STEP_BS samples on the card and on the CPU,
+   TF32 off: loss items and gradients within HOST_STEP_TOL of the largest;
+   (b) --remat on that batch:
    a micro-step with and without it (TF32 off; 12 and 6 K2 launches, 6 K3
    each), loss items and gradients within REMAT_TOL, the BatchNorm statistics
    equal, then each timed with TF32 convolutions, with its peak memory; (c)
@@ -371,11 +389,15 @@ def profiled_kernel_ms(fn, kernel: str, iters: int):
     over `iters` calls of `fn`, each of which launches one, from
     torch.profiler's kernel records: the kernel's own time, without the host
     wrapper that CUDA events around the call also count at batch 1. Late in a
-    long process the profiler can drop records: a session that did not record
-    `iters` launches is run again, up to three times, else "not measured"."""
+    long process a session can hold another number of records than launches
+    (each session's count is printed then): it is run again, up to three
+    times; where none held `iters`, the time is the mean over the records of
+    the session that held the most (each record is one launch's own time),
+    and "not measured" only where no session held one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -383,9 +405,15 @@ def profiled_kernel_ms(fn, kernel: str, iters: int):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-        if sum(e.count for e in events) == iters:
-            return sum(e.self_device_time_total for e in events) / iters / 1e3
-    return "not measured"
+        count = sum(e.count for e in events)
+        total = sum(e.self_device_time_total for e in events)
+        if count == iters:
+            return total / iters / 1e3
+        seen.append((count, total))
+    print(f"profiler records of {kernel} in 3 sessions of {iters} launches: "
+          f"{[c for c, _ in seen]}", flush=True)
+    count, total = max(seen)
+    return total / count / 1e3 if count else "not measured"
 
 
 def window_escapes(offset, h: int, w: int, group_channels: int, backward: bool, kernel=3,
@@ -1785,9 +1813,10 @@ def semantic_train_path(card: str):
             common + ["--epochs", "1", "--name", "host"]))
         host_res = cli_results(project / "host")
         scene = write_synthetic_camvid_scene(root / "scene")
-        golden = learning_proof(probe, scene, root, project, "resnet50.json", "golden")
     finally:
         probe.close()
+    PROOFS.update(learning_proofs(scene, root))
+    golden = PROOFS.pop("resnet50.json")
     native_loaded = native.load() is not None
     train_s = dev_epochs[-1]["train_s"]  # the second epoch: warm
     result.update({
@@ -1884,7 +1913,7 @@ def learning_proof(probe, scene, root: Path, project: Path, cfg: str, name: str,
     the launches and a digest of last.pt's tensors."""
     import hashlib
     from yolo_dual_tpu_torch.train.checkpoint import load_checkpoint
-    hyp = root / "hyp_golden.json"
+    hyp = root / f"hyp_{name}.json"   # a file a proof: learning_proofs runs four at once
     hyp.write_text(json.dumps(SEM_GOLDEN_HYP))
     t = time.perf_counter()
     with deterministic_algorithms(deterministic):
@@ -1903,6 +1932,58 @@ def learning_proof(probe, scene, root: Path, project: Path, cfg: str, name: str,
     return {"cfg": cfg, "deterministic": deterministic, "miou": res[:, 4].tolist(),
             "best_miou": float(res[:, 4].max()), "run_s": run_s, "launches": launches,
             "last_pt_sha1": digest.hexdigest()}
+
+
+# the four learning proofs run at once, each in its own process (learning_proofs), started by
+# phase 6d; 6e reads the YOLO configs' results from here
+PROOFS: dict = {}
+
+
+def learning_proofs(scene, root: Path) -> dict:
+    """The learning proofs of resnet50.json (6d) and YOLO_SEM_CFGS (6e), each
+    `learning_proof` in a process of its own (`chip_smoke.py --learning-proof
+    CFG NAME ROOT`), all four at once: they are host-bound (96 px, bs 4), and
+    one after another they took 180–265 s. Each process runs under
+    deterministic algorithms and counts its own K1 launches, so a proof's
+    result does not depend on the others beside it; its `run_s` is its wall
+    clock beside them. Returns {cfg: learning_proof's result}; a process that
+    fails raises with the tail of its log."""
+    runs = {"resnet50.json": "golden", **{c: f"{c.removesuffix('.json')}_golden"
+                                          for c in YOLO_SEM_CFGS}}
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = {}
+    for cfg, name in runs.items():   # stdout and stderr to files: a full pipe would block
+        with open(root / f"{name}.out", "w") as o, open(root / f"{name}.log", "w") as e:
+            procs[cfg] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--learning-proof", cfg, name,
+                 str(root), str(scene[0]), str(scene[1])], stdout=o, stderr=e, env=env,
+                cwd=Path(__file__).resolve().parent)
+    out = {}
+    for cfg, proc in procs.items():
+        proc.wait(timeout=900)
+        lines = [ln for ln in (root / f"{runs[cfg]}.out").read_text().splitlines()
+                 if ln.startswith("learning proof result ")]
+        if proc.returncode or not lines:
+            tail = (root / f"{runs[cfg]}.log").read_text()[-3000:]
+            raise AssertionError(f"learning proof of {cfg} exited {proc.returncode}: {tail}")
+        out[cfg] = json.loads(lines[-1].removeprefix("learning proof result "))
+    return out
+
+
+def learning_proof_process(cfg: str, name: str, root: Path, scene) -> int:
+    """`--learning-proof`: one learning proof in this process, its result as a
+    JSON line."""
+    from yolo_dual_tpu_torch.kernels.build import load_library
+    from yolo_dual_tpu_torch.semantic import train as cli
+    torch.set_num_threads(2)
+    load_library("letterbox")
+    probe = CliProbe(cli)
+    try:
+        res = learning_proof(probe, scene, root, root / "runs", cfg, name)
+    finally:
+        probe.close()
+    print("learning proof result " + json.dumps(res), flush=True)
+    return 0
 
 
 def proof_spread(runs: int) -> list:
@@ -2039,7 +2120,6 @@ def yolo_semantic_path(card: str):
     launches by geometry and by path."""
     import shutil
     from yolo_dual_tpu_torch.data.json_dataset import JSONSegmentDataset
-    from yolo_dual_tpu_torch.data.tools import write_synthetic_camvid_scene
     from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
     from yolo_dual_tpu_torch.models.model import SemanticSegModel
     from yolo_dual_tpu_torch.semantic import predict, val
@@ -2050,7 +2130,6 @@ def yolo_semantic_path(card: str):
     t = time.perf_counter()
     img_dir, json_dir = write_semantic_set(root / "train", SEM_TRAIN_FRAMES, seed=41)
     val_img, val_json = write_semantic_set(root / "val", SEM_VAL_FRAMES, seed=42)
-    scene = write_synthetic_camvid_scene(root / "scene")
     ds = JSONSegmentDataset(img_dir, json_dir, 640, augment=True, seed=0, device_preprocess=True)
     samples = [ds[i] for i in range(2 * SEM_BS)]
     frames4 = [s["image_raw"] for s in samples[:SEM_CHECK_FRAMES]]
@@ -2153,8 +2232,8 @@ def yolo_semantic_path(card: str):
                         or ul["letterbox_normalize"] != 2 * steps \
                         or any(gap[k] > RESUME_TOL[k] for k in gap):
                     problems.append(f"{name} --resume: {r['resume_vs_uninterrupted']}")
-            # (d) the learning proof
-            proof = learning_proof(probe, scene, root, project, cfg, f"{name}_golden")
+            # (d) the learning proof, run beside 6d's (learning_proofs)
+            proof = PROOFS.pop(cfg)
             proof["floor"] = YOLO_SEM_GOLDEN[cfg] - 0.05
             r["learning_proof"] = proof
             k1["proof"] += proof["launches"]["letterbox_normalize"]
@@ -3684,6 +3763,141 @@ def weights_path(card: str) -> dict:
     return launches
 
 
+def dir_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file()) / 2 ** 20
+
+
+def weights_out_path(card: str) -> dict:
+    """Phase 6l, under build/phase6l: (a) a copy of the JAX package's orbax
+    fixture stripped by train/checkpoint.py:strip_optimizer through the
+    port's orbax writer (io/ocdbt.py), read back, served by MultiBackend on
+    the card against the unstripped checkpoint's EMA forward, and
+    segment.predict --update run on another copy; (b) yolov5s-seg (nc 80,
+    640, seeded, BatchNorm calibrated) exported to a SavedModel, a float
+    TFLite and an int8 TFLite file calibrated on JAX's 16 default frames on
+    the card, the lowered graph run on the card against the model's float32
+    and float64 forwards.
+    The K2 and K1 counts are set to 0 just before (a)'s forwards and read
+    just after. Returns {kernel: launches}."""
+    import shutil
+    from yolo_dual_tpu_torch import export
+    from yolo_dual_tpu_torch.io import ocdbt
+    from yolo_dual_tpu_torch.io.multibackend import MultiBackend
+    from yolo_dual_tpu_torch.io.tf_graph import build_tf_graph, run_tf_graph
+    from yolo_dual_tpu_torch.io.weights import resolve_state_dict
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.nn.dcn import DCNv3
+    from yolo_dual_tpu_torch.segment.predict import run as predict_run
+    from yolo_dual_tpu_torch.train.checkpoint import strip_optimizer
+    t_phase = time.perf_counter()
+    tmp = Path(__file__).resolve().parent / "build" / "phase6l"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    failures, out = [], {"card": card}
+    try:
+        # (a) strip through the port's writer, read back, serve, --update
+        for name in ("stripped", "update"):
+            shutil.copytree(ORBAX_FIXTURE / "ckpt", tmp / name)
+        t0 = time.perf_counter()
+        strip_optimizer(tmp / "stripped")
+        out["strip_write_ms"] = (time.perf_counter() - t0) * 1e3
+        out["stripped_mb"] = dir_mb(tmp / "stripped")
+        tree = ocdbt.load_checkpoint(tmp / "stripped")
+        if (tree["opt_state"], tree["ema"], tree["epoch"]) != (None, None, -1):
+            failures.append("(a) the stripped tree keeps its optimizer state, EMA or epoch")
+        want_sd = resolve_state_dict(ORBAX_FIXTURE / "ckpt")       # the EMA first
+        got_sd = resolve_state_dict(tmp / "stripped")
+        if set(got_sd) != set(want_sd) or any(not torch.equal(got_sd[k], want_sd[k])
+                                              for k in want_sd):
+            failures.append("(a) the stripped variables are not the fixture's EMA")
+        fx = torch.from_numpy(np.load(ORBAX_FIXTURE / "input.npy")).cuda().permute(0, 3, 1, 2) \
+            .float() / 255
+        frame = tmp / "frame.npy"
+        np.save(frame, np.load(ORBAX_FIXTURE / "input.npy")[0])
+        torch.backends.cudnn.allow_tf32 = False
+        kw = dict(cfg=ORBAX_FIXTURE / "cfg.json", nc=80, imgsz=64, device="cuda")
+        ref = MultiBackend(ORBAX_FIXTURE / "ckpt", **kw)
+        want = ref(fx)
+        torch.cuda.synchronize()
+
+        # the main path, counted: the stripped checkpoint served, segment.predict --update
+        dcnv3_sampling.launches = letterbox_normalize.launches = 0
+        mb = MultiBackend(tmp / "stripped", **kw)
+        got = mb(fx)
+        rows = predict_run(weights=str(tmp / "update"), cfg=str(ORBAX_FIXTURE / "cfg.json"),
+                           source=str(frame), imgsz=64, conf_thres=0.001, nosave=True,
+                           update=True, device="cuda", project=str(tmp / "predict"))
+        torch.cuda.synchronize()
+        launches = {"dcnv3_sampling": dcnv3_sampling.launches,
+                    "letterbox_normalize": letterbox_normalize.launches}
+        per_fwd = sum(isinstance(m, DCNv3) for m in mb.model.modules())
+        if launches["dcnv3_sampling"] < 2 * per_fwd or launches["letterbox_normalize"] < 1:
+            failures.append(f"(a) launches {launches}: expected K2 {per_fwd} a forward for the "
+                            "served checkpoint and the predicted frame, and K1 a frame")
+        out["launches"] = launches
+        gaps = [max_rel_gap(g, w) for g, w in zip(got, want)]
+        out["served_max_rel_gap"] = gaps
+        failures += [f"(a) served {n} {g} > {SAME_TOL}" for n, g in zip(("pred", "protos"), gaps)
+                     if not g <= SAME_TOL]
+        if ocdbt.load_checkpoint(tmp / "update", "epoch") != -1:
+            failures.append("(a) segment.predict --update left the checkpoint unstripped")
+        out["update_rows"] = len(rows[0])
+        del ref, mb
+
+        # (b) yolov5s-seg at full width to SavedModel, TFLite and int8 TFLite
+        gen = torch.Generator().manual_seed(2)
+        model = calibrate_bn(SegmentationModel("yolov5s-seg.json", device="cuda", generator=gen),
+                             make_frames(3, seed=3))
+        cpu_model = copy.deepcopy(model).cpu()
+        files = {}
+        for name, fn in (
+                ("savedmodel", lambda: export.export_savedmodel(cpu_model, 640, tmp / "s_saved_model")),
+                ("tflite", lambda: export.export_tflite(cpu_model, 640, tmp / "s.tflite")),
+                ("tflite_int8", lambda: export.export_tflite(cpu_model, 640, tmp / "s_int8.tflite",
+                                                             int8=True, device="cuda"))):
+            t0 = time.perf_counter()
+            files[name] = fn()
+            out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            out[f"{name}_mb"] = dir_mb(files[name]) if files[name].is_dir() else \
+                files[name].stat().st_size / 2 ** 20
+        x = torch.rand(1, 640, 640, 3, generator=torch.Generator().manual_seed(4)).cuda()
+        g = build_tf_graph(cpu_model, 640, fuse=True)
+        with torch.inference_mode():
+            lowered = run_tf_graph(g, x)
+            lowered = (lowered["pred"], lowered["protos"].permute(0, 3, 1, 2))
+            direct = model.fuse()(x.permute(0, 3, 1, 2))[:2]
+            exact = model.double()(x.permute(0, 3, 1, 2).double())[:2]
+        # a calibrated full-width float32 forward lies ~1.4e-4-2.5e-4 of the largest |pred|
+        # from the float64 one (CPU, three memory layouts): the lowered graph is held to
+        # twice the float32 forward's own gap to the float64 forward
+        own = [max_rel_gap(d, e) for d, e in zip(direct, exact)]
+        gaps = [max_rel_gap(lo, e) for lo, e in zip(lowered, exact)]
+        out["lowered_graph_ops"] = len(g.nodes)
+        out["float64_gap_lowered_and_forward"] = {"lowered": gaps, "forward": own}
+        failures += [f"(b) lowered graph {n}: {v} from the float64 forward, over twice the "
+                     f"float32 forward's {o}" for n, v, o in zip(("pred", "protos"), gaps, own)
+                     if not v <= 2 * o + 1e-7]
+        if not (files["savedmodel"] / "saved_model.pb").is_file():
+            failures.append("(b) no saved_model.pb")
+        for name in ("tflite", "tflite_int8"):
+            if files[name].read_bytes()[4:8] != b"TFL3":
+                failures.append(f"(b) {name}: no TFL3 identifier")
+        out["files_checked_by"] = ("tests/test_torch_port_tf_export.py on the CPU "
+                                   "(no tensorflow on this machine)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_6l_s"] = time.perf_counter() - t_phase
+    print("weights out (6l) " + json.dumps(out), flush=True)
+    print(f"phase 6l s {out['phase_6l_s']:.2f}", flush=True)
+    if failures:
+        raise AssertionError("weights out (6l): " + "; ".join(failures))
+    return launches
+
+
 def train_batch(rng: np.random.Generator, bs: int, imgsz: int, device) -> dict:
     """One seeded synthetic batch as the JAX package's loader yields it: uint8
     NHWC images, targets (bs, M, 5) normalised [cls, x, y, w, h] with 1..M
@@ -4187,6 +4401,7 @@ def cli_train_path(card: str, micro_step_ms: float):
 # Phase 10b: the host augmentation route, --remat and rect validation on phase 10's set
 HOST_HYP = "hyp.scratch-high.json"  # mixup 0.1, copy_paste 0.1: the host route
 HOST_STEP_TOL = 1e-3  # first micro-step card vs CPU, TF32 off: items and gradients
+HOST_STEP_BS = 4  # ... on the host batch's first 4 samples: its 16 took 50-66 s on the CPU
 REMAT_TOL = 1e-4  # the remat micro-step against the plain one on the card
 STATS_SHARE = 1e-5  # BatchNorm statistics, remat against plain, when not bitwise equal
 RECT_MAP_TOL = 0.01  # segment.val --rect card vs CPU, each of the 8 metrics (as 6b)
@@ -4269,17 +4484,18 @@ def grad_gaps(a: dict, b: dict) -> dict:
 
 def host_step_card_vs_cpu(batch: dict) -> dict:
     """The first micro-step's forward, loss and backward of yolov5s-seg-dcnv3
-    (phase 7's weights) on the host batch, on the card and on the CPU from
-    the same weights, TF32 off: loss items within HOST_STEP_TOL of the
-    largest, every gradient within HOST_STEP_TOL of the model's largest
-    (grad_gaps)."""
+    (phase 7's weights) on the first HOST_STEP_BS samples of the host batch,
+    on the card and on the CPU from the same weights, TF32 off: loss items
+    within HOST_STEP_TOL of the largest, every gradient within HOST_STEP_TOL
+    of the model's largest (grad_gaps)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    batch = {k: v[:HOST_STEP_BS] for k, v in batch.items()}
     model = dcnv3_train_model()
     out = {}
     for dev in ("cuda", "cpu"):
         m = copy.deepcopy(model).to(dev).train()
-        trainer, _ = train_setup(m, TRAIN_BS, 1, hyp_name=HOST_HYP)
+        trainer, _ = train_setup(m, HOST_STEP_BS, 1, hyp_name=HOST_HYP)
         t = time.perf_counter()
         loss, items = trainer.forward_loss(m, batch)
         loss.backward()
@@ -4528,7 +4744,8 @@ def host_route_path(card: str, device_epoch_img_s: float):
                              f"expected {want}")
     batch, _ = host_batch_parts(root, card)
     check = host_step_card_vs_cpu(batch)
-    print("host micro-step card vs cpu (bs 16, 640 px, tf32 off) " + json.dumps(check), flush=True)
+    print(f"host micro-step card vs cpu (bs {HOST_STEP_BS}, 640 px, tf32 off) " + json.dumps(check),
+          flush=True)
     if check["items_share"] > HOST_STEP_TOL or check["grads"]["share_of_largest"] > HOST_STEP_TOL:
         raise AssertionError(f"host micro-step card vs CPU: {check}")
     remat_launches = remat_phase(batch, card)
@@ -4892,6 +5109,8 @@ def main(argv=None) -> int:
                          "algorithms and RUNS times without")
     ap.add_argument("--dp-rank", metavar="DIR",
                     help="run as a rank of phase 6k under torch.distributed.run (DIR: its job)")
+    ap.add_argument("--learning-proof", nargs=5, metavar=("CFG", "NAME", "ROOT", "IMAGES", "JSON"),
+                    help="run one learning proof of 6d / 6e in this process (learning_proofs)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -4899,10 +5118,14 @@ def main(argv=None) -> int:
         return 1
     if args.dp_rank:
         return dp_rank(Path(args.dp_rank))
+    if args.learning_proof:
+        cfg, name, root, images, masks = args.learning_proof
+        return learning_proof_process(cfg, name, Path(root), (Path(images), Path(masks)))
     root = Path(args.device_times or Path(__file__).resolve().parent).resolve()
     sys.path.insert(0, str(root))
     from yolo_dual_tpu_torch.kernels.build import library_path, load_library
 
+    t_start = time.perf_counter()
     # 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
@@ -4933,6 +5156,9 @@ def main(argv=None) -> int:
         print(f"proof spread ({card}) " + json.dumps(summary), flush=True)
         return 0 if all(len(d) == 1 for d in digests.values()) else 1
 
+    def elapsed(phase):
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # 2. build: one nvcc per source, all started together
     def build(name):
         t0 = time.perf_counter()
@@ -4950,28 +5176,36 @@ def main(argv=None) -> int:
     lres = letterbox_phase()
     dres = dcnv3_phase()
     bres = dcnv3_bwd_phase()
+    elapsed("3")
 
     # 4-6. each model's prediction path; 7. the training path; 8. training, card vs CPU
     frames = make_frames(N_FRAMES)
     by_path = {cfg.removesuffix(".json"): model_path(cfg, frames, card) for cfg in MODELS}
+    elapsed("4-6")
     # 6b. the validation slice: segment.val at bs 32 through K1
     by_path["eval yolov5s-seg"], eval_batch = eval_path(card)
+    elapsed("6b")
     # 6c. the semantic flagship: semantic.val on both routes (K1 on the device route),
     # semantic.predict
     by_path["eval semantic resnet50"], semantic_profile = semantic_path(card)
+    elapsed("6c")
     # 6d. the semantic flagship trains: one step card vs CPU, semantic.train on both routes,
     # --resume, the learning proof
     semantic_train_k1, semantic_train_profile = semantic_train_path(card)
     by_path["train semantic resnet50"] = {"letterbox_normalize": sum(semantic_train_k1.values())}
+    elapsed("6d")
     # 6e. the YOLO semantic family: semantic.val, .predict, .train, the learning proofs
     yolo_k1, yolo_paths = yolo_semantic_path(card)
     by_path["eval semantic yolo"] = {"letterbox_normalize": yolo_paths["eval"]}
     by_path["train semantic yolo"] = {"letterbox_normalize": yolo_paths["train"]}
+    elapsed("6e")
     # 6f. the detect zoo through build_model and AutoShape (no kernel on its path)
     by_path["detect zoo"] = detect_zoo_path(card)
+    elapsed("6f")
     # 6g. classification: 13 classifiers, then classify.train, .val and .predict (no kernel on
     # its path)
     by_path["classify"] = classify_path(card)
+    elapsed("6g")
     # 6h. the AuxOTA dual head trains and serves (no kernel on its path); the 6d graph; segment.val
     # with TTA and soft-NMS (K1 a batch) and segment.predict --augment (K1 a frame)
     t6h = time.perf_counter()
@@ -4981,25 +5215,37 @@ def main(argv=None) -> int:
     by_path["tta soft-nms val"] = {"letterbox_normalize": tta_k1["val"]}
     by_path["tta predict"] = {"letterbox_normalize": tta_k1["predict"]}
     print(f"phase 6h s {time.perf_counter() - t6h:.2f}", flush=True)
+    elapsed("6h")
     # 6i. the HTTP model server and its client on yolov5s-seg-dcnv3 (K2 6 a request) and
     # resnet50, segment.predict's outputs (K1 a frame) and segment.val --save-json (K1 a batch)
     by_path["serve yolov5s-seg-dcnv3"], serve_k1, serve_profile = serve_path(card)
     by_path["predict outputs"] = {"letterbox_normalize": serve_k1["predict"]}
     by_path["val --save-json"] = {"letterbox_normalize": serve_k1["val"]}
+    elapsed("6i")
     # 6j. weights in and out: export, MultiBackend and Ensemble at full width (K2 6 a forward),
     # the JAX package's orbax fixture served without JAX (K2), ONNX through cv2.dnn
     by_path["weights in and out"] = weights_path(card)
+    elapsed("6j")
+    # 6l. weights out: the orbax fixture stripped by the port's writer and served (K2), predict
+    # --update (K1, K2); yolov5s-seg to SavedModel, TFLite and int8 TFLite (no kernel)
+    by_path["weights out"] = weights_out_path(card)
+    elapsed("6l")
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
+    elapsed("7")
     train_card_vs_cpu()
+    elapsed("8")
     # 10. the train CLI on a dataset on disk
     by_path["train CLI yolov5s-seg-dcnv3"], cli_profile, device_epoch_img_s = \
         cli_train_path(card, step_ms)
+    elapsed("10")
     # 10b. the host augmentation route, --remat and rect validation on phase 10's set
     by_path["train CLI host route"], by_path["remat micro-steps"] = \
         host_route_path(card, device_epoch_img_s)
+    elapsed("10b")
     # 6k. data parallelism on 2 ranks sharing the card (K2, K3 and K1 on the ranks' paths)
     # and the utils layer, on a cut of phase 10's set
     by_path["data parallel and utils"] = data_parallel_path(card)
+    elapsed("6k")
 
     # 9. the kernels' own device times, on seeded and on the trained model's DCNv3 inputs;
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
@@ -5025,6 +5271,7 @@ def main(argv=None) -> int:
     del auxota_profile
     print("serve burst profile " + json.dumps(serve_profile()), flush=True)
     del serve_profile
+    elapsed("9 and the profiles")
 
     # 11. kernels line: times are means over the launches of the main paths, each
     # launch weighted by the shape it ran at
@@ -5047,7 +5294,7 @@ def main(argv=None) -> int:
     # K2: 16 frames at batch 1 (prediction) and the server's requests and warm-up (6i),
     # 8 micro-steps at bs 16 (training), and the CLIs' forwards at bs 16 (their micro-steps
     # and val batches, both routes) and 10b's remat micro-steps (two forwards each); K3: the
-    # micro-steps. 6j's launches (bs-8 forwards and the 64-px fixture) and 6k's (the ranks'
+    # micro-steps. 6j's and 6l's launches (bs-8 forwards and the 64-px fixture) and 6k's (the ranks'
     # bs-8 forwards and micro-steps, the utilities') count in `launches`; the means weight the
     # shapes phase 3 times
     n_dcn = sum(DCN_PATH_SHAPES.values())

@@ -213,8 +213,11 @@ def test_exported_pt_loads_in_port_and_jax(tmp_path):
 
 def test_export_cli(tmp_path, monkeypatch):
     """The CLI's flags are JAX's (export.py:156-172); a semantic config takes
-    the semantic route with --nc; savedmodel and tflite raise naming their
-    ROADMAP item, and --fuse / --int8, which only they read, are logged."""
+    the semantic route with --nc; savedmodel and tflite of a semantic model
+    raise ValueError as JAX's export_savedmodel does (its unpacking of
+    pred, protos, _), writing neither; a Segment config writes
+    `<stem>_saved_model/` (with --fuse, no BatchNorm left in it) and
+    `<stem>.tflite`; every format of the table is written."""
     opt = port_export.parse_opt([])
     assert (opt.weights, opt.cfg, opt.nc, opt.imgsz, opt.include, opt.fuse, opt.int8) == \
         ("", "yolov5s-seg.json", None, 640, ["torchpt"], False, False)
@@ -229,11 +232,21 @@ def test_export_cli(tmp_path, monkeypatch):
     assert torch.load(out["torchpt"], weights_only=True)["model"]["model.4.final1.conv.weight"] \
         .shape[0] == 6
     for fmt in ("savedmodel", "tflite"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 7f"):
-            port_export.run(cfg=str(cfg), include=("torchpt", fmt), out_dir=str(tmp_path / fmt))
-        assert not (tmp_path / fmt).exists()
+        with pytest.raises(ValueError, match=r"not enough values to unpack \(expected 3, got 1\)"):
+            port_export.run(cfg=str(cfg), include=(fmt,), out_dir=str(tmp_path / fmt))
+        assert not any((tmp_path / fmt).iterdir())
+    seg = tmp_path / "tiny.json"
+    seg.write_text(json.dumps(TINY_SEG))
     logged = []
     monkeypatch.setattr(port_export.LOGGER, "info", logged.append)
-    port_export.run(cfg=str(cfg), imgsz=IMGSZ, fuse=True, out_dir=str(tmp_path / "f"))
-    assert any("--fuse and --int8 apply to SavedModel / TFLite only" in m for m in logged)
-    assert [row[1] for row in port_export.export_formats() if row[3]] == ["torchpt", "onnx"]
+    out = port_export.run(**vars(port_export.parse_opt(
+        ["--cfg", str(seg), "--imgsz", str(IMGSZ), "--include", "tflite", "--fuse",
+         "--out-dir", str(tmp_path / "f")])))
+    assert out == {"savedmodel": tmp_path / "f" / "tiny_saved_model",
+                   "tflite": tmp_path / "f" / "tiny.tflite"}
+    assert (out["savedmodel"] / "saved_model.pb").is_file() and out["tflite"].is_file()
+    assert b"FusedBatchNormV3" not in (out["savedmodel"] / "saved_model.pb").read_bytes()
+    assert logged == [f"exported SavedModel -> {out['savedmodel']}",
+                      f"exported TFLite -> {out['tflite']}"]
+    assert [row[1] for row in port_export.export_formats() if row[3]] == \
+        ["orbax", "torchpt", "onnx", "savedmodel", "tflite"]

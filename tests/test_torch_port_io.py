@@ -42,6 +42,7 @@ from yolo_dual_tpu.train import load_checkpoint as jax_load_checkpoint
 from yolo_dual_tpu.train import save_checkpoint
 from yolo_dual_tpu.train.checkpoint import export_torch_state_dict
 from yolo_dual_tpu.train.checkpoint import partial_load as jax_partial_load
+from yolo_dual_tpu.train.checkpoint import strip_optimizer as jax_strip_optimizer
 from yolo_dual_tpu.train.optim import smart_optimizer
 from yolo_dual_tpu_torch import serve as port_serve
 from yolo_dual_tpu_torch.io import ocdbt
@@ -488,16 +489,41 @@ def test_classify_val_and_predict_from_orbax_match_jax(tmp_path):
     for i in range(4):
         assert (tmp_path / "port" / "labels" / f"{i}.txt").read_text() \
             == (tmp_path / "jax" / "labels" / f"{i}.txt").read_text()
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 7e"):
-        cls_predict.run(weights=str(ckpt), model=str(root / "mini.json"), update=True,
-                        source=str(root / "port" / "val" / "red"), device="cpu", nosave=True,
-                        imgsz=32, cutoff=2)
+    # --update on the directory: stripped as JAX's classify/predict.py strips it
+    # (its strip_optimizer), then the same predictions from the EMA now in `variables`
+    for side in ("jax", "port"):
+        shutil.copytree(ckpt, tmp_path / f"upd_{side}")
+    jax_strip_optimizer(tmp_path / "upd_jax")
+    again = cls_predict.run(weights=str(tmp_path / "upd_port"), model=str(root / "mini.json"),
+                            update=True, source=str(root / "port" / "val" / "red"),
+                            device="cpu", nosave=True, imgsz=32, cutoff=2, topk=3)
+    assert_same_tree(jax_load_checkpoint(tmp_path / "upd_jax"),
+                     ocdbt.load_checkpoint(tmp_path / "upd_port"))
+    for (_, go, gprob), (_, wo, wprob) in zip(again, got):
+        np.testing.assert_array_equal(go, wo)
+        np.testing.assert_array_equal(gprob, wprob)
 
 
-def test_predict_update_on_orbax_names_its_roadmap_item(tiny_checkpoints):
+def test_predict_update_on_orbax_names_its_roadmap_item(tiny_checkpoints, tmp_path):
+    """segment.predict --update on an orbax directory (formerly refused,
+    ROADMAP A item 7e): the directory is stripped as JAX's segment/predict.py
+    strips it (its strip_optimizer: the EMA into `variables`, opt_state and
+    ema None, epoch -1), then the rows predicted from it are those of the
+    unstripped directory's EMA."""
     _, _, _, paths = tiny_checkpoints
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 7e"):
-        seg_predict_run(weights=str(paths["ema"]), cfg=TINY_SEG, update=True, device="cpu")
+    for side in ("jax", "port"):
+        shutil.copytree(paths["ema"], tmp_path / side)
+    frame = np.random.default_rng(5).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    np.save(tmp_path / "frame.npy", frame)
+    kw = dict(cfg=TINY_SEG, source=str(tmp_path / "frame.npy"), imgsz=IMGSZ, conf_thres=0.01,
+              nosave=True, device="cpu", nc=TINY_NC)
+    want = seg_predict_run(weights=str(paths["ema"]), **kw)
+    jax_strip_optimizer(tmp_path / "jax")
+    got = seg_predict_run(weights=str(tmp_path / "port"), update=True, **kw)
+    assert_same_tree(jax_load_checkpoint(tmp_path / "jax"), ocdbt.load_checkpoint(tmp_path / "port"))
+    assert ocdbt.load_checkpoint(tmp_path / "port", "epoch") == -1
+    assert len(got) == len(want) == 1 and len(got[0]) > 0
+    np.testing.assert_array_equal(got[0], want[0])
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ stream's as one mp4 a source, and shown with --view-img; drawing, saving
 and showing need cv2. --weights takes a `.pt` of classify.train (its EMA
 weights, and its class names), or an orbax checkpoint directory of the JAX
 package (its EMA first, and its `classes`); --update strips a `.pt`'s
-optimizer state first and raises on a directory (ROADMAP A item 7e).
+optimizer state first, or rewrites a directory as JAX's strip_optimizer does.
 Without weights the model has JAX's initial weights under PRNGKey(0) and
 1000 classes.
 """
@@ -57,9 +57,7 @@ def run(weights="", model="yolov5n.yaml", source="", imgsz=224, cutoff=10, topk=
     classes, nc = None, 1000
     if weights and not str(weights).endswith(".pt"):  # an orbax checkpoint of the JAX package
         if update:
-            raise NotImplementedError(
-                f"--update on the orbax checkpoint {weights}: JAX rewrites the directory "
-                "(strip_optimizer) and the port writes no orbax checkpoint yet (ROADMAP A item 7e)")
+            strip_optimizer(weights)
         ckpt = OrbaxCheckpoint(weights)
         classes = [str(c) for c in ckpt.read("classes")] if ckpt.has("classes") else None
         nc = len(classes) if classes else nc

@@ -1,9 +1,11 @@
-"""Read the JAX package's orbax checkpoints without JAX, orbax or tensorstore
-(the read side of yolo_dual_tpu/train/checkpoint.py:38 load_checkpoint).
+"""Read and write the JAX package's orbax checkpoints without JAX, orbax or
+tensorstore (yolo_dual_tpu/train/checkpoint.py:38 load_checkpoint and :26
+save_checkpoint).
 
     ckpt = OrbaxCheckpoint("runs/train-seg/exp/last")
     ema = ckpt.read("ema/ema")        # decodes only the leaves under ema/ema
     tree = load_checkpoint("runs/train-seg/exp/last")   # everything
+    save_checkpoint("runs/train-seg/exp/stripped", tree)  # orbax restores it
 
 orbax's PyTreeCheckpointer writes a directory holding:
 
@@ -27,6 +29,15 @@ machine without it raises an OSError that names it.
 Leaves come back as numpy arrays (a jax.Array leaf too), Python scalars,
 strings or None. numpy has no bfloat16: a bfloat16 array comes back as the
 float32 array of the same values (exact; the low 16 bits are zero).
+
+`save_checkpoint` writes what orbax 0.11's PyTreeCheckpointer().save writes
+for numpy leaves, in one OCDBT database at the directory's root (orbax's
+per-process `ocdbt.process_0/` stores are merged into that root on save, and
+its restore reads only the root): one data file under `d/` holding the zarr
+chunks of more than 1024 bytes and the single B-tree leaf node (the smaller
+values inline in it), and the manifest naming that node. Each array is one
+zstd chunk (level 1, as orbax's zarr driver writes), compressed by
+libzstd.so.1's ZSTD_compress.
 """
 
 from __future__ import annotations
@@ -35,11 +46,16 @@ import ctypes
 import functools
 import json
 import math
+import os
+import shutil
 import struct
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
+
+from yolo_dual_tpu_torch.io.protowire import varint as _varint
 
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
@@ -66,7 +82,21 @@ class _Zstd:
         lib.ZSTD_isError.restype = ctypes.c_uint
         lib.ZSTD_getErrorName.argtypes = [ctypes.c_size_t]
         lib.ZSTD_getErrorName.restype = ctypes.c_char_p
+        lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+        lib.ZSTD_compressBound.restype = ctypes.c_size_t
+        lib.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                                      ctypes.c_size_t, ctypes.c_int]
+        lib.ZSTD_compress.restype = ctypes.c_size_t
         self.lib = lib
+
+    def compress(self, data: bytes, level: int = 1) -> bytes:
+        """One zstd frame of `data` (its content size in the frame header)."""
+        cap = self.lib.ZSTD_compressBound(len(data))
+        out = ctypes.create_string_buffer(max(cap, 1))
+        got = self.lib.ZSTD_compress(out, cap, data, len(data), level)
+        if self.lib.ZSTD_isError(got):
+            raise ValueError(f"zstd: {self.lib.ZSTD_getErrorName(got).decode()}")
+        return out.raw[:got]
 
     def decompress(self, data: bytes, size: Optional[int] = None, limit: int = 1 << 31) -> bytes:
         """The frames in `data`, decompressed. `size` is the decoded size where
@@ -421,3 +451,200 @@ def load_checkpoint(path, prefix: PathLike = ""):
     """The checkpoint at `path` (or its subtree at `prefix`) as JAX's
     `load_checkpoint(path)` restores it, with numpy arrays at the leaves."""
     return OrbaxCheckpoint(path).read(prefix)
+
+
+# ---------------------------------------------------------------------------
+# the write side
+# ---------------------------------------------------------------------------
+
+MAX_INLINE_VALUE_BYTES = 1024         # orbax's OCDBT settings (its manifests' config)
+MAX_DECODED_NODE_BYTES = 100_000_000
+_DICT_KEY = 2
+
+
+def _varints(ns) -> bytes:
+    return b"".join(_varint(n) for n in ns)
+
+
+@functools.cache
+def _crc32c_table() -> Tuple[int, ...]:
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return tuple(table)
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli), as OCDBT's record footers and TF's tables hold it."""
+    table = _crc32c_table()
+    crc ^= 0xFFFFFFFF
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+def _frame(body: bytes, magic: int) -> bytes:
+    """A manifest or B-tree node record: header, zstd body, CRC32C footer
+    (the inverse of _unframe)."""
+    packed = _zstd().compress(body, 0)
+    head = _varint(0) + _varint(1)            # format version 0, zstd
+    rec = struct.pack(">I", magic) + struct.pack("<Q", 4 + 8 + len(head) + len(packed) + 4)
+    rec += head + packed
+    return rec + struct.pack("<I", crc32c(rec))
+
+
+def _file_table(paths: List[str]) -> bytes:
+    """A data file table of paths with empty base paths, unshared prefixes."""
+    enc = [p.encode() for p in paths]
+    return (_varint(len(enc)) + _varints([0] * max(len(enc) - 1, 0)) + _varints(map(len, enc))
+            + _varints([0] * len(enc)) + b"".join(enc))
+
+
+def _leaf_node(items: List[Tuple[bytes, bytes]], data_file: str,
+               offsets: Dict[bytes, int]) -> bytes:
+    """The body of a B-tree leaf node over sorted (key, value) items; the
+    values in `offsets` are held in `data_file` at those offsets."""
+    keys = [k for k, _ in items]
+    prefix = [len(os.path.commonprefix([a, b])) for a, b in zip(keys, keys[1:])]
+    body = bytes([0]) + _file_table([data_file] if offsets else [])
+    body += _varint(len(keys)) + _varints(prefix)
+    body += _varints(len(k) - p for k, p in zip(keys, [0] + prefix))
+    body += b"".join(k[p:] for k, p in zip(keys, [0] + prefix))
+    body += _varints(len(v) for _, v in items)
+    body += _varints(int(k in offsets) for k in keys)
+    indirect = [k for k in keys if k in offsets]
+    body += _varints([0] * len(indirect)) + _varints(offsets[k] for k in indirect)
+    return body + b"".join(v for k, v in items if k not in offsets)
+
+
+def write_ocdbt(root, kv: Dict[bytes, bytes]) -> None:
+    """An OCDBT database of one version holding `kv` under `root`: the data
+    file `d/<random>` (the values over MAX_INLINE_VALUE_BYTES, then the leaf
+    node) and `manifest.ocdbt`."""
+    root = Path(root)
+    items = sorted(kv.items())
+    data_file = f"d/{os.urandom(16).hex()}"
+    blob, offsets = bytearray(), {}
+    for k, v in items:
+        if len(v) > MAX_INLINE_VALUE_BYTES:
+            offsets[k] = len(blob)
+            blob += v
+    indirect_bytes = len(blob)
+    body = _leaf_node(items, data_file, offsets)
+    if len(body) > MAX_DECODED_NODE_BYTES:
+        raise ValueError(f"OCDBT: a leaf node of {len(body)} bytes exceeds "
+                         f"{MAX_DECODED_NODE_BYTES}")
+    node = _frame(body, NODE_MAGIC)
+    node_offset = len(blob)
+    blob += node
+    (root / "d").mkdir(parents=True, exist_ok=True)
+    (root / data_file).write_bytes(bytes(blob))
+    config = (os.urandom(16) + _varint(0) + _varint(MAX_INLINE_VALUE_BYTES)
+              + _varint(MAX_DECODED_NODE_BYTES) + bytes([4]) + _varint(1) + struct.pack("<i", 0))
+    version = (_varint(1) + _varint(1) + bytes([0]) + _varint(0) + _varint(node_offset)
+               + _varint(len(node)) + _varint(len(items)) + _varint(len(node))
+               + _varint(indirect_bytes) + struct.pack("<Q", time.time_ns()) + _varint(0))
+    manifest = _frame(config + _file_table([data_file]) + version, MANIFEST_MAGIC)
+    (root / "manifest.ocdbt").write_bytes(manifest)
+
+
+def _zarr_meta(arr: np.ndarray) -> bytes:
+    dtype = "bfloat16" if arr.dtype.name == "bfloat16" else arr.dtype.str
+    meta = {"chunks": list(arr.shape), "compressor": {"id": "zstd", "level": 1},
+            "dimension_separator": ".", "dtype": dtype, "fill_value": None, "filters": None,
+            "order": "C", "shape": list(arr.shape), "zarr_format": 2}
+    return json.dumps(meta, sort_keys=True, separators=(",", ":")).encode()
+
+
+def _leaves(tree, keys: tuple = ()):
+    """(keys, value) of each leaf of nested dicts and lists; a key is
+    (name, orbax KeyType). Empty containers are leaves. A named tuple (an
+    optax state) is keyed by its field names, as orbax keys it, and an empty
+    one (optax's EmptyState) is None, as orbax restores it."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        tree = tree._asdict() or None
+    if isinstance(tree, dict) and tree:
+        for k, v in tree.items():
+            yield from _leaves(v, keys + ((str(k), _DICT_KEY),))
+    elif isinstance(tree, (list, tuple)) and tree:
+        for i, v in enumerate(tree):
+            yield from _leaves(v, keys + ((str(i), _SEQUENCE),))
+    else:
+        yield keys, tree
+
+
+def _leaf_value(name: str, value) -> Tuple[str, Optional[np.ndarray]]:
+    """(orbax value type, the array to store or None)."""
+    if value is None:
+        return "None", None
+    if isinstance(value, dict):
+        return "Dict", None
+    if isinstance(value, (list, tuple)):
+        return "List", None
+    if isinstance(value, str):
+        return "string", None
+    if isinstance(value, (bool, int, float, np.generic)):
+        return "scalar", np.asarray(value)
+    if hasattr(value, "__array__") and not isinstance(value, np.ndarray):
+        value = np.asarray(value)          # a jax.Array or a CPU tensor
+    if isinstance(value, np.ndarray):
+        if value.size == 0:
+            raise ValueError(f"{name}: orbax saves no array of zero size")
+        return "np.ndarray", value
+    raise TypeError(f"{name}: a leaf of type {type(value).__name__} is not written "
+                    "(numpy arrays, Python and numpy scalars, strings and None are)")
+
+
+def save_checkpoint(path, tree: dict) -> Path:
+    """Write `tree` (nested dicts and lists of numpy arrays, scalars, strings,
+    None and empty containers) as an orbax PyTree checkpoint directory that
+    orbax's PyTreeCheckpointer().restore and `load_checkpoint` read back. As
+    JAX's save_checkpoint, an existing directory or file at `path` is
+    replaced; the checkpoint is written beside it first and renamed into
+    place, so a run killed while saving leaves the previous one whole."""
+    path = Path(path).resolve()
+    tmp = path.with_name(path.name + ".orbax-checkpoint-tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    meta, strings, kv = {}, {}, {}
+    for keys, value in _leaves(tree):
+        if not keys:
+            raise ValueError("an orbax checkpoint is a dict or list at its root")
+        name = ".".join(k for k, _ in keys)
+        kind, arr = _leaf_value(name, value)
+        meta[repr(tuple(k for k, _ in keys))] = {
+            "key_metadata": [{"key": k, "key_type": t} for k, t in keys],
+            "value_metadata": {"value_type": kind,
+                               "skip_deserialize": kind in ("None", "Dict", "List")}}
+        if kind == "string":
+            strings[name] = value
+        if arr is not None:
+            arr = np.asarray(arr, order="C")  # ascontiguousarray makes 0-d 1-d
+            if arr.dtype.byteorder == ">":
+                arr = arr.astype(arr.dtype.newbyteorder("<"))
+            kv[f"{name}/.zarray".encode()] = _zarr_meta(arr)
+            chunk = ".".join("0" * arr.ndim) or "0"
+            kv[f"{name}/{chunk}".encode()] = _zstd().compress(arr.tobytes(), 1)
+    (tmp / "_METADATA").write_text(json.dumps({
+        "tree_metadata": meta, "use_ocdbt": True, "use_zarr3": False,
+        "store_array_data_equal_to_fill_value": True, "custom_metadata": None}))
+    if strings:
+        (tmp / "_strings.json").write_text(json.dumps(strings))
+    if kv:
+        write_ocdbt(tmp, kv)
+    now = time.time_ns()
+    (tmp / "_CHECKPOINT_METADATA").write_text(json.dumps({
+        "item_handlers": "orbax.checkpoint._src.handlers.pytree_checkpoint_handler."
+                         "PyTreeCheckpointHandler",
+        "metrics": {}, "performance_metrics": {}, "init_timestamp_nsecs": now,
+        "commit_timestamp_nsecs": now, "custom_metadata": {}}))
+    if path.is_dir():
+        shutil.rmtree(path)
+    elif path.exists():
+        path.unlink()
+    os.replace(tmp, path)
+    return path

@@ -18,49 +18,19 @@ MaxPool / Resize / Reshape / Transpose / Slice / Pow, opset 13. Input
 from __future__ import annotations
 
 import copy
-import struct
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-# ---------------------------------------------------------------------------
-# Minimal protobuf wire-format writer (write-only; field numbers from onnx.proto)
-# ---------------------------------------------------------------------------
+from yolo_dual_tpu_torch.io.protowire import f_bytes as _f_bytes
+from yolo_dual_tpu_torch.io.protowire import f_float as _f_float
+from yolo_dual_tpu_torch.io.protowire import f_int as _f_int
+from yolo_dual_tpu_torch.io.protowire import f_str as _f_str
+from yolo_dual_tpu_torch.nn.common import BN_EPS
 
-
-def _varint(n: int) -> bytes:
-    out = b""
-    n &= (1 << 64) - 1
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        if n:
-            out += bytes([b | 0x80])
-        else:
-            return out + bytes([b])
-
-
-def _tag(field: int, wire: int) -> bytes:
-    return _varint((field << 3) | wire)
-
-
-def _f_int(field: int, v: int) -> bytes:
-    return _tag(field, 0) + _varint(int(v))
-
-
-def _f_bytes(field: int, v: bytes) -> bytes:
-    return _tag(field, 2) + _varint(len(v)) + v
-
-
-def _f_str(field: int, v: str) -> bytes:
-    return _f_bytes(field, v.encode())
-
-
-def _f_float(field: int, v: float) -> bytes:
-    return _tag(field, 5) + struct.pack("<f", float(v))
-
+# ONNX messages (field numbers from onnx.proto), written with io/protowire.py
 
 # onnx.TensorProto.DataType
 FLOAT, INT64 = 1, 7
@@ -216,6 +186,11 @@ class _Exporter:
         y = self.g.node("Conv", inputs, strides=list(s), group=groups,
                         dilations=[d, d], pads=[pad[0], pad[1], pad[0], pad[1]],
                         kernel_shape=list(k))
+        if "bn" in p:   # an unfused model (the SavedModel writer's default)
+            bn = p["bn"]
+            y = self.g.node("BatchNormalization", [y] + [
+                self.g.tensor(_np(bn[n])) for n in ("weight", "bias", "running_mean",
+                                                     "running_var")], epsilon=BN_EPS)
         return self.act(y, kw.get("act", True))
 
     def bottleneck(self, x: str, p: dict, kw: dict, cin: int) -> str:
@@ -363,6 +338,41 @@ class _Exporter:
         cat = self.g.node("Concat", [y1, y2], axis=1)
         return self.conv(cat, p["cv3"], dict(c2=c2, k=1, act=act))
 
+    def linear(self, x: str, p: dict) -> str:
+        """nn.Linear over the channels of an NCHW map: a 1x1 Conv."""
+        w = self.g.tensor(_np(p["weight"])[:, :, None, None])
+        return self.g.node("Conv", [x, w, self.g.tensor(_np(p["bias"]))], strides=[1, 1],
+                           group=1, dilations=[1, 1], pads=[0, 0, 0, 0], kernel_shape=[1, 1])
+
+    def dcnv3(self, x: str, p: dict, c: int, k: int, pad: int, group: int) -> str:
+        """nn/dcn.py DCNv3 on an NCHW map: the projections as 1x1 Convs, the
+        depthwise Conv, and one `DCNv3` node (the mask's softmax over each
+        group's k*k points, then the deformable sampling) that the TF
+        lowering (io/tf_graph.py) expands into gathers."""
+        proj = self.linear(x, p["input_proj"])
+        x1 = self.conv(x, p["dw_conv"], dict(c2=c, k=k, g=c))
+        offset = self.linear(x1, p["offset"])
+        mask = self.linear(x1, p["mask"])
+        y = self.g.node("DCNv3", [proj, offset, mask], kernel=k, stride=1, pad=pad,
+                        dilation=1, group=group, offset_scale=1.0)
+        return self.linear(y, p["output_proj"])
+
+    def c3_dcnv3(self, x: str, p: dict, kw: dict) -> str:
+        """nn/dcn.py C3_DCNV3: C3 whose bottlenecks' second conv is a 1x1 Conv
+        then DCNv3 (DCNV3_YoLo, k 3, pad 1)."""
+        c2, n = kw["c2"], kw.get("n", 1)
+        c_ = int(c2 * kw.get("e", 0.5))
+        y1 = self.conv(x, p["cv1"], dict(c2=c_, k=1))
+        for i in range(n):
+            b = p["m"][str(i)]
+            y = self.conv(y1, b["cv1"], dict(c2=c_, k=1))
+            y = self.conv(y, b["cv2"]["conv"], dict(c2=c_, k=1))
+            y = self.dcnv3(y, b["cv2"]["dcnv3"], c_, 3, 1, kw.get("g", 1))
+            y1 = self.g.node("Add", [y1, y]) if kw.get("shortcut", True) else y
+        y2 = self.conv(x, p["cv2"], dict(c2=c_, k=1))
+        cat = self.g.node("Concat", [y1, y2], axis=1)
+        return self.conv(cat, p["cv3"], dict(c2=c2, k=1))
+
     def proto(self, x: str, p: dict, kw: dict) -> str:
         y = self.conv(x, p["cv1"], dict(c2=kw.get("npr", 256), k=3))
         y = self.upsample(y, dict(scale_factor=2))
@@ -443,21 +453,23 @@ def _nest(sd: dict) -> dict:
     return out
 
 
-def export_onnx(model: torch.nn.Module, imgsz: int, out_path) -> Path:
-    """Export the FUSED inference graph of `model` (a GraphModel of the
-    port, unfused; a conv+BN-folded copy is taken here) to ONNX: NCHW input
-    `images` (1, 3, imgsz, imgsz) in [0, 1]; outputs `pred` (1, N, no) [+
-    `protos` NCHW], or `seg` for a semantic graph. Raises NotImplementedError
-    naming the layers outside SUPPORTED."""
+def emit_graph(model: torch.nn.Module, imgsz: int, g, fuse: bool = True,
+               supported=SUPPORTED, what: str = "ONNX export") -> Dict[str, tuple]:
+    """Walk `model`'s ModelSpec, emitting its inference graph on `g` (an
+    OnnxGraphBuilder, or io/tf_graph.py's TfGraph, which takes the same
+    calls): NCHW input `images` (1, 3, imgsz, imgsz); returns {output name:
+    NCHW shape}. With `fuse` the walk reads a conv+BN-folded copy of the
+    model, else its convs keep their BatchNormalization nodes. Raises
+    NotImplementedError naming the layers outside `supported` (its message
+    begins with `what`)."""
     spec = model.spec
-    unsup = {l.name for l in spec.layers} - SUPPORTED
+    unsup = {l.name for l in spec.layers} - set(supported)
     if unsup:
         raise NotImplementedError(
-            f"ONNX export supports the core detect/segment zoo "
-            f"({sorted(SUPPORTED)}); config uses {sorted(unsup)}")
-    fused = copy.deepcopy(model).eval().fuse()
-    params = _nest(fused.state_dict())["model"]
-    g = OnnxGraphBuilder()
+            f"{what} supports the core detect/segment zoo "
+            f"({sorted(supported)}); config uses {sorted(unsup)}")
+    src = copy.deepcopy(model).eval()
+    params = _nest((src.fuse() if fuse else src).state_dict())["model"]
     ex = _Exporter(g, params)
 
     sizes = {}   # layer idx -> (ny, nx) for head grid constants
@@ -490,6 +502,12 @@ def export_onnx(model: torch.nn.Module, imgsz: int, out_path) -> Path:
             cur_c = kw["c2"]
         elif layer.name == "C3":
             x = ex.c3(inp, p, kw, inp_c)
+            cur_hw, cur_c = inp_hw, kw["c2"]
+        elif layer.name == "C3_DCNV3":
+            # the row's repeat is an nn.Sequential of whole modules (compiler.py)
+            x = inp
+            for r in range(layer.n):
+                x = ex.c3_dcnv3(x, p[str(r)] if layer.n > 1 else p, kw)
             cur_hw, cur_c = inp_hw, kw["c2"]
         elif layer.name == "Bottleneck":
             x = ex.bottleneck(inp, p, kw, inp_c)
@@ -560,8 +578,17 @@ def export_onnx(model: torch.nn.Module, imgsz: int, out_path) -> Path:
             cur_hw = (imgsz, imgsz)
         x = g.node("Identity", [x], out="seg")
         outputs["seg"] = (1, cur_c, cur_hw[0], cur_hw[1])
+    return outputs
 
-    blob = g.serialize({"images": (1, 3, imgsz, imgsz)}, outputs)
+
+def export_onnx(model: torch.nn.Module, imgsz: int, out_path) -> Path:
+    """Export the FUSED inference graph of `model` (a GraphModel of the
+    port, unfused; a conv+BN-folded copy is taken here) to ONNX: NCHW input
+    `images` (1, 3, imgsz, imgsz) in [0, 1]; outputs `pred` (1, N, no) [+
+    `protos` NCHW], or `seg` for a semantic graph. Raises NotImplementedError
+    naming the layers outside SUPPORTED."""
+    g = OnnxGraphBuilder()
+    outputs = emit_graph(model, imgsz, g)
     out_path = Path(out_path)
-    out_path.write_bytes(blob)
+    out_path.write_bytes(g.serialize({"images": (1, 3, imgsz, imgsz)}, outputs))
     return out_path

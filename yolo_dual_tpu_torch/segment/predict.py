@@ -11,8 +11,8 @@ them, a webcam index, a stream URL, a `.streams` list file or "screen"
 weights drawn from a generator seeded with 0. --weights takes a `.pt` state_dict
 or an orbax checkpoint directory of the JAX package (its EMA first). --update
 first strips the optimizer state from a training checkpoint given as --weights
-(a `.pt` with an `optimizer` entry; a plain state_dict is left as it is); on
-an orbax directory it raises, since the port writes no orbax checkpoint. --data takes the
+(a `.pt` with an `optimizer` entry; a plain state_dict is left as it is) or
+rewrites an orbax directory as JAX's strip_optimizer does. --data takes the
 class names and count from a data file or directory, whose splits need not
 exist. --retina-masks, --half and --dnn are accepted and change nothing, as
 in JAX (masks are always upsampled to the frame). Reading image files and
@@ -43,11 +43,8 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
         augment=False, vid_stride=1, max_frames=None, view_img=False, save_crop=False,
         visualize=False, update=False, half=False, dnn=False):
     dev = select_device(device)
-    if update and weights and not str(weights).endswith(".pt"):
-        raise NotImplementedError(
-            f"--update on the orbax checkpoint {weights}: JAX rewrites the directory "
-            "(strip_optimizer) and the port writes no orbax checkpoint yet (ROADMAP A item 7e)")
-    if update and weights and load_checkpoint(weights).get("optimizer") is not None:
+    if update and weights and (not str(weights).endswith(".pt")
+                               or load_checkpoint(weights).get("optimizer") is not None):
         strip_optimizer(weights)
     imgsz = check_img_size(imgsz, 32)
     names = None

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from yolo_dual_tpu_torch.io import ocdbt
 from yolo_dual_tpu_torch.io.weights import state_dict_from_orbax
 from yolo_dual_tpu_torch.utils.general import LOGGER
 
@@ -74,7 +75,19 @@ def partial_load(model: torch.nn.Module, path) -> torch.nn.Module:
 
 def strip_optimizer(path, out: Optional[str] = None):
     """Keep only the EMA weights, as `model`: drop the optimizer state and the
-    EMA, epoch -1 (JAX checkpoint.py:75; reference utils/general.py:1004)."""
+    EMA, epoch -1 (JAX checkpoint.py:75; reference utils/general.py:1004).
+    An orbax checkpoint directory of the JAX package (any path not ending in
+    .pt) is rewritten as JAX's strip_optimizer rewrites it: `variables` <-
+    `ema["ema"]` (or the whole `ema`) where `ema` is not None, `opt_state` and
+    `ema` None, `epoch` -1, written to `out` or in place (io/ocdbt.py)."""
+    if not str(path).endswith(".pt"):
+        tree = ocdbt.load_checkpoint(path)
+        if tree.get("ema") is not None:
+            tree["variables"] = tree["ema"]["ema"] if "ema" in tree["ema"] else tree["ema"]
+        tree.update(opt_state=None, ema=None, epoch=-1)
+        ocdbt.save_checkpoint(out or path, tree)
+        LOGGER.info(f"Optimizer stripped from {path}")
+        return
     ckpt = load_checkpoint(path)
     if ckpt.get("ema") is not None:
         ckpt["model"] = ckpt["ema"]
