@@ -307,9 +307,30 @@ which raises on failure:
    here, (c)'s 8 metrics agree within DP_MAP_TOL; then (d) autobatch at 640
    px (bytes a candidate, mem_get_info's total), model_info and profile of
    the fused bs-16 forward (GFLOPs, ms, TFLOP/s), check_bf16, a
-   torch.profiler trace under build/phase6k, `segment.train --evolve 2
-   --epochs 1` (2 rows of evolve.csv); a `data parallel and utils (6k)` JSON
+   torch.profiler trace under build/phase6k, `segment.train --evolve 1
+   --epochs 1` (1 row of evolve.csv; 2 generations until 6m came); a `data
+   parallel and utils (6k)` JSON
    line and the phase's seconds;
+6m. spatial partitioning (`spatial_path`, after 6k), TF32 off: `python -m
+   torch.distributed.run --standalone --nproc-per-node 4 chip_smoke.py
+   --sp-rank build/phase6m` starts a dp 2 x sp 2 mesh (parallel/mesh.py:
+   make_mesh_2d) of 4 ranks sharing cuda:0 over gloo, each of which runs (a)
+   one accumulation cycle (2 micro-steps) of yolov5s-seg-dcnv3 at full width
+   and 640 px, global bs 4: 2 rows a data shard, 320 rows a band, every
+   Conv and SPPF pool on its band with halo rows, DCNv3's sampling through
+   K2 and K3 on the band's rows (`row0`); (b) the same cycle with every band
+   padded by its edge fill instead of its neighbours' rows (halo_rows
+   replaced in this script: the fault reference); (c) evaluate_segment of 8
+   self-labelled frames (K1 a rank's batch), each with the kernels' counts
+   set to 0 just before and read just after; this process runs (a) twice on
+   the global batch (the reference and the card's spread) and (c) once, the
+   cycles on cuDNN's deterministic algorithms, and first holds K2 and K3 with row0 != 0 against their plain versions at each
+   DCN_PATH_SHAPES map split into 2 bands: the ranks' parameters equal each
+   other, updates and statistics agree with the reference within
+   SP_UPDATE_TOL and SP_STAT_TOL (above the spread, below the fault's gaps),
+   the metrics within DP_MAP_TOL; a `spatial partitioning (6m)` JSON line
+   (micro-step ms and peak bytes, ranks against one process, the gaps and
+   their limits, the exchanges a rank's cycle, the launches);
 11. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 
@@ -318,6 +339,10 @@ and 6e (d) only, each RUNS times with deterministic algorithms (as the phases
 run them) and RUNS times without, with each run's best mIoU and a digest of
 its last.pt; it fails when two deterministic runs of a config differ, and
 prints no result line.
+
+`--sp-spread RUNS` runs phase 1 and 6m's one-process cycle only, RUNS times
+in each of four settings of deterministic algorithms (sp_spread), with each
+setting's gaps between its runs, and prints no result line.
 
 `--device-times ROOT` runs phase 1, phase 3's K1 cases (checked, and timed
 through the wrapper) and phase 9's device times at every K1 case and DCNv3
@@ -4767,11 +4792,13 @@ DP_MAP_TOL = 2e-3  # segment.val's 8 metrics, 2 ranks against one process
 DP_TIMEOUT_S = 420
 
 
-def dp_cycle(mesh, start: Path, device="cuda", rows=None, sync_bn=True):
-    """One accumulation cycle (DP_CYCLE micro-steps, the optimizer's step on the
+def dp_cycle(mesh, start: Path, device="cuda", rows=None, sync_bn=True, bs=DP_BS, cycle=DP_CYCLE,
+             seed=DP_CYCLE_SEED):
+    """One accumulation cycle (`cycle` micro-steps, the optimizer's step on the
     last) of yolov5s-seg-dcnv3 at 640 px from the weights in `start`, on the
-    global batches rng(DP_CYCLE_SEED + k) of DP_BS: this rank's rows of each
-    under `mesh` (the port's synchronised BatchNorm and DDP), the whole batch
+    global batches rng(seed + k) of `bs`: this rank's rows of each (and on a
+    2-D mesh its band of their rows) under `mesh` (the port's synchronised
+    BatchNorm and DDP), the whole batch
     without one, its rows in the order `rows` where given. `sync_bn` False
     leaves each rank's BatchNorm on its own rows (DDP without synchronised
     BatchNorm: the fault that 6k (a)'s limit must catch). Returns
@@ -4781,12 +4808,12 @@ def dp_cycle(mesh, start: Path, device="cuda", rows=None, sync_bn=True):
     from yolo_dual_tpu_torch.parallel.mesh import convert_sync_batchnorm, shard_batch
     model = SegmentationModel("yolov5s-seg-dcnv3.json", device=device)
     model.load_state_dict(torch.load(start, map_location=device, weights_only=True))
-    trainer, state = train_setup(model, DP_BS, DP_CYCLE, count=1000, mesh=mesh)
+    trainer, state = train_setup(model, bs, cycle, count=1000, mesh=mesh)
     if not sync_bn:
         convert_sync_batchnorm(model, None)
     items, ms = [], []
-    for k in range(DP_CYCLE):
-        b = train_batch(np.random.default_rng(DP_CYCLE_SEED + k), DP_BS, TRAIN_IMGSZ, "cpu")
+    for k in range(cycle):
+        b = train_batch(np.random.default_rng(seed + k), bs, TRAIN_IMGSZ, "cpu")
         if rows is not None:
             b = {key: v[rows] for key, v in b.items()}
         b = {key: v.to(device) for key, v in (shard_batch(b, mesh) if mesh else b).items()}
@@ -4894,8 +4921,9 @@ def data_parallel_path(card: str) -> dict:
     forward (GFLOPs, ms, TFLOP/s), check_bf16 (held on the seeded initial
     weights; on the calibrated model with steep DCNv3 heads only recorded:
     a random network amplifies bf16's rounding), a torch.profiler trace under
-    build/phase6k, and segment.train --evolve 2 --epochs 1 (2 rows of
-    evolve.csv; the plot is skipped with a logged line without matplotlib).
+    build/phase6k, and segment.train --evolve 1 --epochs 1 (1 row of
+    evolve.csv, one mutated generation: cut from 2 to pay for 6m's time; the
+    plot is skipped with a logged line without matplotlib).
     Returns the kernels' launches on the phase's paths, the ranks' included."""
     import shutil
     from yolo_dual_tpu_torch.models.model import SegmentationModel
@@ -5071,7 +5099,7 @@ def data_parallel_path(card: str) -> dict:
     count(part)
     trace_bytes = (root / "trace" / "trace.json").stat().st_size
     evolve_csv, part = cli_launches(lambda: segment_train.main(
-        base_args + ["--name", "evo", "--evolve", "2", "--noplots"]))
+        base_args + ["--name", "evo", "--evolve", "1", "--noplots"]))
     count(part)
     evolve_rows = len(Path(evolve_csv).read_text().strip().splitlines()) - 1
     try:
@@ -5079,7 +5107,7 @@ def data_parallel_path(card: str) -> dict:
         plotted = (Path(evolve_csv).parent / "evolve.png").exists()
     except ImportError:
         plotted = None  # skipped, with the logged line
-    if evolve_rows != 2 or plotted is False or not bf16_ok or trace_bytes == 0:
+    if evolve_rows != 1 or plotted is False or not bf16_ok or trace_bytes == 0:
         raise AssertionError(f"6k (d): evolve rows {evolve_rows}, plot {plotted}, bf16 {bf16_ok}, "
                              f"trace {trace_bytes} bytes")
     out["d"] = {"autobatch_pick": pick, "autobatch_bytes": record, "mem_get_info_total": total,
@@ -5098,6 +5126,327 @@ def data_parallel_path(card: str) -> dict:
     return launches
 
 
+# --- phase 6m: spatial partitioning over a data x space mesh ------------------------------
+
+SP_DP, SP_SP, SP_BS, SP_CYCLE = 2, 2, 4, 2  # 4 ranks on cuda:0; global bs 4, 2 micro-steps
+SP_CYCLE_SEED = 700  # micro-step k of 6m draws its global batch from rng(SP_CYCLE_SEED + k)
+SP_UPDATE_TOL = DP_UPDATE_TOL  # a parameter's update, the ranks against one process (6k's rule)
+SP_STAT_TOL = DP_STAT_TOL  # BatchNorm statistics: max gap / max |statistic|
+# both limits are held above the card's spread (one process against itself) and below the
+# gaps of the same ranks without halo exchanges (the fault), each measured in the phase. The
+# cycles run on cuDNN's deterministic algorithms: with its default ones the spread reached
+# 3.69e-3 (--sp-spread: cuDNN's atomics, then K3's). So run, three runs read the ranks' update
+# gap 3.69e-3 each, the spread 2.35e-4 to 4.18e-4 (K3's atomics) and the fault 1.72;
+# statistics 2.4e-7, spread 0, fault 4.9e-3
+SP_EVAL_FRAMES = 8
+SP_TIMEOUT_S = 300
+
+
+def halo_less_rows(x, top, bottom, fill=0.0, dim=2, mesh=None):
+    """parallel/spatial.py:halo_rows as a band without neighbours computes it:
+    every band padded with the layer's edge fill (6m's fault reference)."""
+    if dim != 2:
+        raise ValueError("halo_less_rows pads NCHW maps")
+    x = F.pad(x, (0, 0, max(top, 0), max(bottom, 0)), value=fill)
+    return x if bottom >= 0 else x[:, :, :x.shape[2] + bottom]
+
+
+def sp_eval(root: Path, mesh):
+    """evaluate_segment of the primed model (root/primed.pt) on root/val's
+    SP_EVAL_FRAMES frames at global bs SP_BS, K1 letterboxing each batch of a
+    rank's frames; on a 2-D mesh each rank takes its data shard's frames
+    (shard_loader) and runs the forward on its band."""
+    from yolo_dual_tpu_torch.data.dataset import create_dataloader
+    from yolo_dual_tpu_torch.engine.validator import evaluate_segment
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.parallel.mesh import shard_loader
+    from yolo_dual_tpu_torch.utils.general import check_dataset
+    model = SegmentationModel("yolov5s-seg-dcnv3.json", device="cuda")
+    model.load_state_dict(torch.load(root / "primed.pt", map_location="cuda", weights_only=True))
+    d = check_dataset(str(root / "val"))
+    loader, _ = create_dataloader(d["val"], 640, SP_BS, device_preprocess=True, augment=False,
+                                  mask_downsample_ratio=4, overlap_mask=True, task="segment")
+    shard_loader(loader, mesh)
+    return evaluate_segment(model, loader, model.nc, conf_thres=0.001, iou_thres=0.6,
+                            nm=model.model[-1].nm, mesh=mesh, device="cuda")
+
+
+def sp_rank(out: Path) -> int:
+    """A rank of phase 6m, started by torch.distributed.run: the 2 x 2 mesh,
+    then (a) the accumulation cycle on its band of its data shard's rows,
+    (b) the same cycle without halo exchanges (the fault reference), (c)
+    evaluate_segment of SP_EVAL_FRAMES frames, each with the kernels' counts
+    set to 0 just before and read just after; writes out/rank{r}.json."""
+    from yolo_dual_tpu_torch.parallel import spatial
+    from yolo_dual_tpu_torch.parallel.mesh import init_distributed, make_mesh_2d
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False  # as 6m's
+    init_distributed("cuda")
+    mesh = make_mesh_2d(SP_DP, SP_SP)
+    rank = mesh.rank * mesh.sp + mesh.space_rank
+    res = {"rank": rank, "data": mesh.rank, "space": mesh.space_rank, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    cycle = lambda: dp_cycle(mesh, out / "start.pt", bs=SP_BS, cycle=SP_CYCLE,  # noqa: E731
+                             seed=SP_CYCLE_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    spatial.counts.clear()
+    t = time.perf_counter()
+    (sd, ema, items, ms), res["cycle_launches"] = cli_launches(cycle)
+    res.update(cycle_s=time.perf_counter() - t, cycle_items=items, micro_step_ms=ms,
+               peak_bytes=torch.cuda.max_memory_allocated(), exchanges=dict(spatial.counts))
+    torch.save({"state": sd, "ema": ema}, out / f"cycle_rank{rank}.pt")
+    real, spatial.halo_rows = spatial.halo_rows, halo_less_rows
+    try:
+        (sd, _, _, _), res["fault_launches"] = cli_launches(cycle)
+    finally:
+        spatial.halo_rows = real
+    torch.save({"state": sd}, out / f"cycle_rank{rank}_no_halo.pt")
+    t = time.perf_counter()
+    (mean, _, times), res["eval_launches"] = cli_launches(lambda: sp_eval(out, mesh))
+    res.update(eval_s=time.perf_counter() - t, eval_mean=[float(v) for v in mean],
+               eval_times_ms=list(times))
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def band_kernel_phase() -> dict:
+    """K2 and K3 with row0 != 0: at each DCN_PATH_SHAPES map (a data shard of
+    2 images) split into SP_SP bands, every band's output, doffset and dmask
+    and its dx over the whole map against the plain versions on the same
+    inputs, within phases 2 and 4's tolerances; the bands' outputs against
+    the whole map's plain rows too. These launches count on no path."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import (dcnv3_core, dcnv3_core_bwd,
+                                                          dcnv3_sampling, dcnv3_sampling_backward)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args = (3, 1, 1, 1, 1)
+    out = {}
+    for (h, w, c) in DCN_PATH_SHAPES:
+        x, offset, mask = dcnv3_inputs(gen, SP_BS // SP_DP, h, w, c)
+        g = torch.randn(SP_BS // SP_DP, h, w, c, device="cuda", generator=gen)
+        whole = dcnv3_core(x, offset, mask, *args, c, 1.0)
+        fwd = bwd = 0.0
+        for s in range(SP_SP):
+            r0, n = s * h // SP_SP, h // SP_SP
+            band = [t[:, r0:r0 + n].contiguous() for t in (offset, mask, g)]
+            with torch.no_grad():
+                got = dcnv3_sampling(x, band[0], band[1], *args, c, 1.0, r0)
+                ref = dcnv3_core(x, band[0], band[1], *args, c, 1.0, r0)
+            fwd = max(fwd, (got - ref).abs().max().item(),
+                      (got - whole[:, r0:r0 + n]).abs().max().item())
+            kb = dcnv3_sampling_backward(x, *band, *args, c, 1.0, r0)
+            pb = dcnv3_core_bwd(x, *band, *args, c, 1.0, r0)
+            bwd = max([bwd] + [(a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                               for a, r in zip(kb, pb)])
+        torch.cuda.synchronize()
+        if not (fwd <= 1e-5 and bwd <= 1e-5):
+            raise AssertionError(f"6m: K2 / K3 on bands of {h}x{w}x{c}: errors {fwd}, {bwd}")
+        out[f"{SP_BS // SP_DP}x{h}x{w}x{c}"] = {"K2_max_abs_err": fwd, "K3_max_rel_err": bwd}
+    return out
+
+
+def sp_spread(runs: int) -> dict:
+    """Where 6m's spread comes from: 6m's one-process reference cycle, `runs`
+    times in each of four settings from one start (TF32 off), and in each
+    the largest update and statistics gaps of a run from the setting's first
+    (6m's rule): "default"; "cudnn_deterministic" (cuDNN's deterministic
+    algorithms, its benchmark off); "deterministic" (torch's deterministic
+    algorithms as well, deterministic_algorithms); "deterministic_plain_k3"
+    (K3 swapped for its plain version, whose scatter-add is deterministic
+    there). Each setting takes away one source of run-to-run variation:
+    cuDNN's atomics, torch's, K3's."""
+    import shutil
+    from yolo_dual_tpu_torch.kernels import dcn_sampling
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent / "build" / "sp_spread"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.save(dcnv3_train_model().state_dict(), root / "start.pt")
+    start = torch.load(root / "start.pt", map_location="cpu", weights_only=True)
+    params = [k for k in start if "running" not in k and "num_batches" not in k]
+    stats = [k for k in start if "running" in k]
+    rank_rows = torch.from_numpy(np.concatenate([np.arange(d, SP_BS, SP_DP)
+                                                 for d in range(SP_DP)]))
+
+    def cycle():
+        return dp_cycle(None, root / "start.pt", rows=rank_rows, bs=SP_BS, cycle=SP_CYCLE,
+                        seed=SP_CYCLE_SEED)[0]
+
+    def plain_k3(x, offset, mask, grad_out, *cfg):
+        return dcn_sampling.dcnv3_core_bwd(x, offset, mask, grad_out, *cfg)
+
+    out = {}
+    for name in ("default", "cudnn_deterministic", "deterministic", "deterministic_plain_k3"):
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        k3 = dcn_sampling.dcnv3_sampling_backward
+        try:
+            with deterministic_algorithms(name.startswith("deterministic")):
+                if name == "cudnn_deterministic":
+                    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+                if name.endswith("plain_k3"):
+                    dcn_sampling.dcnv3_sampling_backward = plain_k3
+                sds = [cycle() for _ in range(runs)]
+        finally:
+            dcn_sampling.dcnv3_sampling_backward = k3
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        first = {k: sds[0][k] - start[k] for k in params}
+        floor = DP_UPDATE_FLOOR * max(float(u.abs().max()) for u in first.values())
+        gaps = []
+        for sd in sds[1:]:
+            upd, key = max_gap({k: sd[k] - start[k] for k in params}, first, params, floor)
+            stat, skey = max_gap(sd, sds[0], stats)
+            gaps.append({"update_gap": upd, "key": key, "stat_gap": stat, "stat_key": skey,
+                         "bit_equal": all(torch.equal(sd[k], sds[0][k]) for k in start)})
+        out[name] = gaps
+        print(f"sp spread {name} " + json.dumps(gaps), flush=True)
+    return out
+
+
+def spatial_path(card: str) -> dict:
+    """Phase 6m: a dp 2 x sp 2 mesh of 4 ranks sharing cuda:0 over gloo
+    (parallel/mesh.py's rule), TF32 off. Each rank runs (a) one accumulation
+    cycle (SP_CYCLE micro-steps) of yolov5s-seg-dcnv3 at full width and 640
+    px, global bs 4: 2 rows a data shard, 320 rows a band, from the weights
+    6k starts from, (b) the same cycle with every band padded by its edge
+    fill instead of its neighbours' rows (the fault reference) and (c)
+    evaluate_segment of the primed model on SP_EVAL_FRAMES self-labelled
+    frames; this process runs (a) twice on the global batch (its rows in the
+    ranks' order: the reference, then the card's spread) and (c) once, all on
+    cuDNN's deterministic algorithms (SP_UPDATE_TOL). The
+    ranks hold identical parameters; their updates and BatchNorm statistics
+    agree with the reference within SP_UPDATE_TOL and SP_STAT_TOL, which lie
+    above the spread and below the fault's gaps; the metrics within
+    DP_MAP_TOL; K2 and K3 with row0 != 0 agree with their plain versions
+    (band_kernel_phase). Returns the kernels' launches on the phase's paths."""
+    import shutil
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    # cuDNN's deterministic algorithms, here and on the ranks: SP_UPDATE_TOL
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    root = Path(__file__).resolve().parent / "build" / "phase6m"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches = {"letterbox_normalize": 0, "dcnv3_sampling": 0, "dcnv3_sampling_backward": 0}
+
+    def count(part):
+        for k, v in part.items():
+            launches[k] += v
+
+    model = dcnv3_train_model()
+    torch.save(model.state_dict(), root / "start.pt")
+    prime_for_eval(model)
+    _, part = cli_launches(lambda: write_val_set(
+        root / "val", model, make_frames(SP_EVAL_FRAMES, seed=8, sizes=(EVAL_SHAPE,))))
+    count(part)
+    torch.save(model.state_dict(), root / "primed.pt")
+    del model
+    bands = band_kernel_phase()
+    # one process on the global batch, its rows in the ranks' order (0, 2, 1, 3): the
+    # reference and the card's spread, each alone on the card
+    rank_rows = torch.from_numpy(np.concatenate([np.arange(d, SP_BS, SP_DP)
+                                                 for d in range(SP_DP)]))
+    cycle = lambda: dp_cycle(None, root / "start.pt", rows=rank_rows, bs=SP_BS,  # noqa: E731
+                             cycle=SP_CYCLE, seed=SP_CYCLE_SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (one_sd, one_ema, one_items, one_ms), part = cli_launches(cycle)
+    one_peak = torch.cuda.max_memory_allocated()
+    count(part)
+    (again_sd, _, _, _), part = cli_launches(cycle)
+    count(part)
+    (one_mean, _, _), part = cli_launches(lambda: sp_eval(root, None))
+    count(part)
+    torch.cuda.empty_cache()
+    # the ranks
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(SP_DP * SP_SP), str(Path(__file__).resolve()), "--sp-rank", str(root)]
+    t = time.perf_counter()
+    rc = run_process_group(cmd, SP_TIMEOUT_S, root / "ranks.log")
+    ranks_s = time.perf_counter() - t
+    if rc != 0:
+        print((root / "ranks.log").read_text()[-6000:], flush=True)
+        raise AssertionError(f"6m: torch.distributed.run exited {rc}")
+    world = SP_DP * SP_SP
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(world)]
+    for r in ranks:
+        for key in ("cycle_launches", "eval_launches"):
+            count(r[key])
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"6m: backends {[r['backend'] for r in ranks]}, gloo expected")
+    n_dcn = sum(DCN_PATH_SHAPES.values())
+    for r in ranks:
+        want = {"dcnv3_sampling": n_dcn * SP_CYCLE, "dcnv3_sampling_backward": n_dcn * SP_CYCLE}
+        if any(r["cycle_launches"][k] != v for k, v in want.items()) or \
+                r["eval_launches"]["dcnv3_sampling"] == 0 or \
+                r["eval_launches"]["letterbox_normalize"] == 0:
+            raise AssertionError(f"6m: rank {r['rank']} launches {r['cycle_launches']}, "
+                                 f"{r['eval_launches']}")
+        ex = r["exchanges"]
+        if set(ex) != {"halo Conv", "halo max_pool", "gather dcnv3", "gather head"} or \
+                ex["gather dcnv3"] != n_dcn * SP_CYCLE:
+            raise AssertionError(f"6m: rank {r['rank']} exchanges {ex}")
+    cyc = [torch.load(root / f"cycle_rank{r}.pt", weights_only=True) for r in range(world)]
+    start = torch.load(root / "start.pt", map_location="cpu", weights_only=True)
+    if not all(torch.equal(c[s][k], cyc[0][s][k]) for c in cyc[1:] for s in ("state", "ema")
+               for k in start):
+        raise AssertionError("6m (a): the ranks' parameters, statistics or EMA differ")
+    params = [k for k in start if "running" not in k and "num_batches" not in k]
+    stats = [k for k in start if "running" in k]
+    one_upd = {k: one_sd[k] - start[k] for k in params}
+    floor = DP_UPDATE_FLOOR * max(float(u.abs().max()) for u in one_upd.values())
+
+    def gaps(sd):
+        upd, key = max_gap({k: sd[k] - start[k] for k in params}, one_upd, params, floor)
+        stat, skey = max_gap(sd, one_sd, stats)
+        return {"update_gap": upd, "key": key, "stat_gap": stat, "stat_key": skey}
+    got = gaps(cyc[0]["state"])
+    one_ema_upd = {k: one_ema[k] - start[k] for k in params}
+    ema_gap, ema_key = max_gap({k: cyc[0]["ema"][k] - start[k] for k in params}, one_ema_upd,
+                               params, DP_UPDATE_FLOOR * max(float(u.abs().max())
+                                                             for u in one_ema_upd.values()))
+    spread = gaps(again_sd)
+    fault = gaps(torch.load(root / "cycle_rank0_no_halo.pt", weights_only=True)["state"])
+    items_gap = float(np.abs(np.array(ranks[0]["cycle_items"]) - np.array(one_items)).max())
+    if got["update_gap"] > SP_UPDATE_TOL or ema_gap > SP_UPDATE_TOL or \
+            got["stat_gap"] > SP_STAT_TOL:
+        raise AssertionError(f"6m (a): gaps {got}, EMA {ema_gap} ({ema_key}); spread {spread}, "
+                             f"fault {fault}")
+    if not (spread["update_gap"] <= SP_UPDATE_TOL < fault["update_gap"]
+            and spread["stat_gap"] <= SP_STAT_TOL < fault["stat_gap"]):
+        raise AssertionError(f"6m (a): the limits {SP_UPDATE_TOL}, {SP_STAT_TOL} do not lie "
+                             f"between the card's spread {spread} and the fault's gaps {fault}")
+    map_gap = max(float(np.abs(np.array(r["eval_mean"]) - np.array(one_mean)).max())
+                  for r in ranks)
+    if map_gap > DP_MAP_TOL or not (one_mean[2] > 0.05 and one_mean[6] > 0.05):
+        raise AssertionError(f"6m (c): metrics {ranks[0]['eval_mean']} against {list(one_mean)}")
+    out = {"card": card, "mesh": [SP_DP, SP_SP], "backend": ranks[0]["backend"],
+           "global_bs": SP_BS, "imgsz": TRAIN_IMGSZ, "band_rows": TRAIN_IMGSZ // SP_SP,
+           "ranks_s": ranks_s,
+           "micro_step_ms": {"ranks": [r["micro_step_ms"] for r in ranks],
+                             "one_process": one_ms},
+           "peak_bytes": {"ranks": [r["peak_bytes"] for r in ranks], "one_process": one_peak},
+           "update_gap": got["update_gap"], "update_gap_key": got["key"], "ema_gap": ema_gap,
+           "stat_gap": got["stat_gap"], "stat_gap_key": got["stat_key"], "items_gap": items_gap,
+           "tol": {"update": SP_UPDATE_TOL, "floor": DP_UPDATE_FLOOR, "stat": SP_STAT_TOL,
+                   "map": DP_MAP_TOL},
+           "spread": spread, "fault_no_halo": fault,
+           "eval": {"map_gap": map_gap, "metrics": ranks[0]["eval_mean"],
+                    "one_process": [float(v) for v in one_mean],
+                    "eval_s": [r["eval_s"] for r in ranks]},
+           "exchanges_a_rank_cycle": ranks[0]["exchanges"],
+           "launches_a_rank": {"cycle": ranks[0]["cycle_launches"],
+                               "eval": ranks[0]["eval_launches"]},
+           "bands_row0": bands, "launches": launches}
+    out["phase_6m_s"] = time.perf_counter() - t_phase
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    print("spatial partitioning (6m) " + json.dumps(out), flush=True)
+    print(f"phase 6m s {out['phase_6m_s']:.2f}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device-times", metavar="ROOT", nargs="?",
@@ -5107,8 +5456,13 @@ def main(argv=None) -> int:
     ap.add_argument("--proof-spread", metavar="RUNS", type=int,
                     help="only the four learning proofs, each RUNS times with deterministic "
                          "algorithms and RUNS times without")
+    ap.add_argument("--sp-spread", metavar="RUNS", type=int,
+                    help="only 6m's one-process cycle, RUNS times in each of four settings of "
+                         "deterministic algorithms (sp_spread)")
     ap.add_argument("--dp-rank", metavar="DIR",
                     help="run as a rank of phase 6k under torch.distributed.run (DIR: its job)")
+    ap.add_argument("--sp-rank", metavar="DIR",
+                    help="run as a rank of phase 6m under torch.distributed.run (DIR: its job)")
     ap.add_argument("--learning-proof", nargs=5, metavar=("CFG", "NAME", "ROOT", "IMAGES", "JSON"),
                     help="run one learning proof of 6d / 6e in this process (learning_proofs)")
     args = ap.parse_args(argv)
@@ -5118,6 +5472,8 @@ def main(argv=None) -> int:
         return 1
     if args.dp_rank:
         return dp_rank(Path(args.dp_rank))
+    if args.sp_rank:
+        return sp_rank(Path(args.sp_rank))
     if args.learning_proof:
         cfg, name, root, images, masks = args.learning_proof
         return learning_proof_process(cfg, name, Path(root), (Path(images), Path(masks)))
@@ -5155,6 +5511,12 @@ def main(argv=None) -> int:
                          "deterministic_digests": len(d)} for cfg, d in digests.items()}
         print(f"proof spread ({card}) " + json.dumps(summary), flush=True)
         return 0 if all(len(d) == 1 for d in digests.values()) else 1
+
+    if args.sp_spread:
+        for name in ("letterbox", "dcnv3", "dcnv3_bwd"):
+            load_library(name)
+        print(f"sp spread ({card}) " + json.dumps(sp_spread(args.sp_spread)), flush=True)
+        return 0
 
     def elapsed(phase):
         print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -5246,6 +5608,10 @@ def main(argv=None) -> int:
     # and the utils layer, on a cut of phase 10's set
     by_path["data parallel and utils"] = data_parallel_path(card)
     elapsed("6k")
+    # 6m. spatial partitioning: a data x space mesh of 4 ranks on the card (K2 and K3 on the
+    # bands, K1 in the evaluation)
+    by_path["spatial partitioning"] = spatial_path(card)
+    elapsed("6m")
 
     # 9. the kernels' own device times, on seeded and on the trained model's DCNv3 inputs;
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
@@ -5294,9 +5660,9 @@ def main(argv=None) -> int:
     # K2: 16 frames at batch 1 (prediction) and the server's requests and warm-up (6i),
     # 8 micro-steps at bs 16 (training), and the CLIs' forwards at bs 16 (their micro-steps
     # and val batches, both routes) and 10b's remat micro-steps (two forwards each); K3: the
-    # micro-steps. 6j's and 6l's launches (bs-8 forwards and the 64-px fixture) and 6k's (the ranks'
-    # bs-8 forwards and micro-steps, the utilities') count in `launches`; the means weight the
-    # shapes phase 3 times
+    # micro-steps. 6j's and 6l's launches (bs-8 forwards and the 64-px fixture), 6k's (the ranks'
+    # bs-8 forwards and micro-steps, the utilities') and 6m's (the bands' and the references')
+    # count in `launches`; the means weight the shapes phase 3 times
     n_dcn = sum(DCN_PATH_SHAPES.values())
     serve_fwd = by_path["serve yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn
     bs16 = ("train CLI yolov5s-seg-dcnv3", "train CLI host route", "remat micro-steps")

@@ -123,6 +123,32 @@ def test_dcnv3_backward_kernel_matches_plain(cuda, name):
     assert_grads_close(got, want)
 
 
+@pytest.mark.parametrize("name", ["multi_tile_80", "ragged_37x53", "stride2",
+                                  "window_edge_stride2_g2", "dilation2_k5"])
+def test_dcnv3_kernels_on_a_band_of_rows_match_plain(cuda, name):
+    """A space rank's calls (parallel/spatial.py): K2 and K3 on each of two
+    bands of output rows (row0 0 and ho // 2), sampled in the whole x, against
+    the plain versions on the band, and the forward against the whole map's
+    rows."""
+    b, h, w, g, gc, k, s, p, d, scale, std, kind = CASES[name]
+    x, offset, mask = (torch.from_numpy(a).to(cuda) for a in
+                       sampling_inputs(len(name), b, h, w, g, gc, k, s, std, kind))
+    ho = offset.shape[1]
+    gout = torch.randn((b, ho, offset.shape[2], g * gc), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(len(name)))
+    cfg = (k, s, p, d, g, gc, scale)
+    whole = dcnv3_core(x, offset, mask, *cfg)
+    for r0, r1 in ((0, ho // 2), (ho // 2, ho)):
+        band = [t[:, r0:r1].contiguous() for t in (offset, mask, gout)]
+        got = dcnv3_sampling(x, band[0], band[1], *cfg, r0)
+        want = dcnv3_core(x, band[0], band[1], *cfg, r0)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-5
+        assert (got - whole[:, r0:r1]).abs().max().item() <= 1e-5
+        assert_grads_close(dcnv3_sampling_backward(x, *band, *cfg, r0),
+                           dcnv3_core_bwd(x, *band, *cfg, r0))
+
+
 def test_dcnv3_far_offsets_give_and_receive_nothing(cuda):
     """At ±1e4 px every sample leaves the window and the image: the forward is
     exactly 0 and no gradient reaches x, offset or mask."""

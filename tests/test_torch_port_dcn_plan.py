@@ -121,8 +121,9 @@ def test_window_escapes(backward):
 
 def test_kernels_are_bound_once(monkeypatch):
     """The wrapper binds each launch function's ctypes signature once, outside
-    the build's locks: 4 (forward) or 7 (backward) pointers, 12 ints, the
-    offset scale, the plan's 7 ints and the stream."""
+    the build's locks: 4 (forward) or 7 (backward) pointers, 13 ints (the
+    shapes, the geometry and the output-row origin row0), the offset scale,
+    the plan's 7 ints and the stream."""
     class Fn:
         argtypes = restype = None
 
@@ -136,7 +137,7 @@ def test_kernels_are_bound_once(monkeypatch):
     monkeypatch.setattr(dcn_sampling, "_BOUND", {})
     for fn, n_ptr in (("dcnv3_sampling_launch", 4), ("dcnv3_backward_launch", 7)):
         launch, _ = dcn_sampling._bind(fn)
-        assert len(launch.argtypes) == n_ptr + 12 + 1 + 7 + 1
+        assert len(launch.argtypes) == n_ptr + 13 + 1 + 7 + 1
         assert dcn_sampling._BOUND[fn][0] is launch
     assert loads == ["dcnv3", "dcnv3_bwd"]
 

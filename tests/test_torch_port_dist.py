@@ -357,7 +357,7 @@ def test_mesh_without_a_group_is_one_rank_and_2d_is_refused():
     assert (mesh.size, mesh.rank) == (1, 0)
     with pytest.raises(ValueError, match="process group has 1 rank"):
         make_mesh(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 7g"):
+    with pytest.raises(ValueError, match=r"make_mesh_2d\(2, 2\): the process group has 1 ranks"):
         make_mesh_2d(2, 2)
     assert pick_backend(torch.device("cpu"), 2) == "gloo"
     if torch.cuda.device_count() < 2:  # ranks sharing one card cannot use NCCL

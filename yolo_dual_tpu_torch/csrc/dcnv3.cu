@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(dcnv3::kThreads) dcnv3_sampling_kernel(
     const float* __restrict__ x, const float* __restrict__ offset,
     const float* __restrict__ mask, float* __restrict__ out,
     int H, int W, int C, int Ho, int Wo, int G, int GC, int K,
-    int stride, int pad, int dil, float offset_scale, Plan pl,
+    int stride, int pad, int dil, int row0, float offset_scale, Plan pl,
     int n_tx, int n_ty, int n_cb, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int KK = K * K, GK = G * KK;
@@ -100,7 +100,8 @@ __global__ void __launch_bounds__(dcnv3::kThreads) dcnv3_sampling_kernel(
   const int g = (int)(bid % G);
   const long long b = bid / G;
   const int oy0 = ty * pl.th, ox0 = tx * pl.tw;
-  const int wy0 = oy0 * stride + pl.win_off, wx0 = ox0 * stride + pl.win_off;
+  const int wy0 = dcnv3::window_row(row0, oy0, stride, pl);
+  const int wx0 = ox0 * stride + pl.win_off;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
 
   const float* xb = x + b * H * W * C + g * GC;
@@ -116,8 +117,8 @@ __global__ void __launch_bounds__(dcnv3::kThreads) dcnv3_sampling_kernel(
     const int oy = oy0 + q / pl.tw, ox = ox0 + q % pl.tw;
     Sample s = dcnv3::empty_sample();
     if (oy < Ho && ox < Wo) {
-      s = dcnv3::make_sample(offset, mask, (b * Ho + oy) * Wo + ox, g * KK + p, GK, K, oy, ox,
-                             H, W, stride, pad, dil, offset_scale);
+      s = dcnv3::make_sample(offset, mask, (b * Ho + oy) * Wo + ox, g * KK + p, GK, K,
+                             row0 + oy, ox, H, W, stride, pad, dil, offset_scale);
       dcnv3::place(s, wy0, wx0, pl);
     }
     geo.store(e, s);
@@ -216,11 +217,12 @@ int allowed_shared[4][64];  // per kernel and device: the most shared memory all
 extern "C" int dcnv3_sampling_launch(
     const void* x, const void* offset, const void* mask, void* out,
     int B, int H, int W, int C, int Ho, int Wo, int G, int GC, int K,
-    int stride, int pad, int dil, float offset_scale,
+    int stride, int pad, int dil, int row0, float offset_scale,
     int th, int tw, int cc, int cpb, int win_off, int wh, int ww, void* stream) {
   const Plan pl{th, tw, cc, cpb, win_off, wh, ww};
   int rc = dcnv3::check_call(B, H, W, C, Ho, Wo, G, GC, K, stride, dil, pl, 32 * kLaneChannels);
   if (rc) return rc;
+  if (row0 < 0) return (int)cudaErrorInvalidValue;
   const int n_ty = (Ho + th - 1) / th, n_tx = (Wo + tw - 1) / tw;
   const int n_chunks = (GC + cc - 1) / cc, n_cb = (n_chunks + cpb - 1) / cpb;
   const long long blocks = (long long)B * G * n_ty * n_tx * n_cb;
@@ -239,7 +241,8 @@ extern "C" int dcnv3_sampling_launch(
   if ((rc = dcnv3::allow_shared(kernel, shared, allowed_shared[form]))) return rc;
   kernel<<<(unsigned)blocks, dcnv3::kThreads, shared, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)offset, (const float*)mask, (float*)out,
-      H, W, C, Ho, Wo, G, GC, K, stride, pad, dil, offset_scale, pl, n_tx, n_ty, n_cb, vec);
+      H, W, C, Ho, Wo, G, GC, K, stride, pad, dil, row0, offset_scale, pl, n_tx, n_ty, n_cb,
+      vec);
   return (int)cudaGetLastError();
 }
 

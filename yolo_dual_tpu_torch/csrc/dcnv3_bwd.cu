@@ -135,8 +135,8 @@ __global__ void __launch_bounds__(dcnv3::kThreads, 4) dcnv3_backward_kernel(
     const float* __restrict__ mask, const float* __restrict__ gout,
     float* __restrict__ dx, float* __restrict__ doffset, float* __restrict__ dmask,
     int H, int W, int C, int Ho, int Wo, int G, int GC, int K,
-    int stride, int pad, int dil, float offset_scale, Plan pl, int n_tx, int n_ty, bool vec,
-    bool flush4) {
+    int stride, int pad, int dil, int row0, float offset_scale, Plan pl, int n_tx, int n_ty,
+    bool vec, bool flush4) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int KK = K * K, GK = G * KK;
   const int npix = pl.th * pl.tw;
@@ -154,7 +154,8 @@ __global__ void __launch_bounds__(dcnv3::kThreads, 4) dcnv3_backward_kernel(
   const int g = (int)(bid % G);
   const long long b = bid / G;
   const int oy0 = ty * pl.th, ox0 = tx * pl.tw;
-  const int wy0 = oy0 * stride + pl.win_off, wx0 = ox0 * stride + pl.win_off;
+  const int wy0 = dcnv3::window_row(row0, oy0, stride, pl);
+  const int wx0 = ox0 * stride + pl.win_off;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
 
   const long long img = b * H * W * C + g * GC;
@@ -170,8 +171,8 @@ __global__ void __launch_bounds__(dcnv3::kThreads, 4) dcnv3_backward_kernel(
     const int oy = oy0 + q / pl.tw, ox = ox0 + q % pl.tw;
     Sample s = dcnv3::empty_sample();
     if (oy < Ho && ox < Wo) {
-      s = dcnv3::make_sample(offset, mask, (b * Ho + oy) * Wo + ox, g * KK + p, GK, K, oy, ox,
-                             H, W, stride, pad, dil, offset_scale);
+      s = dcnv3::make_sample(offset, mask, (b * Ho + oy) * Wo + ox, g * KK + p, GK, K,
+                             row0 + oy, ox, H, W, stride, pad, dil, offset_scale);
       dcnv3::place(s, wy0, wx0, pl);
     }
     geo.store(e, s);
@@ -345,11 +346,12 @@ extern "C" int dcnv3_backward_launch(
     const void* x, const void* offset, const void* mask, const void* gout,
     void* dx, void* doffset, void* dmask,
     int B, int H, int W, int C, int Ho, int Wo, int G, int GC, int K,
-    int stride, int pad, int dil, float offset_scale,
+    int stride, int pad, int dil, int row0, float offset_scale,
     int th, int tw, int cc, int cpb, int win_off, int wh, int ww, void* stream) {
   const Plan pl{th, tw, cc, cpb, win_off, wh, ww};
   int rc = dcnv3::check_call(B, H, W, C, Ho, Wo, G, GC, K, stride, dil, pl, 64);
   if (rc) return rc;
+  if (row0 < 0) return (int)cudaErrorInvalidValue;
   if ((long long)cpb * cc < GC) return (int)cudaErrorInvalidValue;  // a block takes every chunk
   const int n_ty = (Ho + th - 1) / th, n_tx = (Wo + tw - 1) / tw;
   const long long blocks = (long long)B * G * n_ty * n_tx;
@@ -367,7 +369,8 @@ extern "C" int dcnv3_backward_launch(
   kernel<<<(unsigned)blocks, dcnv3::kThreads, shared, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)offset, (const float*)mask, (const float*)gout,
       (float*)dx, (float*)doffset, (float*)dmask,
-      H, W, C, Ho, Wo, G, GC, K, stride, pad, dil, offset_scale, pl, n_tx, n_ty, vec, flush4);
+      H, W, C, Ho, Wo, G, GC, K, stride, pad, dil, row0, offset_scale, pl, n_tx, n_ty, vec,
+      flush4);
   return (int)cudaGetLastError();
 }
 

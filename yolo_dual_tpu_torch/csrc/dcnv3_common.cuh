@@ -7,10 +7,15 @@
 // (B, Ho, Wo, G*KK*2) as (dx, dy) pairs, mask (B, Ho, Wo, G*KK), kernel points X-major
 // (p = ix*K + iy), coordinates those of yolo_dual_tpu/nn/dcn.py:dcnv3_coords.
 //
+// Output row oy of a call is global row row0 + oy: a space rank of a 2-D mesh
+// (parallel/spatial.py) samples its band of output rows, from its band's offsets and mask, in
+// the whole gathered x; row0 = 0 on a whole map.
+//
 // The plan (chosen on the host by kernels/dcn_sampling.py:dcnv3_plan): a block owns one
 // image, one group and a tile of TH x TW output pixels. Its window is the rows
-// [ty0*stride + win_off, + wh) and the columns [tx0*stride + win_off, + ww) of the unpadded
-// input: the tile's zero-offset footprint, the bilinear +1 corner and a margin on every side.
+// [(row0 + ty0)*stride + win_off, + wh) and the columns [tx0*stride + win_off, + ww) of the
+// unpadded input: the tile's zero-offset footprint, the bilinear +1 corner and a margin on
+// every side.
 // x is staged in the window, one chunk of channels at a time. The window only decides where a
 // corner is read (and, in the backward, where its gradient is added first); a corner outside
 // it is read from device memory, so any offset is exact.
@@ -71,7 +76,13 @@ struct Geometry {
   }
 };
 
-// The sample of output pixel (oy, ox) of image b at kernel point gp = g*KK + p: the plain
+// The first input row of the window of a tile whose first output row is oy0.
+__device__ __forceinline__ int window_row(int row0, int oy0, int stride, const Plan& pl) {
+  return (row0 + oy0) * stride + pl.win_off;
+}
+
+// The sample of output pixel (oy, ox) of image b at kernel point gp = g*KK + p, oy the global
+// row (row0 + the call's row) and pix the pixel's index in offset and mask: the plain
 // version's order of operations, without contraction into FMAs, and floorf (floor(-0.5) is
 // -1). The corner is clamped as a float before it becomes an int, so no offset overflows it:
 // below -1 both of its rows (columns) lie outside and stay so at -2, at H or above likewise.

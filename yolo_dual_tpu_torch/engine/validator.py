@@ -19,7 +19,10 @@ global-batch order (segment: each image's matches; semantic: the
 confusion matrices summed, the val loss taken over the global batch), so the
 metrics equal the one-process run's, as JAX's mesh evaluation does
 (tests/test_eval_dp.py). Every rank returns them; the times are the rank's
-own per image.
+own per image. On a 2-D mesh (parallel/mesh.py:make_mesh_2d; JAX
+engine/validator.py:49-52, 272-305) each rank runs the forward on its band of
+its data shard's images (parallel/spatial.py), the outputs come back whole on
+every space rank, and the ranks with space index 0 alone feed the metrics.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ from yolo_dual_tpu_torch.ops.mask_ops import (mask_iou, process_mask, resize_lin
                                               scale_image)
 from yolo_dual_tpu_torch.models.model import forward_augment
 from yolo_dual_tpu_torch.ops.nms import nms_batched, nms_from_raw
-from yolo_dual_tpu_torch.parallel.mesh import across, gather_batches, global_sum
+from yolo_dual_tpu_torch.parallel import spatial
+from yolo_dual_tpu_torch.parallel.mesh import (across, band_rows, gather_batches, global_sum,
+                                               is_main)
 from yolo_dual_tpu_torch.utils.coco import (evaluate_coco_json, save_one_json,
                                             write_predictions_json)
 from yolo_dual_tpu_torch.utils.general import LOGGER, Profile, select_device
@@ -93,6 +98,13 @@ def _txt_rows(boxes: torch.Tensor, cls, conf, shape_hw, shape0, save_conf: bool)
     return lines
 
 
+def _band(image: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's band of rows of an NCHW batch on a 2-D mesh, else the batch."""
+    if mesh is None or mesh.sp == 1:
+        return image
+    return image[:, :, band_rows(image.shape[2], mesh)]
+
+
 def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thres: float = 0.6,
                      max_det: int = 300, nm: int = 32, names=None, plots: bool = False,
                      save_dir: str = ".", use_soft_nms: bool = False, augment: bool = False,
@@ -129,6 +141,9 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     then > 0.5; with `anno_json`, COCOeval where pycocotools is installed.
     """
     dev = select_device(device)
+    if augment and mesh is not None and mesh.sp > 1:
+        raise ValueError("test-time augmentation rescales the frames and does not run on a "
+                         "space mesh")
     model = model.to(dev).eval()
     if fuse:
         model.fuse()
@@ -153,11 +168,11 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
         h, w = image.shape[2:]
         with dt[1], torch.inference_mode():
             with torch.autocast(dev.type, dtype=amp_dtype or torch.float32,
-                                enabled=amp_dtype is not None):
+                                enabled=amp_dtype is not None), spatial.spatial(mesh):
                 if augment:
                     pred, protos = forward_augment(model, image)
                 else:
-                    levels, protos = model(image, decode=False)
+                    levels, protos = model(_band(image, mesh), decode=False)
             if augment:
                 out, n_valid = nms_batched(pred.float(), conf_thres=conf_thres,
                                            iou_thres=iou_thres, multi_label=True,
@@ -183,7 +198,8 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
                 tm = np.asarray(batch["tmask"][si]).astype(bool)
                 stats.append((cb[si, :n], cm[si, :n], dets[:, 4].numpy(), dets[:, 5].numpy(),
                               t[tm][:, 0]))
-                if save_txt and im_files is not None and "index" in batch:
+                if save_txt and im_files is not None and "index" in batch and \
+                        (mesh is None or mesh.space_rank == 0):
                     path = Path(im_files[int(batch["index"][si])])
                     shape0 = tuple(int(v) for v in batch["shape0"][si])
                     lines = _txt_rows(dets[:, :4], dets[:, 5], dets[:, 4], (h, w), shape0,
@@ -212,7 +228,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     stats = gather_batches(per_batch, mesh)
     if save_json:
         jdict = gather_batches([jdict], mesh)
-    if save_json and jdict and (mesh is None or mesh.rank == 0):
+    if save_json and jdict and is_main(mesh):
         pred_json = write_predictions_json(jdict, save_dir)
         if anno_json is not None:
             coco = evaluate_coco_json(pred_json, anno_json)
@@ -227,7 +243,7 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     if tp_b.any() or len(conf):
         metrics.update(ap_per_class_box_and_mask(
             tp_b, tp_m, conf, pred_cls, target_cls, save_dir=save_dir,
-            plot=plots and (mesh is None or mesh.rank == 0),
+            plot=plots and is_main(mesh),
             names=names or {i: str(i) for i in range(nc)}))
     mean = metrics.mean_results()
     t = tuple(x.t / max(seen, 1) * 1e3 for x in dt)
@@ -272,8 +288,8 @@ def evaluate_semantic(model, loader, nc: int, ignore_index: Optional[int] = 11, 
         else:
             image = torch.as_tensor(batch["image"]).to(dev).permute(0, 3, 1, 2)
             gt = torch.as_tensor(batch["mask"]).to(dev)
-        with dt, torch.inference_mode():
-            out = model(normalize_image(image).contiguous())
+        with dt, torch.inference_mode(), spatial.spatial(mesh):
+            out = model(_band(normalize_image(image), mesh).contiguous())
         bsz = int(batch.get("n_valid", image.shape[0]))
         with torch.inference_mode(), across(mesh):
             cm.update(out[:bsz].argmax(1).cpu().numpy(), gt[:bsz].cpu().numpy())

@@ -13,6 +13,12 @@ pairs, mask (B, Ho, Wo, g·kk) softmaxed over kk; the output is (B, Ho, Wo, C).
 The kernels take float32; the plain versions any one floating type (float64
 for a CPU reference or gradcheck).
 
+`row0` is the global row of the first output row: a space rank of a 2-D mesh
+(parallel/spatial.py) samples its band's Ho output rows, from its band's
+offsets and mask, at their global positions in the whole gathered x, and K3's
+dx covers that whole map. With row0 = 0 and the whole map every function is
+what it was without it.
+
 `dcnv3_core_grid_sample` is the reference's grid_sample formulation of the same
 function; chip_smoke.py times it, and its autograd backward, as a yardstick and
 nothing in the package calls it.
@@ -57,15 +63,16 @@ def bilinear_sample_nhwc(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor) 
 
 
 def dcnv3_coords(offset: torch.Tensor, kernel: int, stride: int, pad: int, dilation: int,
-                 group: int, offset_scale: float = 1.0):
+                 group: int, offset_scale: float = 1.0, row0: int = 0):
     """Sampling coordinates in padded-input pixels (JAX nn/dcn.py:dcnv3_coords):
     s = base + offset_scale·(grid + offset) − 0.5, kernel points X-major
-    (p = ix·k + iy). offset (B, Ho, Wo, g·kk·2) -> sx, sy (B·g, Ho·Wo·kk)."""
+    (p = ix·k + iy), output row i at global row row0 + i.
+    offset (B, Ho, Wo, g·kk·2) -> sx, sy (B·g, Ho·Wo·kk)."""
     b, ho, wo = offset.shape[:3]
     kk = kernel * kernel
     f32 = dict(dtype=torch.float32, device=offset.device)
     half = (dilation * (kernel - 1)) // 2
-    base_y = torch.arange(ho, **f32) * stride + half + 0.5
+    base_y = (torch.arange(ho, **f32) + row0) * stride + half + 0.5
     base_x = torch.arange(wo, **f32) * stride + half + 0.5
     vals = -half + torch.arange(kernel, **f32) * dilation
     kx2, ky2 = torch.meshgrid(vals, vals, indexing="ij")  # x varies on dim 0
@@ -81,15 +88,17 @@ def dcnv3_coords(offset: torch.Tensor, kernel: int, stride: int, pad: int, dilat
 
 
 def dcnv3_core(x, offset, mask, kernel: int, stride: int, pad: int, dilation: int,
-               group: int, group_channels: int, offset_scale: float) -> torch.Tensor:
+               group: int, group_channels: int, offset_scale: float,
+               row0: int = 0) -> torch.Tensor:
     """Plain torch DCNv3 sampling (JAX nn/dcn.py:dcnv3_core): zero padding,
-    per-group bilinear samples weighted by the mask and summed over kk."""
+    per-group bilinear samples weighted by the mask and summed over kk; the
+    output rows from global row `row0`."""
     b, h, w, c = x.shape
     xp = F.pad(x, (0, 0, pad, pad, pad, pad))
     hin, win = h + 2 * pad, w + 2 * pad
     ho, wo = offset.shape[1:3]
     kk = kernel * kernel
-    sxf, syf = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale)
+    sxf, syf = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale, row0)
     xg = xp.reshape(b, hin, win, group, group_channels).permute(0, 3, 1, 2, 4) \
         .reshape(b * group, hin, win, group_channels)
     samp = bilinear_sample_nhwc(xg, sxf, syf).reshape(b, group, ho, wo, kk, group_channels)
@@ -99,10 +108,10 @@ def dcnv3_core(x, offset, mask, kernel: int, stride: int, pad: int, dilation: in
 
 
 def dcnv3_core_bwd(x, offset, mask, g_out, kernel: int, stride: int, pad: int, dilation: int,
-                   group: int, group_channels: int, offset_scale: float):
+                   group: int, group_channels: int, offset_scale: float, row0: int = 0):
     """Plain torch DCNv3 sampling gradients (JAX nn/dcn.py:dcnv3_core_bwd), in
     the dtype of x: (dx, doffset, dmask) for the output gradient `g_out`
-    (B, Ho, Wo, C).
+    (B, Ho, Wo, C) of the output rows from global row `row0`; dx covers all of x.
 
     - dx: scatter-add of bilinear corner weight × mask × ḡ into the four
       corners of the padded input, cropped to the unpadded input;
@@ -118,7 +127,7 @@ def dcnv3_core_bwd(x, offset, mask, g_out, kernel: int, stride: int, pad: int, d
     P = ho * wo * kk
     xg = F.pad(x, (0, 0, pad, pad, pad, pad)).reshape(b, hin, win, group, gc) \
         .permute(0, 3, 1, 2, 4).reshape(bg, hin * win, gc)
-    sxf, syf = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale)
+    sxf, syf = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale, row0)
     x0 = torch.floor(sxf)
     y0 = torch.floor(syf)
     wx = (sxf - x0).to(x.dtype)
@@ -185,7 +194,7 @@ def dcnv3_core_grid_sample(x, offset, mask, kernel: int, stride: int, pad: int, 
     return out.transpose(1, 2).reshape(b, ho, wo, c)
 
 
-def _check(x, offset, mask, kernel, group, group_channels):
+def _check(x, offset, mask, kernel, stride, pad, dilation, group, group_channels, row0=0):
     # the kernels take float32; the plain versions any one floating type
     want = torch.float32 if x.device.type == "cuda" else x.dtype
     if not x.is_floating_point() or {offset.dtype, mask.dtype, x.dtype} != {want}:
@@ -202,6 +211,9 @@ def _check(x, offset, mask, kernel, group, group_channels):
         raise ValueError(f"offset shape {tuple(offset.shape)}: expected (B, Ho, Wo, {group * kk * 2})")
     if tuple(mask.shape) != (b, ho, wo, group * kk):
         raise ValueError(f"mask shape {tuple(mask.shape)}: expected {(b, ho, wo, group * kk)}")
+    rows = (x.shape[1] + 2 * pad - dilation * (kernel - 1) - 1) // stride + 1
+    if row0 < 0 or (row0 > 0 and row0 + ho > rows):
+        raise ValueError(f"output rows {row0} .. {row0 + ho - 1} outside the map's {rows}")
     if x.device.type in ("cpu", "meta"):
         return
     if x.device.type != "cuda":
@@ -326,23 +338,26 @@ def dcnv3_shared_bytes(th: int, tw: int, kk: int, cc: int, wh: int, ww: int,
 
 def dcnv3_window_escapes(offset: torch.Tensor, h: int, w: int, kernel: int, stride: int,
                          pad: int, dilation: int, group: int, offset_scale: float,
-                         plan: DCNv3Plan) -> float:
+                         plan: DCNv3Plan, row0: int = 0) -> float:
     """Share of the samples of a call with a corner outside their block's
-    window: those the kernels read (and the backward adds to) in device memory."""
+    window: those the kernels read (and the backward adds to) in device memory.
+    A block's window follows its tile's global rows (from `row0`), so the plan
+    of a band is the plan of any map of its shape."""
     b, ho, wo = offset.shape[:3]
-    sx, sy = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale)
+    sx, sy = dcnv3_coords(offset, kernel, stride, pad, dilation, group, offset_scale, row0)
     shape = (b * group, ho, wo, kernel * kernel)
     y0 = torch.floor(sy).reshape(shape) - pad
     x0 = torch.floor(sx).reshape(shape) - pad
     dev = dict(device=offset.device)
-    wy0 = (torch.arange(ho, **dev) // plan.th * plan.th * stride + plan.win_off)[:, None, None]
+    wy0 = ((torch.arange(ho, **dev) // plan.th * plan.th + row0) * stride
+           + plan.win_off)[:, None, None]
     wx0 = (torch.arange(wo, **dev) // plan.tw * plan.tw * stride + plan.win_off)[None, :, None]
     out = (y0 < wy0) | (y0 + 1 >= wy0 + plan.wh) | (x0 < wx0) | (x0 + 1 >= wx0 + plan.ww)
     return out.float().mean().item()
 
 
 def _launch(fn, ptrs, x, offset, kernel, stride, pad, dilation, group, group_channels,
-            offset_scale, plan=None):
+            offset_scale, row0=0, plan=None):
     """Launch `fn` on `ptrs` with the cached plan of its shape, or with `plan`
     (kernels/bench_dcnv3.py and chip_smoke.py time other plans)."""
     launch, error_string = _BOUND.get(fn) or _bind(fn)
@@ -352,7 +367,7 @@ def _launch(fn, ptrs, x, offset, kernel, stride, pad, dilation, group, group_cha
         plan = dcnv3_plan(b, ho, wo, group, group_channels, kernel, stride, pad, dilation,
                           offset_scale, fn == "dcnv3_backward_launch")
     args = (*(t.data_ptr() for t in ptrs), b, h, w, c, ho, wo, group, group_channels, kernel,
-            stride, pad, dilation, offset_scale, *plan[:7])
+            stride, pad, dilation, row0, offset_scale, *plan[:7])
     if x.device.index == torch.cuda.current_device():
         rc = launch(*args, torch.cuda.current_stream().cuda_stream)
     else:
@@ -391,14 +406,15 @@ class _DCNv3Sampling(torch.autograd.Function):
 
 
 def dcnv3_sampling(x, offset, mask, kernel: int, stride: int, pad: int, dilation: int,
-                   group: int, group_channels: int, offset_scale: float) -> torch.Tensor:
+                   group: int, group_channels: int, offset_scale: float,
+                   row0: int = 0) -> torch.Tensor:
     """DCNv3 sampling, (B, H, W, C) -> (B, Ho, Wo, C), with Ho and Wo those of
-    `offset`, differentiable in x, offset and mask. On CUDA tensors the forward
-    launches csrc/dcnv3.cu (counted in `dcnv3_sampling.launches`) and the
-    backward `dcnv3_sampling_backward`; on CPU or meta tensors they are the
-    plain `dcnv3_core` and `dcnv3_core_bwd`."""
-    _check(x, offset, mask, kernel, group, group_channels)
-    cfg = (kernel, stride, pad, dilation, group, group_channels, float(offset_scale))
+    `offset`, its first row global row `row0`, differentiable in x, offset and
+    mask. On CUDA tensors the forward launches csrc/dcnv3.cu (counted in
+    `dcnv3_sampling.launches`) and the backward `dcnv3_sampling_backward`; on
+    CPU or meta tensors they are the plain `dcnv3_core` and `dcnv3_core_bwd`."""
+    _check(x, offset, mask, kernel, stride, pad, dilation, group, group_channels, row0)
+    cfg = (kernel, stride, pad, dilation, group, group_channels, float(offset_scale), int(row0))
     return _DCNv3Sampling.apply(x, offset, mask, cfg)
 
 
@@ -407,17 +423,18 @@ dcnv3_sampling.launches = 0
 
 def dcnv3_sampling_backward(x, offset, mask, grad_out, kernel: int, stride: int, pad: int,
                             dilation: int, group: int, group_channels: int,
-                            offset_scale: float):
+                            offset_scale: float, row0: int = 0):
     """(dx, doffset, dmask) of DCNv3 sampling for the output gradient
-    `grad_out` (B, Ho, Wo, C). On CUDA tensors this launches csrc/dcnv3_bwd.cu
-    and counts the launch in `dcnv3_sampling_backward.launches`; on CPU tensors
-    it runs `dcnv3_core_bwd`."""
-    _check(x, offset, mask, kernel, group, group_channels)
+    `grad_out` (B, Ho, Wo, C) of the output rows from global row `row0`; dx
+    covers all of x. On CUDA tensors this launches csrc/dcnv3_bwd.cu and
+    counts the launch in `dcnv3_sampling_backward.launches`; on CPU tensors it
+    runs `dcnv3_core_bwd`."""
+    _check(x, offset, mask, kernel, stride, pad, dilation, group, group_channels, row0)
     want = (x.shape[0], *offset.shape[1:3], x.shape[3])
     if tuple(grad_out.shape) != want or grad_out.dtype != x.dtype or grad_out.device != x.device:
         raise ValueError(f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} on {grad_out.device}: "
                          f"expected {want} {x.dtype} on {x.device}")
-    cfg = (kernel, stride, pad, dilation, group, group_channels, offset_scale)
+    cfg = (kernel, stride, pad, dilation, group, group_channels, offset_scale, row0)
     if x.device.type == "cpu":
         return dcnv3_core_bwd(x, offset, mask, grad_out, *cfg)
     if x.device.type != "cuda":
@@ -449,7 +466,7 @@ def _bind(fn: str):
     lib = load_library(name)
     launch, error_string = getattr(lib, fn), getattr(lib, err)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch.argtypes = [p] * n_ptr + [i] * 12 + [ctypes.c_float] + [i] * 7 + [p]
+    launch.argtypes = [p] * n_ptr + [i] * 13 + [ctypes.c_float] + [i] * 7 + [p]
     launch.restype = ctypes.c_int
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p

@@ -41,32 +41,37 @@ class Detect(nn.Module):
 
     def forward(self, xs, decode: bool = True):
         na, no = self.na, self.no
-        raw, z = [], []
+        raw = []
         for i, x in enumerate(xs):
             p = self.m[i](x)
             bs, _, ny, nx = p.shape
             # (bs, na·no, ny, nx) -> (bs, na, ny, nx, no), a view
-            p = p.view(bs, na, no, ny, nx).permute(0, 1, 3, 4, 2)
-            raw.append(p)
-            if decode:
-                stride = float(self.strides[i])
-                grid = _level_grid(ny, nx, p.device, p.dtype)
-                anchor_grid = torch.tensor(self.anchors[i], dtype=p.dtype,
-                                           device=p.device).view(1, na, 1, 1, 2)
-                if self.nm:
-                    xy, wh, conf, mask = p.split((2, 2, 1 + self.nc, self.nm), -1)
-                    xy = (xy.sigmoid() * 2 + grid) * stride
-                    wh = (wh.sigmoid() * 2) ** 2 * anchor_grid
-                    y = torch.cat((xy, wh, conf.sigmoid(), mask), -1)
-                else:
-                    ps = p.sigmoid()
-                    xy = (ps[..., :2] * 2 + grid) * stride
-                    wh = (ps[..., 2:4] * 2) ** 2 * anchor_grid
-                    y = torch.cat((xy, wh, ps[..., 4:]), -1)
-                z.append(y.reshape(bs, na * ny * nx, no))
-        if decode:
-            return torch.cat(z, 1), raw
-        return raw
+            raw.append(p.view(bs, na, no, ny, nx).permute(0, 1, 3, 4, 2))
+        return self.decoded(raw) if decode else raw
+
+    def decoded(self, raw):
+        """forward(decode=True)'s output from forward(decode=False)'s `raw`:
+        (the decoded predictions (bs, N, no), raw)."""
+        na, no = self.na, self.no
+        z = []
+        for i, p in enumerate(raw):
+            bs, _, ny, nx, _ = p.shape
+            stride = float(self.strides[i])
+            grid = _level_grid(ny, nx, p.device, p.dtype)
+            anchor_grid = torch.tensor(self.anchors[i], dtype=p.dtype,
+                                       device=p.device).view(1, na, 1, 1, 2)
+            if self.nm:
+                xy, wh, conf, mask = p.split((2, 2, 1 + self.nc, self.nm), -1)
+                xy = (xy.sigmoid() * 2 + grid) * stride
+                wh = (wh.sigmoid() * 2) ** 2 * anchor_grid
+                y = torch.cat((xy, wh, conf.sigmoid(), mask), -1)
+            else:
+                ps = p.sigmoid()
+                xy = (ps[..., :2] * 2 + grid) * stride
+                wh = (ps[..., 2:4] * 2) ** 2 * anchor_grid
+                y = torch.cat((xy, wh, ps[..., 4:]), -1)
+            z.append(y.reshape(bs, na * ny * nx, no))
+        return torch.cat(z, 1), raw
 
 
 class Segment(Detect):
@@ -82,11 +87,14 @@ class Segment(Detect):
 
     def forward(self, xs, decode: bool = True):
         protos = self.proto(xs[0])
-        det = super().forward(xs, decode=decode)
-        if decode:
-            pred, raw = det
-            return pred, protos, raw
-        return det, protos
+        det = super().forward(xs, decode=False)
+        return self.decoded((det, protos)) if decode else (det, protos)
+
+    def decoded(self, out):
+        """(pred, protos, raw) from forward(decode=False)'s (raw, protos)."""
+        raw, protos = out
+        pred, raw = super().decoded(raw)
+        return pred, protos, raw
 
 
 class DetectAux(nn.Module):
@@ -116,13 +124,14 @@ class DetectAux(nn.Module):
         return self.lead.strides
 
     def forward(self, xs, decode: bool = True):
-        out = self.lead(xs[:self.nl], decode=decode)
+        out = self.lead(xs[:self.nl], decode=False)
         aux = []
         for i, x in enumerate(xs[self.nl:]):
             p = getattr(self, f"m_aux_{i}")(x)
             bs, _, ny, nx = p.shape
             aux.append(p.view(bs, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2))
-        if decode:
-            pred, raw = out
-            return pred, raw + aux
-        return out + aux
+        return self.decoded(out + aux) if decode else out + aux
+
+    def decoded(self, raw):
+        """(the lead's decoded predictions, raw) from forward(decode=False)'s raw."""
+        return self.lead.decoded(raw[:self.nl])[0], raw

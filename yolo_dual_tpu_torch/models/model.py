@@ -25,9 +25,43 @@ from yolo_dual_tpu_torch.nn.attention import AttentionConv, AttentionStem
 from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
 from yolo_dual_tpu_torch.nn.spp import FixedProfileBatchNorm2d
 from yolo_dual_tpu_torch.nn.torchvision_backbones import ConvNeXtBlock
-from yolo_dual_tpu_torch.utils.general import find_cfg, load_config, select_device
+from yolo_dual_tpu_torch.parallel import spatial
+from yolo_dual_tpu_torch.utils.general import LOGGER, find_cfg, load_config, select_device
 
 _HEADS = ("Detect", "Segment", "DetectAux")
+# Registry names whose modules run on a rank's band inside parallel/spatial.py:spatial: their
+# convolutions are Conv's and their pools max_pool_same's, which exchange halo rows; DCNv3
+# gathers its sampling's input itself (nn/dcn.py). A channel Concat and an integer nearest
+# Upsample never mix rows, nor do the heads' 1x1 convs. Every other layer runs gathered.
+_ROW_LOCAL = frozenset({"Conv", "Bottleneck", "C3", "SPPF", "Proto", "C3_DCNV3"})
+
+
+def _row_local(layer: LayerSpec, mod: nn.Module) -> bool:
+    if layer.name in _ROW_LOCAL or layer.name in _HEADS:
+        return True
+    if layer.name == "Concat":
+        return getattr(mod, "d", None) == 1 and not getattr(mod, "align", True)
+    if layer.name in ("Upsample", "nn.Upsample"):
+        sf = getattr(mod, "scale_factor", None)
+        return (getattr(mod, "mode", None) == "nearest" and mod.size is None and sf is not None
+                and float(sf).is_integer())
+    return False
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def _map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, x) for x in tree)
+    return tree
 
 
 class GraphModel(nn.Module):
@@ -54,19 +88,75 @@ class GraphModel(nn.Module):
         return self._walk(x, decode)
 
     def _walk(self, x, decode: bool):
-        y = []
-        out = x
+        """Under parallel/spatial.py:spatial with more than one band, the walk
+        runs on this rank's band of rows. A layer of `_row_local` runs on its
+        bands; any other gathers its input's rows over the space group, runs
+        on the whole map and keeps its own rows of the output (its own rows'
+        share of the gradient goes back, summed over the group). The head's
+        outputs are gathered whole on every space rank, then decoded; a last
+        layer without rows (Classify) leaves each rank its 1/sp share of the
+        output's gradient. The input's height (the band's times sp) must be a
+        multiple of sp x `largest_stride`. Without a mesh every gather, keep
+        and share is the identity."""
+        mesh = spatial.space_mesh()
+        if mesh is not None:
+            spatial.check_height(x.shape[2] * mesh.sp, mesh, self.largest_stride())
+            self._log_gathered(mesh)
+        y, out, rows = [], x, True  # rows: the last output is this rank's band
         for layer, mod in zip(self.spec.layers, self.model):
+            if mesh is not None and not rows:
+                raise ValueError(f"spatial partitioning: layer {layer.i} {layer.name} follows "
+                                 "a layer whose output has no rows to split")
             f = layer.f
             if isinstance(f, tuple):
                 inp = [out if j == -1 else y[j] for j in f]
-            elif f == -1:
-                inp = out
             else:
-                inp = y[f]
-            out = mod(inp, decode=decode) if layer.name in _HEADS else mod(inp)
+                inp = out if f == -1 else y[f]
+            if layer.name in _HEADS:
+                raw = _map(lambda t: spatial.gather_rows(t, dim=2, site="head"),
+                           mod(inp, decode=False))
+                out, rows = (mod.decoded(raw) if decode else raw), None
+            elif mesh is None or _row_local(layer, mod):
+                out = mod(inp)
+            else:
+                inp = _map(lambda t: spatial.gather_rows(t, dim=2, sum_grads=True,
+                                                         site=f"layer {layer.name}"), inp)
+                with spatial.whole_maps():
+                    out = mod(inp)
+                if all(t.ndim == 4 for t in _tensors(out)):
+                    out = _map(lambda t: spatial.keep_rows(t, dim=2), out)
+                else:
+                    out, rows = _map(spatial.share_grad, out), None
             y.append(out if layer.i in self.save else None)
+        if mesh is not None and rows:
+            out = _map(lambda t: spatial.gather_rows(t, dim=2, site="output"), out)
         return out
+
+    def _log_gathered(self, mesh):
+        """Logs once a model which layers run gathered over `mesh`'s bands."""
+        if getattr(self, "_logged_gathered", False):
+            return
+        self._logged_gathered = True
+        gathered = [f"{layer.i} {layer.name}" for layer, mod in zip(self.spec.layers, self.model)
+                    if not _row_local(layer, mod)]
+        LOGGER.info(f"spatial partitioning over {mesh.sp} bands: layers run gathered: "
+                    f"{', '.join(gathered) or 'none'}")
+
+    def largest_stride(self) -> int:
+        """The input's rows over the fewest rows of any layer's map, from a
+        forward at 1024 px on the meta device (shapes only)."""
+        if getattr(self, "_largest_stride", None) is None:
+            s, rows = 1024, []
+            with torch.device("meta"):
+                probe = GraphModel(self.spec).eval()
+                x = torch.empty(1, self.spec.ch_in, s, s)
+            for m in probe.model:
+                m.register_forward_hook(lambda mod, args, out: rows.extend(
+                    t.shape[2] for t in _tensors(out) if t.ndim == 4))
+            with torch.no_grad(), spatial.whole_maps():
+                probe._walk(x, decode=False)
+            self._largest_stride = s // min(rows)
+        return self._largest_stride
 
     def fuse(self):
         """Fold every Conv's BatchNorm into its conv, in place (reference
@@ -222,7 +312,8 @@ class SemanticSegModel(GraphModel):
 
     def forward(self, x):
         out = self._walk(x, decode=False)
-        return resize_bilinear(out, x.shape[-2:])
+        mesh = spatial.space_mesh()  # the walk returns the whole map on every space rank
+        return resize_bilinear(out, (x.shape[-2] * (mesh.sp if mesh else 1), x.shape[-1]))
 
 
 class ClassificationModel(GraphModel):

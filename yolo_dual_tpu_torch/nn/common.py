@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from yolo_dual_tpu_torch.nn.activations import resolve_act
+from yolo_dual_tpu_torch.parallel import spatial
 
 # BatchNorm profiles (eps, torch momentum) of the reference's two paths (JAX
 # nn/common.py:37-45): the detection/segment models' initialize_weights sets
@@ -121,7 +122,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 class Conv(nn.Module):
     """Conv2d + BN + act (reference models/common.py:47-64). After `fuse()` the
     BN is folded into the conv and `bn` is None. The BN keeps JAX's running
-    variance in training (`BatchNorm2d`)."""
+    variance in training (`BatchNorm2d`). Inside parallel/spatial.py:spatial
+    the conv runs on the rank's band with its halo rows (`spatial.conv2d`)."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
         super().__init__()
@@ -130,7 +132,7 @@ class Conv(nn.Module):
         self.act = resolve_act(act)
 
     def forward(self, x):
-        x = self.conv(x)
+        x = spatial.conv2d(x, self.conv) if spatial.space_mesh() is not None else self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return self.act(x)
@@ -177,7 +179,10 @@ class C3(nn.Module):
 
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
-    """k x k stride-1 max pool padded by k // 2 with -inf (JAX max_pool_same)."""
+    """k x k stride-1 max pool padded by k // 2 with -inf (JAX max_pool_same);
+    on the rank's band inside parallel/spatial.py:spatial."""
+    if spatial.space_mesh() is not None:
+        return spatial.max_pool_same(x, k)
     return F.max_pool2d(x, k, 1, k // 2)
 
 

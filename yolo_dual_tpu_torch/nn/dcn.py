@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling
 from yolo_dual_tpu_torch.nn.activations import resolve_act
 from yolo_dual_tpu_torch.nn.common import BN_EPS, BN_MOMENTUM, C3, BatchNorm2d, Conv
+from yolo_dual_tpu_torch.parallel import spatial
 
 # ---------------------------------------------------------------------------
 # DCNv2: torchvision's deform_conv2d (JAX nn/dcn.py:37-111)
@@ -313,7 +314,12 @@ class DCNv3(nn.Module):
     """InternImage DCNv3 (JAX nn/dcn.py:DCNv3): input_proj; a depthwise
     Conv + BN + SiLU feeding the linear offset and mask heads; the mask
     softmaxed in float32 over the kk points of each group; deformable
-    sampling; output_proj. (B, H, W, C) -> (B, Ho, Wo, C)."""
+    sampling; output_proj. (B, H, W, C) -> (B, Ho, Wo, C). Inside
+    parallel/spatial.py:spatial, on the rank's band of rows: dw_conv
+    exchanges its halo (a Conv), the per-pixel layers stay local, and the
+    sampling takes input_proj's output gathered over the space group and
+    samples the band's output rows at their global rows (`row0`; JAX
+    nn/dcn.py:366-400 under XLA's partitioner)."""
 
     def __init__(self, channels, kernel_size=3, stride=1, pad=1, dilation=1, group=1,
                  offset_scale=1.0):
@@ -345,8 +351,13 @@ class DCNv3(nn.Module):
         # converted here, at the autograd Function's boundary, and their gradients back
         proj, offset, mask = (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
                               for t in (proj, offset, mask))
+        band = ()
+        if spatial.space_mesh() is not None:  # the band's rows, sampled in the whole map
+            band = (spatial.space_mesh().space_rank * h,)  # row0
+            proj = spatial.gather_rows(proj, dim=1, sum_grads=True, site="dcnv3")
         out = dcnv3_sampling(proj, offset, mask.contiguous(), self.kernel_size, self.stride,
-                             self.pad, self.dilation, g, self.group_channels, self.offset_scale)
+                             self.pad, self.dilation, g, self.group_channels, self.offset_scale,
+                             *band)
         return self.output_proj(out)
 
 

@@ -23,6 +23,13 @@ reductions are explicit:
 Backend rule (`pick_backend`): NCCL when every rank has a GPU of its own; gloo
 on the CPU, or when ranks share a GPU (NCCL refuses two ranks on one device).
 The rule picks once and logs its choice; nothing retries another backend.
+
+`make_mesh_2d(dp, sp)` is JAX's data x space mesh: rank d·sp + s holds data
+shard d's rows and band s of every image's rows (parallel/spatial.py runs the
+model on the bands). Its `size` and `rank` are the data axis', so everything
+above that shards or reduces over the data (the Loader's shards, the losses'
+normalisers, `gather_batches`) reads them as on a 1-D mesh; BatchNorm and
+DDP span the world.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import contextvars
 import dataclasses
 import datetime
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -45,12 +52,23 @@ TIMEOUT_S = 600  # a collective waits this long for a lost peer, then fails
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """The data-parallel group (torch.distributed's default group): its world
-    size, this process' rank and device."""
+    """The ranks of a run: `size` data shards, this process' data index `rank`
+    and device; on a 2-D mesh also `sp` bands an image, this process' band
+    `space_rank`, and the groups of the ranks that share its space index
+    (`data_group`) and its data index (`space_group`). A 1-D mesh is the
+    default group (sp 1, groups None)."""
     size: int
     rank: int
     device: torch.device
     backend: str = ""
+    sp: int = 1
+    space_rank: int = 0
+    data_group: Any = None
+    space_group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.size * self.sp
 
     def __deepcopy__(self, memo):
         return self  # a deep copy of a module that holds the mesh (the EMA) shares it
@@ -109,16 +127,47 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     return Mesh(size, rank, torch.device(device), backend)
 
 
-def make_mesh_2d(dp: int, sp: int, axes=("data", "space")):
-    """JAX's data x space mesh shards each image's height over a second axis.
-    In torch every convolution, resize and DCNv3 would need a hand-written halo
-    exchange; the port has none."""
-    raise NotImplementedError("spatial partitioning (make_mesh_2d) is not ported yet "
-                              "(ROADMAP A item 7g)")
+def make_mesh_2d(dp: int, sp: int, device=None) -> Mesh:
+    """JAX's data x space mesh (JAX parallel/mesh.py:46): the process group's
+    dp·sp ranks as dp data shards of sp bands each, space innermost, so rank
+    r = d·sp + s. Every rank builds every group (torch.distributed.new_group
+    is collective) and keeps its own two. Raises ValueError when the world
+    is not dp·sp. `device` as make_mesh's."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dp < 1 or sp < 1 or dp * sp != world:
+        raise ValueError(f"make_mesh_2d({dp}, {sp}): the process group has {world} ranks, "
+                         f"not dp·sp = {dp * sp}")
+    mesh = make_mesh(device=device)
+    rank = mesh.rank  # the world rank
+    data_group = space_group = None
+    if world > 1:
+        for s in range(sp):
+            g = dist.new_group([d * sp + s for d in range(dp)])
+            if rank % sp == s:
+                data_group = g
+        for d in range(dp):
+            g = dist.new_group([d * sp + s for s in range(sp)])
+            if rank // sp == d:
+                space_group = g
+    return dataclasses.replace(mesh, size=dp, rank=rank // sp, sp=sp, space_rank=rank % sp,
+                               data_group=data_group, space_group=space_group)
 
 
 def _active(mesh: Optional[Mesh]) -> bool:
-    return mesh is not None and mesh.size > 1
+    return mesh is not None and mesh.world > 1
+
+
+def batch_spec(mesh: Mesh, leaf_ndim: int) -> tuple:
+    """The axis each dimension of a batch leaf is split over (JAX
+    parallel/mesh.py:65, a PartitionSpec there): the leading (batch) dim over
+    "data" and, on a 2-D mesh, dim 1 (H of NHWC images) of a leaf with at
+    least 3 dims over "space"; None for the rest."""
+    spec = [None] * leaf_ndim
+    if leaf_ndim >= 1:
+        spec[0] = "data"
+    if mesh.sp > 1 and leaf_ndim >= 3:
+        spec[1] = "space"
+    return tuple(spec)
 
 
 def replicate(obj, mesh: Mesh):
@@ -141,14 +190,36 @@ def rows_of(n: int, mesh: Mesh) -> int:
     return max(0, -(-(n - mesh.rank) // mesh.size))
 
 
+# leaves whose dim 1 is H: JAX's _SPATIAL_KEYS also holds "mask" and "masks", which the
+# port keeps whole on every space rank because only the loss reads them
+_SPATIAL_KEYS = ("image", "images")
+
+
+def band_rows(n: int, mesh: Mesh) -> slice:
+    """The rows of a map of `n` rows that are this rank's band."""
+    if n % mesh.sp:
+        raise ValueError(f"a map of {n} rows does not split into {mesh.sp} bands")
+    h = n // mesh.sp
+    return slice(mesh.space_rank * h, (mesh.space_rank + 1) * h)
+
+
 def shard_batch(batch, mesh: Mesh):
     """This rank's rows of a global batch: rows rank, rank + size, ... of each
     leaf with a leading dimension (the Loader's split, data/loader.py), and
-    `n_valid` counted over them. Scalars pass through."""
+    `n_valid` counted over them; on a 2-D mesh also, of the `_SPATIAL_KEYS`
+    leaves with at least 3 dims, the band of dim 1 that `batch_spec` puts on
+    "space" (`band_rows`): what Trainer.train_step takes (engine/validator.py
+    takes whole frames, shard_loader's shards, and bands them itself).
+    Scalars pass through."""
     def take(k, x):
         if k == "n_valid":
             return np.int32(rows_of(int(x), mesh))
-        return x[mesh.rank::mesh.size] if np.ndim(x) >= 1 else x
+        if np.ndim(x) < 1:
+            return x
+        x = x[mesh.rank::mesh.size] if mesh.size > 1 else x
+        if k in _SPATIAL_KEYS and "space" in batch_spec(mesh, np.ndim(x)):
+            x = x[:, band_rows(x.shape[1], mesh)]
+        return x
     if not _active(mesh):
         return batch
     if isinstance(batch, dict):
@@ -157,32 +228,35 @@ def shard_batch(batch, mesh: Mesh):
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks, differentiable: the gradient of every rank's
-    input is the sum of the ranks' output gradients."""
+    """The sum over a group's ranks, differentiable: the gradient of every
+    rank's input is the sum of the ranks' output gradients."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """`x` summed over the ranks, with its gradient (SyncBN's statistics)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x` summed over the ranks of `group` (default: the world), with its
+    gradient (SyncBN's statistics)."""
+    return _AllReduceSum.apply(x, group)
 
 
 def cross_replica_mean(tree, mesh: Mesh):
-    """The mean over the ranks of a tensor, or of each tensor of a dict or list
-    (JAX's pmean); differentiable, the gradient flows back to every rank."""
+    """The mean over the data axis' ranks of a tensor, or of each tensor of a
+    dict or list (JAX's pmean over "data"); differentiable, the gradient
+    flows back to every rank."""
     def mean(x):
-        return all_reduce_sum(x) / mesh.size
+        return all_reduce_sum(x, mesh.data_group) / mesh.size
     if not _active(mesh):
         return tree
     if isinstance(tree, dict):
@@ -224,16 +298,19 @@ def active_mesh() -> Optional[Mesh]:
 
 
 def global_sum(x):
-    """`x` summed over the ranks of the active mesh, outside autograd (a
+    """`x` summed over the data axis' ranks of the active mesh (the space
+    ranks of a data shard hold the same value), outside autograd (a
     normaliser: gradients flow through the local terms only); `x` itself
     without one. Takes a tensor or a number."""
     mesh = _MESH.get()
     if mesh is None:
         return x
     t = torch.as_tensor(x).detach().clone()
+    if mesh.size == 1:
+        return t
     if t.device.type == "cpu" and mesh.device.type == "cuda" and mesh.backend == "nccl":
         t = t.to(mesh.device)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=mesh.data_group)
     return t.to(x.device) if isinstance(x, torch.Tensor) else t
 
 
@@ -270,11 +347,13 @@ def gather_batches(per_batch: list, mesh: Optional[Mesh]) -> list:
     rank's list of batches, each a list of its images' records: rows rank,
     rank + size, ... of each global batch (data/loader.py:Loader's shards),
     so global row p of batch k is row p // size of rank p % size. Every rank
-    gets the whole list (torch.distributed.all_gather_object)."""
+    gets the whole list (torch.distributed.all_gather_object); on a 2-D mesh
+    the lists of the ranks with space index 0 alone, one a data shard."""
     if not _active(mesh):
         return [r for b in per_batch for r in b]
-    ranks = [None] * mesh.size
-    dist.all_gather_object(ranks, per_batch)
+    world = [None] * mesh.world
+    dist.all_gather_object(world, per_batch)
+    ranks = world[::mesh.sp]  # rank d·sp: data shard d's space index 0
     out = []
     for k in range(len(per_batch)):  # the same number of batches on every rank
         rows = [ranks[r][k] for r in range(mesh.size)]
@@ -288,8 +367,11 @@ def shard_loader(loader, mesh: Optional[Mesh]):
     rank's rows of each global batch (its `batch_size / size` of them), in
     place, and reseed its dataset's augmentation generators (`rng`, `np_rng`)
     with the loader's seed + rank, so the ranks draw different augmentations.
-    The batch size must divide by the world size. Returns `loader`."""
-    if not _active(mesh):
+    The batch size must divide by the world size. On a 2-D mesh the shards
+    are the data axis' (`size`, `rank`): the space ranks of a data shard load
+    and augment the same rows, and `shard_batch` cuts their bands. Returns
+    `loader`."""
+    if mesh is None or mesh.size == 1:
         return loader
     if loader.batch_size % mesh.size:
         raise ValueError(f"batch size {loader.batch_size} does not split over {mesh.size} ranks")
@@ -316,7 +398,7 @@ def data_parallel(device="cuda") -> Optional[Mesh]:
 
 def is_main(mesh: Optional[Mesh]) -> bool:
     """True on rank 0, or without a mesh: the rank that writes files."""
-    return mesh is None or mesh.rank == 0
+    return mesh is None or (mesh.rank == 0 and mesh.space_rank == 0)
 
 
 def from_rank0(fn, mesh: Optional[Mesh]):
@@ -324,7 +406,7 @@ def from_rank0(fn, mesh: Optional[Mesh]):
     sent to every rank; fn() itself without a mesh."""
     if not _active(mesh):
         return fn()
-    box = [fn() if mesh.rank == 0 else None]
+    box = [fn() if is_main(mesh) else None]
     dist.broadcast_object_list(box, src=0)
     return box[0]
 
@@ -334,8 +416,8 @@ def rank0_first(mesh: Optional[Mesh]):
     """Rank 0 runs the block before the other ranks do (reference
     torch_distributed_zero_first): a dataset's label or mask cache is written
     once, then read by the rest."""
-    if _active(mesh) and mesh.rank != 0:
+    if _active(mesh) and not is_main(mesh):
         sync_hosts("rank0_first")
     yield
-    if _active(mesh) and mesh.rank == 0:
+    if _active(mesh) and is_main(mesh):
         sync_hosts("rank0_first")

@@ -36,6 +36,20 @@ some graphs hold layers that feed no output (yolov5_seg's head rows 12-20,
 ROADMAP §C); their gradients stay None, which the optimizer reads as zeros,
 as JAX's gradient of them is zero. The BatchNorm buffers are not broadcast
 at each forward: the synchronised statistics are the same on every rank.
+
+A 2-D `mesh` (parallel/mesh.py:make_mesh_2d, dp x sp ranks) trains as JAX's
+Trainer(mesh=make_mesh_2d(dp, sp)) does (JAX train/trainer.py:170-187): each
+rank's batch is its data shard's rows, `image` cut to its band of rows
+(parallel/mesh.py:shard_batch), the targets and mask planes whole. The model
+runs on the bands (parallel/spatial.py:spatial; models/model.py:_walk) and
+its head's outputs come back whole on every space rank, so each space rank
+computes its data shard's loss share whole; the losses' normalisers reduce
+over the data group alone, and BatchNorm over the world, where the bands
+partition the global batch's pixels. Gradient rule: a rank's parameter
+gradients are its band's share of its data shard's loss share's, so the
+gradient of the global loss is their sum over space and over data; DDP over
+the world averages W · share's gradients with W = dp · sp (`Mesh.world`), which
+gives that sum on every rank (the 1-D rule with sp = 1).
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 
 from yolo_dual_tpu_torch.data.loader import normalize_image
 from yolo_dual_tpu_torch.nn.common import BatchNorm2d
+from yolo_dual_tpu_torch.parallel import spatial
 from yolo_dual_tpu_torch.parallel.mesh import across, convert_sync_batchnorm, global_sum, mean_share
 from yolo_dual_tpu_torch.train.ema import ModelEMA
 from yolo_dual_tpu_torch.train.optim import SmartOptimizer
@@ -124,9 +139,15 @@ class Rematerialised(nn.Module):
         self.model = model
 
     def forward(self, x, **kw):
+        # the recompute runs in the backward, which may run outside the step's `spatial`
+        mesh = spatial.space_mesh()
+
+        @contextlib.contextmanager
+        def recompute():
+            with frozen_batch_stats(self.model), spatial.spatial(mesh):
+                yield
         return checkpoint(lambda t: self.model(t, **kw), x, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(),
-                                              frozen_batch_stats(self.model)))
+                          context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
 @dataclasses.dataclass
@@ -143,7 +164,7 @@ class Trainer:
     amp_dtype: Optional[torch.dtype] = None  # torch.bfloat16: forward and loss under autocast
     remat: bool = False              # recompute the forward in the backward; read at construction
     dropout: bool = False            # a seeded generator a micro-step for the heads' dropout
-    mesh: Any = None                 # parallel/mesh.py:Mesh: data-parallel over its ranks
+    mesh: Any = None                 # parallel/mesh.py:Mesh: data (x space) parallel over its ranks
 
     def __post_init__(self):
         if self.task not in ("detect", "segment", "semantic", "classify"):
@@ -153,7 +174,7 @@ class Trainer:
         # under DDP with a mesh
         self.net = Rematerialised(self.model) if self.remat else self.model
         self.ddp = None
-        if self.mesh is not None and self.mesh.size > 1:
+        if self.mesh is not None and self.mesh.world > 1:
             from torch.nn.parallel import DistributedDataParallel
             convert_sync_batchnorm(self.model, self.mesh)
             dev = next(self.model.parameters()).device
@@ -222,8 +243,8 @@ class Trainer:
         state.model.zero_grad(set_to_none=True)
         # this rank's share of the global loss; DDP averages W · share's gradients
         # (without a mesh: the loss itself, W = 1, and the sums are the values)
-        model, w = (self.net, 1) if self.ddp is None else (self.ddp, self.mesh.size)
-        with self.dropout_rng(state), across(self.mesh):
+        model, w = (self.net, 1) if self.ddp is None else (self.ddp, self.mesh.world)
+        with self.dropout_rng(state), across(self.mesh), spatial.spatial(self.mesh):
             loss, items = self.forward_loss(model, batch)
             (loss * w).backward()
             loss, items = global_sum(loss.detach()), global_sum(items)
