@@ -222,6 +222,25 @@ which raises on failure:
    forward than twice the fused float32 forward is (TF32 off); the machine
    has no tensorflow, so the files' outputs are
    held by tests/test_torch_port_tf_export.py on the CPU;
+6n. reference checkpoints (`reference_checkpoints_path`, under
+   build/phase6n, right after 6l), each file written in a layout of the
+   reference by tests/reference_layout.py and read through JAX's torch
+   import rules (io/torch_import.py): (a) resnet50.json (nc 12, seeded,
+   BatchNorm calibrated at fill 128) as a pickled half-precision module of a
+   stand-in reference tree written under build/phase6n, with `backbone.` /
+   `head.` roots, `stem.0`, `layer.{k}` and the layers' second `downsample`,
+   read by `semantic.val` (device route, K1 at fill 128, bs 16) on REF_FRAMES
+   720x960 frames with the tree on sys.path, as PYTHONPATH puts it: its mIoU,
+   loss and per-class IoU, and its scores on one batch, within REF_TOL of
+   those of the source model with its weights rounded to half; (b) the
+   primed yolov5s-seg-dcnv3 as a reference `.pt` (`model.{i}` roots, the
+   repeats `model.{i}.{r}`, the Detect `anchors`) served by MultiBackend at
+   bs 8 (K2), within REF_TOL of the direct forward's largest magnitude; the
+   K1 and K2 counts set to 0 just before (a)'s val run and (b)'s serving and
+   read just after; (c) `python -m yolo_dual_tpu_torch.zoo_smoke --glob
+   'segment/*' --profile` on the card, run in this process by runpy as `-m`
+   runs it, exits 0 (6/6 configs); each file's load ms and the phase's
+   seconds;
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -358,10 +377,12 @@ import base64
 import concurrent.futures
 import contextlib
 import copy
+import io
 import json
 import logging
 import math
 import os
+import runpy
 import subprocess
 import sys
 import time
@@ -3788,6 +3809,144 @@ def weights_path(card: str) -> dict:
     return launches
 
 
+REF_FRAMES = 16  # 6n (a): semantic.val's frames, one bs-16 batch
+REF_TOL = 1e-5  # 6n: the same computation on the same card, one file against the other
+
+
+def reference_checkpoints_path(card: str) -> dict:
+    """Phase 6n, under build/phase6n: (a) resnet50.json as a pickled half
+    module of a stand-in reference tree through `semantic.val`, (b)
+    yolov5s-seg-dcnv3 as a reference `.pt` through MultiBackend at bs 8, (c)
+    `python -m yolo_dual_tpu_torch.zoo_smoke --glob 'segment/*' --profile`, run
+    in this process by runpy as `-m` runs it. The K1 and K2 counts
+    are set to 0 just before (a)'s val run and (b)'s serving and read just
+    after. Returns {kernel: launches}."""
+    import shutil
+    from reference_layout import (forget_reference_tree, reference_state_dict,
+                                  save_pickled_module, write_reference_tree)
+    from yolo_dual_tpu_torch.io.multibackend import MultiBackend
+    from yolo_dual_tpu_torch.io.torch_import import load_torch_checkpoint, translate_state_dict
+    from yolo_dual_tpu_torch.io.weights import resolve_state_dict
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling
+    from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dual_tpu_torch.models.model import SemanticSegModel
+    from yolo_dual_tpu_torch.nn.dcn import DCNv3
+    from yolo_dual_tpu_torch.semantic import val
+    t_phase = time.perf_counter()
+    tmp = Path(__file__).resolve().parent / "build" / "phase6n"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    failures, out = [], {"card": card}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # (a) the files: the source with its weights rounded to half in the port's
+        # layout, and the reference trainers' pickled half module
+        img_dir, json_dir = write_semantic_set(tmp / "camvid", REF_FRAMES, seed=31)
+        frames = [np.load(f) for f in sorted(img_dir.iterdir())]
+        src = SemanticSegModel("resnet50.json", device="cuda",
+                               generator=torch.Generator().manual_seed(5))
+        calibrate_bn(src, frames[:4], fill=128.0)
+        halved = {k: v.half().float() if v.is_floating_point() else v
+                  for k, v in src.state_dict().items()}
+        torch.save(halved, tmp / "source-halved.pt")
+        tree = write_reference_tree(tmp / "reference")
+        save_pickled_module(tmp / "resnet50-reference.pt",
+                            reference_state_dict({k: v.cpu() for k, v in halved.items()},
+                                                 src.spec), tree)
+        # (b) the reference layout of a YOLO checkpoint, as float tensors
+        dcn = primed_dcnv3(3)
+        torch.save({"epoch": 10, "model": reference_state_dict(
+            {k: v.cpu() for k, v in dcn.state_dict().items()}, dcn.spec, semantic_roots=False),
+            "optimizer": None}, tmp / "yolov5s-seg-dcnv3-reference.pt")
+        x = torch.cat([letterbox_normalize(torch.from_numpy(f)[None].cuda(), 640)
+                       for f in make_frames(WEIGHTS_BS, seed=71, sizes=((480, 640),))])
+        kw = dict(cfg="resnet50.json", img_dir=str(img_dir), json_dir=str(json_dir), imgsz=640,
+                  batch_size=SEM_BS, nc=SEM_NC, device="cuda", device_preprocess=True)
+
+        # the main path, counted: (a) semantic.val of the reference file, (b) its serving
+        sys.path.insert(0, str(tree))  # the reference tree on the path, as PYTHONPATH puts it
+        dcnv3_sampling.launches = letterbox_normalize.launches = 0
+        t0 = time.perf_counter()
+        (miou, vloss, *_), iou, _ = val.run(weights=str(tmp / "resnet50-reference.pt"), **kw)
+        out["semantic_val_s"] = time.perf_counter() - t0
+        mb = MultiBackend(tmp / "yolov5s-seg-dcnv3-reference.pt", cfg="yolov5s-seg-dcnv3.json",
+                          nc=80, imgsz=640, device="cuda")
+        pred, protos = mb(x)
+        torch.cuda.synchronize()
+        launches = {"letterbox_normalize": letterbox_normalize.launches,
+                    "dcnv3_sampling": dcnv3_sampling.launches}
+        forget_reference_tree(tree)
+        want_k2 = sum(isinstance(m, DCNv3) for m in mb.model.modules())
+        want_k1 = -(-REF_FRAMES // SEM_BS)
+        if launches != {"letterbox_normalize": want_k1, "dcnv3_sampling": want_k2}:
+            failures.append(f"launches {launches}, expected K1 {want_k1} and K2 {want_k2}")
+        out["launches"] = launches
+
+        # (a) against the source rounded to half: the metrics, then the scores of one batch
+        (w_miou, w_vloss, *_), w_iou, _ = val.run(weights=str(tmp / "source-halved.pt"), **kw)
+        gaps = {"miou": abs(miou - w_miou), "val_loss": abs(vloss - w_vloss),
+                "class_iou": float(np.nanmax(np.abs(np.asarray(iou) - np.asarray(w_iou))))}
+        models = []
+        for f, reference_root in (("resnet50-reference.pt", tree), ("source-halved.pt", None)):
+            m = SemanticSegModel("resnet50.json", device="cuda")
+            t0 = time.perf_counter()
+            sd = translate_state_dict(m, load_torch_checkpoint(tmp / f, reference_root))
+            out[f"load_ms {f}"] = (time.perf_counter() - t0) * 1e3
+            m.load_state_dict(sd, strict=True)
+            models.append(m.eval())
+        forget_reference_tree(tree)
+        xs = torch.cat([letterbox_normalize(torch.from_numpy(f)[None].cuda(), 640, fill=128.0)
+                        for f in frames[:SEM_BS]])
+        with torch.inference_mode():
+            scores = [m(xs) for m in models]
+        gaps["scores"] = max_rel_gap(scores[0], scores[1])
+        out["semantic"] = {"miou": float(miou), "val_loss": float(vloss), "gaps": gaps}
+        failures += [f"(a) {k}: {v} > {REF_TOL}" for k, v in gaps.items() if not v <= REF_TOL]
+        del models, scores, xs, src
+
+        # (b) against the direct forward of the source, folded as MultiBackend folds it
+        t0 = time.perf_counter()
+        resolve_state_dict(tmp / "yolov5s-seg-dcnv3-reference.pt", dcn)
+        out["load_ms yolov5s-seg-dcnv3-reference.pt"] = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            direct = dcn.fuse()(x)[:2]
+        gaps = {"pred": max_rel_gap(pred, direct[0]), "protos": max_rel_gap(protos, direct[1])}
+        out["multibackend_max_rel_gap_vs_direct"] = gaps
+        failures += [f"(b) {k}: {v} > {REF_TOL}" for k, v in gaps.items() if not v <= REF_TOL]
+        if pred.shape[0] != WEIGHTS_BS:
+            failures.append(f"(b) pred {list(pred.shape)}")
+        del mb, dcn, direct, pred, protos, x
+
+        out["a_b_s"] = time.perf_counter() - t_phase
+
+        # (c) `python -m yolo_dual_tpu_torch.zoo_smoke` in this process (runpy runs the module
+        # as -m does), on the card context (a) and (b) started
+        argv, sys.argv = sys.argv, ["zoo_smoke", "--glob", "segment/*", "--profile"]
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                runpy.run_module("yolo_dual_tpu_torch.zoo_smoke", run_name="__main__")
+            rc = None
+        except SystemExit as e:
+            rc = e.code
+        finally:
+            sys.argv = argv
+        out["zoo_smoke"] = {"exit": rc, "s": time.perf_counter() - t0,
+                            "lines": [ln for ln in log.getvalue().splitlines() if ln.strip()]}
+        if rc != 0 or "6/6 configs OK" not in log.getvalue():
+            failures.append(f"(c) zoo_smoke exited {rc}:\n{log.getvalue()[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_6n_s"] = time.perf_counter() - t_phase
+    print("reference checkpoints (6n) " + json.dumps(out), flush=True)
+    print(f"phase 6n s {out['phase_6n_s']:.2f}", flush=True)
+    if failures:
+        raise AssertionError("reference checkpoints (6n): " + "; ".join(failures))
+    return launches
+
+
 def dir_mb(path: Path) -> float:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file()) / 2 ** 20
 
@@ -5592,6 +5751,10 @@ def main(argv=None) -> int:
     # --update (K1, K2); yolov5s-seg to SavedModel, TFLite and int8 TFLite (no kernel)
     by_path["weights out"] = weights_out_path(card)
     elapsed("6l")
+    # 6n. reference checkpoints: a pickled half resnet50 through semantic.val (K1), a reference
+    # yolov5s-seg-dcnv3 file served by MultiBackend (K2), the zoo smoke CLI on the card
+    by_path["reference checkpoints"] = reference_checkpoints_path(card)
+    elapsed("6n")
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     elapsed("7")
     train_card_vs_cpu()
@@ -5653,6 +5816,7 @@ def main(argv=None) -> int:
     lcalls["480p"] += tta_k1["predict"] + serve_k1["predict"]
     lcalls["semantic_720x960_bs16_fill128"] = \
         by_path["eval semantic resnet50"]["letterbox_normalize"] \
+        + by_path["reference checkpoints"]["letterbox_normalize"] \
         + semantic_train_k1["semantic_720x960_bs16_fill128"] \
         + yolo_k1["semantic_720x960_bs16_fill128"]
     lcalls["semantic_train_96_bs4_fill128"] = semantic_train_k1["semantic_train_96_bs4_fill128"] \
@@ -5660,8 +5824,8 @@ def main(argv=None) -> int:
     # K2: 16 frames at batch 1 (prediction) and the server's requests and warm-up (6i),
     # 8 micro-steps at bs 16 (training), and the CLIs' forwards at bs 16 (their micro-steps
     # and val batches, both routes) and 10b's remat micro-steps (two forwards each); K3: the
-    # micro-steps. 6j's and 6l's launches (bs-8 forwards and the 64-px fixture), 6k's (the ranks'
-    # bs-8 forwards and micro-steps, the utilities') and 6m's (the bands' and the references')
+    # micro-steps. 6j's, 6l's and 6n's launches (bs-8 forwards and the 64-px fixture), 6k's (the
+    # ranks' bs-8 forwards and micro-steps, the utilities') and 6m's (the bands' and the references')
     # count in `launches`; the means weight the shapes phase 3 times
     n_dcn = sum(DCN_PATH_SHAPES.values())
     serve_fwd = by_path["serve yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn

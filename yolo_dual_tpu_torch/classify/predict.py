@@ -68,7 +68,7 @@ def run(weights="", model="yolov5n.yaml", source="", imgsz=224, cutoff=10, topk=
         nc = len(classes) if classes else nc
     m = build_classifier(model, nc, cutoff=cutoff, device=dev)
     if weights:
-        m.load_state_dict(resolve_state_dict(weights), strict=True)
+        m.load_state_dict(resolve_state_dict(weights, m), strict=True)
     else:
         flax_init_(m)
     m.eval()

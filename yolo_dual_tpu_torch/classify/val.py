@@ -44,7 +44,7 @@ def run(weights="", model="yolov5n.yaml", data_dir="", imgsz=224, batch_size=64,
     nc = len(ds.classes)
     m = build_classifier(model, nc, cutoff=cutoff, device=dev)
     if weights:
-        m.load_state_dict(resolve_state_dict(weights), strict=True)
+        m.load_state_dict(resolve_state_dict(weights, m), strict=True)
     else:
         flax_init_(m)
     m.eval()

@@ -6,8 +6,10 @@ An ImageFolder layout (root/<class>/<image>), with RAM and disk caches and
 the native train pipeline (RandomResizedCrop, flips, ColorJitter, ImageNet
 normalisation) in numpy: the resizes are `data/augment.py:resize_linear_u8`,
 exact against cv2's INTER_LINEAR, so no transform needs cv2. The JAX package
-uses albumentations where it is installed; it is not, and JAX then runs
-these same native transforms, which are all the port has.
+uses albumentations where it is installed; it is not, on either machine, and
+JAX then runs these same native transforms. The port's dataset runs only
+these; `classify_albumentations` builds JAX's pipeline for a caller who has
+the package.
 
 Image files (IMG_EXTS) are read with cv2 where it imports. A `.npy` file under
 a class folder is an RGB uint8 HWC frame, unless an image file shares its
@@ -25,6 +27,7 @@ from typing import Optional
 import numpy as np
 
 from yolo_dual_tpu_torch.data.augment import resize_linear_u8
+from yolo_dual_tpu_torch.utils.general import LOGGER
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -91,6 +94,31 @@ def classify_transforms(im: np.ndarray, size: int = 224) -> np.ndarray:
     """Eval transform (reference classify_transforms, augmentations.py:348):
     CenterCrop(size) + /255 + ImageNet normalize. RGB HWC in/out."""
     return normalize_imagenet(center_crop_resize(im, size))
+
+
+def classify_albumentations(augment: bool = True, size: int = 224, scale=(0.08, 1.0),
+                            ratio=(0.75, 4 / 3), hflip: float = 0.5, vflip: float = 0.0,
+                            jitter: float = 0.4):
+    """An albumentations pipeline where the package is installed (reference
+    utils/augmentations.py:305-345; JAX data/classify.py:93), else None: the
+    dataset then runs its native transforms, as JAX's does."""
+    try:
+        import albumentations as A
+    except ImportError:
+        return None
+    if augment:
+        T = [A.RandomResizedCrop(height=size, width=size, scale=scale, ratio=ratio)]
+        if hflip > 0:
+            T += [A.HorizontalFlip(p=hflip)]
+        if vflip > 0:
+            T += [A.VerticalFlip(p=vflip)]
+        if jitter > 0:
+            T += [A.ColorJitter(jitter, jitter, jitter, 0)]
+    else:
+        T = [A.SmallestMaxSize(max_size=size), A.CenterCrop(height=size, width=size)]
+    T += [A.Normalize(mean=list(IMAGENET_MEAN), std=list(IMAGENET_STD))]
+    LOGGER.info("albumentations: " + ", ".join(type(t).__name__ for t in T))
+    return A.Compose(T)
 
 
 def _imread(f) -> np.ndarray:

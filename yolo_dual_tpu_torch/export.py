@@ -63,7 +63,7 @@ def load_model(weights, cfg, nc=None):
     count, with `weights` loaded strictly where given."""
     model = build_model(find_cfg(cfg), nc=nc, device="cpu")
     if weights:
-        model.load_state_dict(resolve_state_dict(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights, model), strict=True)
     return model.eval()
 
 

@@ -73,7 +73,7 @@ def attempt_load(weights, cfg, nc: int = 80, mode: str = "cat", device="cuda"):
     models, sds = [], []
     for w in ws:
         model = SegmentationModel(cfg, nc=nc, device=dev)
-        sd = resolve_state_dict(w)
+        sd = resolve_state_dict(w, model)
         model.load_state_dict(sd, strict=True)
         models.append(model.eval())
         sds.append(sd)

@@ -83,7 +83,7 @@ class MultiBackend:
                 raise ValueError("cfg is required for orbax and .pt weights")
             self.device = select_device(device)
             self.model = build_model(cfg, nc=nc, device=self.device)
-            self.model.load_state_dict(resolve_state_dict(w), strict=True)
+            self.model.load_state_dict(resolve_state_dict(w, self.model), strict=True)
             self.model.eval()
             if fuse:
                 self.model.fuse()

@@ -1,9 +1,10 @@
 """Carry weights into the port's modules.
 
 `resolve_state_dict` is the one rule every loader follows (JAX
-io/weights.py:12 resolve_variables): a `.pt` file is a torch state_dict, and
-anything else is an orbax checkpoint directory that the JAX package wrote,
-read by `io/ocdbt.py` without JAX. `state_dict_from_flax` maps the JAX
+io/weights.py:12 resolve_variables): a `.pt` file is a torch checkpoint,
+read and translated by `io/torch_import.py` as JAX's torch import reads it,
+and anything else is an orbax checkpoint directory that the JAX package
+wrote, read by `io/ocdbt.py` without JAX. `state_dict_from_flax` maps the JAX
 package's variables to the port's state_dict; it is this package's own copy
 of the mapping in yolo_dual_tpu/train/checkpoint.py:92-143
 (export_torch_state_dict).
@@ -12,12 +13,13 @@ of the mapping in yolo_dual_tpu/train/checkpoint.py:92-143
 from __future__ import annotations
 
 import re
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from yolo_dual_tpu_torch.io.ocdbt import OrbaxCheckpoint
+from yolo_dual_tpu_torch.io.torch_import import (load_torch_checkpoint, port_state_dict,
+                                                 translate_state_dict)
 
 
 def _flatten(tree, path=()):
@@ -85,48 +87,16 @@ def state_dict_from_flax(variables) -> dict:
     return out
 
 
-# Buffers of the reference torch Detect that the port derives from the config.
-_DERIVED = ("anchors", "anchor_grid")
-
-
-def _port_names(sd: dict) -> dict:
-    """A reference-style or JAX-exported state_dict under the port's names.
-    The reference's TransformerLayer keeps its attention in an
-    nn.MultiheadAttention `ma`, whose joint `in_proj_weight` / `in_proj_bias`
-    (q, k, v stacked on the output axis) become the Linears `in_q`, `in_k`,
-    `in_v`, and whose `ma.out_proj` becomes `out_proj`, as JAX's torch import
-    splits them (io/torch_import.py:160-210); JAX's export names C3TR's block
-    `m_tr` and C3SPP's `m_spp`, the port and the reference `m`."""
-    out = {}
-    for k, v in sd.items():
-        for inner in _FLAX_INNER:
-            k = k.replace(f".{inner}.", ".m.")
-        head, sep, leaf = k.rpartition(".ma.")
-        if not sep:
-            out[k] = v
-        elif leaf in ("in_proj_weight", "in_proj_bias"):
-            for name, part in zip(("in_q", "in_k", "in_v"), v.chunk(3, 0)):
-                out[f"{head}.{name}.{leaf.removeprefix('in_proj_')}"] = part.clone()
-        else:
-            out[f"{head}.{leaf}"] = v
-    return out
-
-
 def load_state_dict_file(path) -> dict:
-    """Read a reference-style torch state_dict file (a plain dict of tensors, or one
-    under an "ema", "model", "model_state_dict" or "state_dict" key, in that
-    order, as JAX's io/torch_import.py:load_torch_checkpoint unwraps them)
-    with `torch.load(weights_only=True)`, under the port's names
-    (`_port_names`)."""
-    path = Path(path)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("ema", "model", "model_state_dict", "state_dict"):
-        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
-            sd = sd[key]
-            break
-    if not isinstance(sd, dict):
-        raise ValueError(f"{path} does not hold a state_dict")
-    return _port_names({k: v for k, v in sd.items() if k.rsplit(".", 1)[-1] not in _DERIVED})
+    """A `.pt` checkpoint of the port's layout or a YOLO one of the
+    reference under the port's names: the weights that
+    `io/torch_import.py:load_torch_checkpoint` unwraps (a state_dict, or one
+    under "ema", "model", "model_state_dict" or "state_dict", in JAX's order),
+    each key translated by JAX's rules (`port_state_dict`). Keys JAX skips are
+    left out; nothing is checked against a model. The `backbone.` / `head.`
+    roots of the reference semantic trainers need the model's rows and raise
+    here: read such a file with `resolve_state_dict(path, model)`."""
+    return {name: v for _, name, v in port_state_dict(load_torch_checkpoint(path))}
 
 
 def orbax_variables(path, prefer_ema: bool = True):
@@ -145,15 +115,22 @@ def orbax_variables(path, prefer_ema: bool = True):
 def state_dict_from_orbax(path, prefer_ema: bool = True) -> dict:
     """`orbax_variables(path, prefer_ema)` as a state_dict under the port's
     names."""
-    return _port_names(state_dict_from_flax(orbax_variables(path, prefer_ema)))
+    return state_dict_from_flax(orbax_variables(path, prefer_ema))
 
 
-def resolve_state_dict(weights) -> dict:
+def resolve_state_dict(weights, model=None) -> dict:
     """The state_dict of a weights path under the port's names (JAX
-    io/weights.py:12 resolve_variables): a `.pt` file through
-    `load_state_dict_file`, anything else as an orbax checkpoint directory
-    (`state_dict_from_orbax`, the EMA first). Load it with
-    `model.load_state_dict(..., strict=True)`."""
+    io/weights.py:12 resolve_variables). A `.pt` file goes through JAX's
+    torch import rules: given the `model` it is for, the model's whole
+    state_dict filled from the file (`io/torch_import.py:translate_state_dict`,
+    strict: a key of the file or an entry of the model left over raises
+    ValueError), else the file's entries under the port's names
+    (`load_state_dict_file`). A file that pickles the reference's modules
+    needs the reference tree on sys.path, as JAX's CLIs do. Anything else is
+    an orbax checkpoint directory (`state_dict_from_orbax`, the EMA first).
+    Load it with `model.load_state_dict(..., strict=True)`."""
     if str(weights).endswith(".pt"):
-        return load_state_dict_file(weights)
+        if model is None:
+            return load_state_dict_file(weights)
+        return translate_state_dict(model, load_torch_checkpoint(weights))
     return state_dict_from_orbax(weights)

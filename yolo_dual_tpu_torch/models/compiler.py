@@ -65,6 +65,8 @@ class ModelSpec:
     strides: Tuple[int, ...] = ()
     default_act: Optional[str] = None
     style: str = "detect"
+    n_backbone: int = 0  # rows of the config's `backbone:` section: a reference semantic
+    # checkpoint's `head.{j}` is row n_backbone + j (io/torch_import.py)
 
     @property
     def bn_profile(self) -> Tuple[float, float]:
@@ -82,11 +84,21 @@ class ModelSpec:
 # ---------------------------------------------------------------------------
 
 REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
+_POPULATED = False
+
+
+def register_module(name: str, builder: Callable[..., nn.Module]):
+    """Register a config row name (JAX models/compiler.py:78): `builder(c1,
+    kwargs)` returns the module of a row with input channels `c1`. A name
+    registered before the first build keeps the built-in names beside it."""
+    REGISTRY[name] = builder
 
 
 def _populate_registry():
-    if REGISTRY:
+    global _POPULATED
+    if _POPULATED:
         return
+    _POPULATED = True
     from yolo_dual_tpu_torch.models import heads as H
     from yolo_dual_tpu_torch.nn import attention as A
     from yolo_dual_tpu_torch.nn import backbones as B
@@ -270,6 +282,8 @@ def _adapt_args(name: str, args: list, n: int, act) -> Tuple[dict, int]:
             kw["act"] = act
         return kw, n
     _populate_registry()
+    if name in REGISTRY:  # a name of register_module: its args pass through c2-first, as in JAX
+        return dict(zip(["c2"], a)), n
     raise KeyError(f"Module {name!r} is not ported. Known: "
                    f"{sorted(set(REGISTRY) | set(_RESNET_LAYERS))}")
 
@@ -389,7 +403,7 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
     anchors_t = _freeze(anchors) if isinstance(anchors, list) else ()
     return ModelSpec(layers=tuple(layers), nc=model_nc, ch_in=ch, save=tuple(sorted(save)),
                      out_ch=tuple(chs), anchors=anchors_t, strides=(), default_act=default_act,
-                     style=style)
+                     style=style, n_backbone=len(d["backbone"]))
 
 
 def with_strides(spec: ModelSpec, strides: Sequence[int]) -> ModelSpec:

@@ -1,0 +1,10 @@
+"""The module zoo (JAX yolo_dual_tpu/nn).
+
+The names load lazily (`_lazy.py`): importing the package imports none of
+its modules."""
+
+from yolo_dual_tpu_torch._lazy import lazy_exports
+
+__getattr__, __all__ = lazy_exports(__name__, {
+    "common": "common",
+})

@@ -55,7 +55,7 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
         names = d.get("names")
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(resolve_state_dict(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights, model), strict=True)
     return predict_images(
         model, source, imgsz=imgsz, conf_thres=conf_thres, iou_thres=iou_thres,
         max_det=max_det, nm=model.model[-1].nm, classes=classes, agnostic_nms=agnostic_nms,

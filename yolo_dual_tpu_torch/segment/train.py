@@ -60,14 +60,15 @@ import torch
 from yolo_dual_tpu_torch.data.dataset import create_dataloader
 from yolo_dual_tpu_torch.data.loader import to_device
 from yolo_dual_tpu_torch.engine.validator import evaluate_segment
-from yolo_dual_tpu_torch.io.weights import load_state_dict_file, state_dict_from_orbax
+from yolo_dual_tpu_torch.io.torch_import import import_torch_state_dict, load_torch_checkpoint
+from yolo_dual_tpu_torch.io.weights import state_dict_from_orbax
 from yolo_dual_tpu_torch.kernels.augment import mosaic_warp_hsv
 from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
 from yolo_dual_tpu_torch.metrics.seg import fitness_seg
 from yolo_dual_tpu_torch.models.model import SegmentationModel
 from yolo_dual_tpu_torch.parallel.mesh import (data_parallel, from_rank0, gather_batches, is_main,
                                                rank0_first, shard_loader, sync_hosts)
-from yolo_dual_tpu_torch.train.checkpoint import (load_checkpoint, load_weights, resume_run,
+from yolo_dual_tpu_torch.train.checkpoint import (load_checkpoint, resume_run,
                                                   save_checkpoint, strip_optimizer)
 from yolo_dual_tpu_torch.train.ema import ModelEMA
 from yolo_dual_tpu_torch.train.optim import freeze_layers, smart_optimizer
@@ -117,7 +118,7 @@ def train(opt):
                               generator=torch.Generator().manual_seed(0))
     nc = model.nc
     if opt.weights and str(opt.weights).endswith(".pt"):
-        load_weights(model, load_state_dict_file(opt.weights))
+        import_torch_state_dict(model, load_torch_checkpoint(opt.weights), strict=False)
     elif opt.weights:  # an orbax checkpoint: its trained variables, not its EMA (as JAX)
         model.load_state_dict(state_dict_from_orbax(opt.weights, prefer_ema=False), strict=True)
     names = data.get("names") or {i: str(i) for i in range(nc)}

@@ -74,7 +74,7 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
     nc = 1 if single_cls else d["nc"]
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(resolve_state_dict(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights, model), strict=True)
     save_dir = from_rank0(lambda: str(increment_path(Path(project) / name, exist_ok=exist_ok,
                                                      mkdir=True)), mesh) \
         if save_txt or save_json or plots else "."

@@ -47,7 +47,7 @@ def run(weights="", cfg="resnet50.json", source="", imgsz=640, nc=12, gt_json_di
     names = list(names) if names else CLASS_NAMES[:nc]
     model = SemanticSegModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(resolve_state_dict(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights, model), strict=True)
     model.eval().fuse()
     src = Path(source)
     files = sorted(p for p in (src.iterdir() if src.is_dir() else [src])

@@ -66,7 +66,7 @@ def run(weights="", cfg="resnet50.json", img_dir="", json_dir="", imgsz=640, bat
     dev = select_device(device)
     model = SemanticSegModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
-        model.load_state_dict(resolve_state_dict(weights), strict=True)
+        model.load_state_dict(resolve_state_dict(weights, model), strict=True)
     with rank0_first(mesh):  # the parsed masks are cached once
         loader, _ = create_json_segment_dataloader(img_dir, json_dir, imgsz, batch_size,
                                                    augment=False, num_classes=nc,

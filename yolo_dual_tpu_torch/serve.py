@@ -101,7 +101,7 @@ def build_server(opt) -> HTTPServer:
                                   device=dev, generator=gen)
         head = model.model[-1]
     if opt.weights:
-        model.load_state_dict(resolve_state_dict(opt.weights), strict=True)
+        model.load_state_dict(resolve_state_dict(opt.weights, model), strict=True)
     model.eval().fuse()
 
     @torch.inference_mode()

@@ -1,10 +1,13 @@
 """General utilities: logging, config and dataset loading, seeding, device
 selection, timers.
 
-Port of the parts of yolo_dual_tpu/utils/general.py that the port uses
-(make_divisible, check_img_size, LOGGER, Profile, increment_path, init_seeds,
-check_dataset, labels_to_class_weights, labels_to_image_weights), plus a config loader that reads the package's JSON config
-copies without PyYAML; run settings are saved as JSON for the same reason.
+Port of yolo_dual_tpu/utils/general.py (make_divisible, check_img_size,
+LOGGER, colorstr, Profile, increment_path, init_seeds, yaml_load, yaml_save,
+check_dataset, labels_to_class_weights, labels_to_image_weights,
+platform_info, clean_str), plus a config loader that reads the package's
+JSON config copies without PyYAML; run settings are saved as JSON for the
+same reason, and PyYAML is imported only where a YAML file is read or
+written.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import json
 import logging
 import math
 import os
+import platform
 import random
+import re
 import time
 from pathlib import Path
 
@@ -41,6 +46,21 @@ def set_logging(name: str = FRAMEWORK_NAME, verbose: bool = True):
 LOGGER = set_logging()
 
 
+def colorstr(*input):
+    """colorstr('blue', 'hello world') -> an ANSI-coloured string (reference
+    utils/general.py:148); one argument is coloured blue and bold."""
+    *args, string = input if len(input) > 1 else ("blue", "bold", input[0])
+    colors = {
+        "black": "\033[30m", "red": "\033[31m", "green": "\033[32m", "yellow": "\033[33m",
+        "blue": "\033[34m", "magenta": "\033[35m", "cyan": "\033[36m", "white": "\033[37m",
+        "bright_black": "\033[90m", "bright_red": "\033[91m", "bright_green": "\033[92m",
+        "bright_yellow": "\033[93m", "bright_blue": "\033[94m", "bright_magenta": "\033[95m",
+        "bright_cyan": "\033[96m", "bright_white": "\033[97m",
+        "end": "\033[0m", "bold": "\033[1m", "underline": "\033[4m",
+    }
+    return "".join(colors[x] for x in args) + f"{string}" + colors["end"]
+
+
 def make_divisible(x, divisor: int = 8) -> int:
     """Round channel count up to the nearest multiple of `divisor`."""
     return math.ceil(x / divisor) * divisor
@@ -65,12 +85,10 @@ def load_config(path) -> dict:
         return json.loads(path.read_text())
     if path.suffix in (".yaml", ".yml"):
         try:
-            import yaml
+            return yaml_load(path)
         except ImportError as e:
             raise ImportError(f"{path} is YAML but PyYAML is not installed; use the JSON "
                               f"copies under {CONFIGS}") from e
-        with open(path, errors="ignore") as f:
-            return yaml.safe_load(f)
     raise ValueError(f"unsupported config type {path.suffix!r} ({path}); expected .json or .yaml")
 
 
@@ -101,6 +119,22 @@ def find_cfg(name) -> Path:
         if c.exists():
             return c
     raise FileNotFoundError(f"config {name} not found (nor {' nor '.join(map(str, cands))})")
+
+
+def yaml_load(file) -> dict:
+    """A YAML file's contents (PyYAML's safe_load; imported here, since the
+    package runs without it)."""
+    import yaml
+    with open(file, errors="ignore") as f:
+        return yaml.safe_load(f)
+
+
+def yaml_save(file, data: dict):
+    """Write a flat dict as YAML in its own key order; paths become strings."""
+    import yaml
+    with open(file, "w") as f:
+        yaml.safe_dump({k: (str(v) if isinstance(v, Path) else v) for k, v in data.items()}, f,
+                       sort_keys=False)
 
 
 def json_save(file, data: dict):
@@ -190,6 +224,17 @@ def select_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; expected 'cuda' or 'cpu'")
     return dev
+
+
+def platform_info() -> str:
+    """One line naming the Python, torch and CUDA versions and the visible cards."""
+    return (f"python {platform.python_version()} torch {torch.__version__} cuda "
+            f"{torch.version.cuda} devices {torch.cuda.device_count()}")
+
+
+def clean_str(s: str) -> str:
+    """`s` with the characters the reference replaces in file names made `_`."""
+    return re.sub(pattern="[|@#!¡·$€%&()=?¿^*;:,¨´><+]", repl="_", string=s)
 
 
 def increment_path(path, exist_ok: bool = False, sep: str = "", mkdir: bool = False) -> Path:
