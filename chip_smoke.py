@@ -241,6 +241,26 @@ which raises on failure:
    'segment/*' --profile` on the card, run in this process by runpy as `-m`
    runs it, exits 0 (6/6 configs); each file's load ms and the phase's
    seconds;
+6o. data configs (`data_configs_path`, right after 6n), with build/phase6o as
+   the working directory, holding 16 seeded 480x640 `.npy` frames under
+   datasets/coco128-seg/{images,labels}/train2017, the layout the shipped
+   coco128-seg.json names, labelled (4-vertex polygons) with the own boxes
+   of a primed yolov5s-seg as in 6b; each CLI runs in this process by runpy
+   as `-m` runs it: (a) `segment.val` with no --data (coco128-seg.yaml,
+   found in configs/data/), that model's weights, bs 16,
+   --device-preprocess: 1 K1 launch, box and mask mAP50 above 0.05, the
+   config's 80 names;
+   (b) a data file whose val set is missing and whose `download: bash -c`
+   hook copies (a)'s set into place: with --no-download segment.val raises
+   FileNotFoundError and runs no hook, without it the hook runs and the
+   metrics equal (a)'s exactly (1 K1 launch); (c) `segment.predict --data
+   coco128-seg.yaml` on 4 of the frames: 1 K1 launch a frame, the config's
+   names; (d) `segment.train --data coco128-seg.yaml --cfg
+   yolov5s-seg-dcnv3.json --epochs 1 --batch-size 16` at 640 px: 6 K2 and 6
+   K3 launches for its micro-step and 6 K2 for its val pass, results.csv
+   finite; the counts set to 0 just before each CLI and read just after; no
+   module of jax, flax or the JAX package loaded; the phase's seconds and
+   launches;
 7. training (slice 3): yolov5s-seg-dcnv3 as in 4 but unfused, SGD with
    hyp.scratch-low, bs 16, 640 px, accumulate 4, EMA, takes 8 micro-steps of
    seeded synthetic batches (uint8 images, 1-8 boxes an image, 160-px
@@ -3947,6 +3967,173 @@ def reference_checkpoints_path(card: str) -> dict:
     return launches
 
 
+# Phase 6o: the segment CLIs started by a data config's name, in a working directory that holds
+# only datasets/coco128-seg (the layout the shipped coco128-seg.json names)
+DATA_CFG_FRAMES = 16  # 480x640, one bs-16 batch
+DATA_CFG_PREDICT_FRAMES = 4
+
+
+class CallProbe:
+    """Wraps `module.name` so that a CLI run by runpy, which imports the name
+    when it starts, calls the wrapper: the last call's keywords and result."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.kwargs = self.result = None
+        probe = self
+
+        def call(*args, **kwargs):
+            probe.kwargs = kwargs
+            probe.result = probe.fn(*args, **kwargs)
+            return probe.result
+        setattr(module, name, call)
+
+    def close(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def run_cli(module: str, argv):
+    """`python -m module *argv` in this process, as -m runs it (runpy)."""
+    saved, sys.argv = sys.argv, [module, *argv]
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=False)
+    finally:
+        sys.argv = saved
+
+
+def data_configs_path(card: str) -> dict:
+    """Phase 6o, in build/phase6o as the working directory, which holds
+    DATA_CFG_FRAMES seeded 480x640 frames under
+    datasets/coco128-seg/{images,labels}/train2017, labelled (4-vertex
+    polygons) with the own boxes of a primed yolov5s-seg (phase 6b's rule),
+    whose weights the val runs load: (a) `python -m
+    yolo_dual_tpu_torch.segment.val` with no --data (coco128-seg.yaml, found
+    in configs/data/), bs 16, --device-preprocess, box and mask mAP50 above
+    0.05; (b) a data
+    file whose val set is missing and whose `download: bash -c ...` hook
+    copies (a)'s set into place: refused with --no-download
+    (FileNotFoundError), run without it, equal to (a)'s metrics; (c)
+    `segment.predict --data coco128-seg.yaml` on DATA_CFG_PREDICT_FRAMES
+    frames, its class names the config's; (d) `segment.train --data
+    coco128-seg.yaml --cfg yolov5s-seg-dcnv3.json --epochs 1 --batch-size 16`
+    at 640 px. Each CLI runs in this process (runpy), with the kernels'
+    counts set to 0 just before and read just after. Returns {kernel:
+    launches}."""
+    import shutil
+    from yolo_dual_tpu_torch.engine import predictor, validator
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "phase6o"
+    shutil.rmtree(work, ignore_errors=True)
+    here = Path.cwd()
+    failures, out = [], {"card": card}
+    names = {int(k): v for k, v in json.loads(
+        (Path(__file__).resolve().parent / "yolo_dual_tpu_torch" / "configs" / "data" /
+         "coco128-seg.json").read_text())["names"].items()}
+    n_dcn = sum(DCN_PATH_SHAPES.values())
+    probes = []
+    try:
+        ds = work / "datasets" / "coco128-seg"
+        frames = make_frames(DATA_CFG_FRAMES, seed=60, sizes=((480, 640),))
+        model = SegmentationModel("yolov5s-seg.json", device="cuda",
+                                  generator=torch.Generator().manual_seed(6))
+        prime_for_eval(calibrate_bn(model, frames[:3]))
+        labelled = write_val_set(work / "labelled", model, frames)
+        torch.save(model.state_dict(), work / "primed.pt")
+        del model
+        for sub in ("images", "labels"):
+            (ds / sub).mkdir(parents=True)
+            (labelled / sub).rename(ds / sub / "train2017")
+        (work / "frames").mkdir()
+        for f in sorted((ds / "images" / "train2017").iterdir())[:DATA_CFG_PREDICT_FRAMES]:
+            shutil.copy(f, work / "frames" / f.name)
+        (work / "hook.json").write_text(json.dumps({
+            "path": "datasets/copy", "train": "images/train2017", "val": "images/train2017",
+            "names": names, "download": 'bash -c "cp -r datasets/coco128-seg datasets/copy"'}))
+        os.chdir(work)
+        probes = [CallProbe(validator, "evaluate_segment"), CallProbe(predictor, "predict_images")]
+        val_args = ["--cfg", "yolov5s-seg.json", "--weights", "primed.pt", "--batch-size", "16",
+                    "--device-preprocess"]
+        runs = {}
+        # (a) segment.val with no --data
+        t0 = time.perf_counter()
+        _, runs["a"] = cli_launches(lambda: run_cli("yolo_dual_tpu_torch.segment.val", val_args))
+        out["a_s"] = time.perf_counter() - t0
+        a_mean, a_maps, _ = probes[0].result
+        out["a_metrics"] = [float(v) for v in a_mean]
+        if probes[0].kwargs.get("names") != names or not np.isfinite(a_mean).all() \
+                or not (a_mean[2] > 0.05 and a_mean[6] > 0.05):
+            failures.append(f"(a) names {str(probes[0].kwargs.get('names'))[:80]}, metrics "
+                            f"{out['a_metrics']}")
+        # (b) the download hook: refused with --no-download, then run
+        probes[0].result = None
+        try:
+            run_cli("yolo_dual_tpu_torch.segment.val", val_args + ["--data", "hook.json",
+                                                                   "--no-download"])
+            failures.append("(b) --no-download did not raise")
+        except FileNotFoundError as e:
+            out["b_refused"] = str(e)[:200]
+        if probes[0].result is not None or (work / "datasets" / "copy").exists():
+            failures.append("(b) --no-download evaluated or ran the hook")
+        t0 = time.perf_counter()
+        _, runs["b"] = cli_launches(lambda: run_cli("yolo_dual_tpu_torch.segment.val",
+                                                    val_args + ["--data", "hook.json"]))
+        out["b_s"] = time.perf_counter() - t0
+        b_mean, b_maps, _ = probes[0].result
+        if not (np.array_equal(np.asarray(b_mean), np.asarray(a_mean))
+                and np.array_equal(np.asarray(b_maps), np.asarray(a_maps))):
+            failures.append(f"(b) metrics {list(map(float, b_mean))} != (a)'s {out['a_metrics']}")
+        # (c) segment.predict --data coco128-seg.yaml
+        t0 = time.perf_counter()
+        _, runs["c"] = cli_launches(lambda: run_cli("yolo_dual_tpu_torch.segment.predict", [
+            "--data", "coco128-seg.yaml", "--source", "frames", "--conf-thres", str(CONF_LOW),
+            "--max-det", "30"]))
+        out["c_s"] = time.perf_counter() - t0
+        dets = probes[1].result
+        out["c_detections"] = [len(d) for d in dets]
+        if probes[1].kwargs.get("names") != names or len(dets) != DATA_CFG_PREDICT_FRAMES \
+                or not all(np.isfinite(d).all() for d in dets):
+            failures.append(f"(c) {len(dets)} frames, names "
+                            f"{str(probes[1].kwargs.get('names'))[:80]}")
+        # (d) segment.train --data coco128-seg.yaml, one epoch
+        t0 = time.perf_counter()
+        _, runs["d"] = cli_launches(lambda: run_cli("yolo_dual_tpu_torch.segment.train", [
+            "--data", "coco128-seg.yaml", "--cfg", "yolov5s-seg-dcnv3.json", "--epochs", "1",
+            "--batch-size", str(TRAIN_BS), "--imgsz", str(TRAIN_IMGSZ), "--project", "runs",
+            "--name", "train", "--noplots", "--device", "cuda"]))
+        out["d_s"] = time.perf_counter() - t0
+        res = cli_results(work / "runs" / "train")
+        out["d_results"] = res.tolist()
+        if res.shape[0] != 1 or not np.isfinite(res).all():
+            failures.append(f"(d) results.csv {res.tolist()}")
+        want = {"a": (1, 0, 0), "b": (1, 0, 0), "c": (DATA_CFG_PREDICT_FRAMES, 0, 0),
+                "d": (0, 2 * n_dcn, n_dcn)}
+        for k, (k1, k2, k3) in want.items():
+            w = {"letterbox_normalize": k1, "dcnv3_sampling": k2, "dcnv3_sampling_backward": k3}
+            if runs[k] != w:
+                failures.append(f"({k}) launches {runs[k]}, expected {w}")
+        out["launches"] = runs
+        foreign = sorted({m.split(".")[0] for m in sys.modules}
+                         & {"jax", "jaxlib", "flax", "orbax", "tensorstore", "yolo_dual_tpu"})
+        if foreign:
+            failures.append(f"the CLIs imported {foreign}")
+    finally:
+        for probe in probes:
+            probe.close()
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launches = {k: sum(r[k] for r in runs.values()) for k in next(iter(runs.values()))}
+    out["phase_6o_s"] = time.perf_counter() - t_phase
+    print("data configs (6o) " + json.dumps(out), flush=True)
+    print(f"phase 6o launches K1 {launches['letterbox_normalize']} K2 "
+          f"{launches['dcnv3_sampling']} K3 {launches['dcnv3_sampling_backward']}", flush=True)
+    print(f"phase 6o s {out['phase_6o_s']:.2f}", flush=True)
+    if failures:
+        raise AssertionError("data configs (6o): " + "; ".join(failures))
+    return launches
+
+
 def dir_mb(path: Path) -> float:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file()) / 2 ** 20
 
@@ -5755,6 +5942,10 @@ def main(argv=None) -> int:
     # yolov5s-seg-dcnv3 file served by MultiBackend (K2), the zoo smoke CLI on the card
     by_path["reference checkpoints"] = reference_checkpoints_path(card)
     elapsed("6n")
+    # 6o. the segment CLIs started by a data config's name (coco128-seg.yaml): segment.val (K1),
+    # its download hook, segment.predict (K1 a frame), segment.train (K2, K3)
+    by_path["data configs"] = data_configs_path(card)
+    elapsed("6o")
     by_path["train yolov5s-seg-dcnv3"], trained, train_profile, step_ms = train_path(card)
     elapsed("7")
     train_card_vs_cpu()
@@ -5825,8 +6016,8 @@ def main(argv=None) -> int:
     # 8 micro-steps at bs 16 (training), and the CLIs' forwards at bs 16 (their micro-steps
     # and val batches, both routes) and 10b's remat micro-steps (two forwards each); K3: the
     # micro-steps. 6j's, 6l's and 6n's launches (bs-8 forwards and the 64-px fixture), 6k's (the
-    # ranks' bs-8 forwards and micro-steps, the utilities') and 6m's (the bands' and the references')
-    # count in `launches`; the means weight the shapes phase 3 times
+    # ranks' bs-8 forwards and micro-steps, the utilities'), 6m's (the bands' and the references')
+    # and 6o's count in `launches`; the means weight the shapes phase 3 times
     n_dcn = sum(DCN_PATH_SHAPES.values())
     serve_fwd = by_path["serve yolov5s-seg-dcnv3"]["dcnv3_sampling"] // n_dcn
     bs16 = ("train CLI yolov5s-seg-dcnv3", "train CLI host route", "remat micro-steps")

@@ -376,25 +376,43 @@ def resize_area_u8(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
-def letterbox(im: np.ndarray, new_shape=640, scaleup: bool = True, color: int = 114):
+def letterbox(im: np.ndarray, new_shape=(640, 640), color=(114, 114, 114), auto: bool = False,
+              scaleFill: bool = False, scaleup: bool = True, stride: int = 32):
     """Aspect-preserving resize (INTER_LINEAR) and centred constant pad to
-    new_shape (an int or (h, w)), as JAX's letterbox with auto=False
-    (reference utils/augmentations.py:111-141; cv2.resize + copyMakeBorder
-    there). Returns (image, (rw, rh), (dw, dh))."""
+    new_shape (an int or (h, w)), as JAX's letterbox (data/augment.py:20;
+    reference utils/augmentations.py:111-141; cv2.resize + copyMakeBorder
+    there). `color` is a value or one a channel. With `auto` the pad is only
+    what makes each side a multiple of `stride`; with `scaleFill` the image
+    is stretched to new_shape, unpadded. Returns (image, (rw, rh), (dw,
+    dh))."""
     shape = im.shape[:2]
     if isinstance(new_shape, int):
         new_shape = (new_shape, new_shape)
     r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
     if not scaleup:
         r = min(r, 1.0)
+    ratio = r, r
     new_unpad = int(round(shape[1] * r)), int(round(shape[0] * r))
-    dw, dh = (new_shape[1] - new_unpad[0]) / 2, (new_shape[0] - new_unpad[1]) / 2
+    dw, dh = new_shape[1] - new_unpad[0], new_shape[0] - new_unpad[1]
+    if auto:
+        dw, dh = np.mod(dw, stride), np.mod(dh, stride)
+    elif scaleFill:
+        dw, dh = 0.0, 0.0
+        new_unpad = (new_shape[1], new_shape[0])
+        ratio = new_shape[1] / shape[1], new_shape[0] / shape[0]
+    dw /= 2
+    dh /= 2
     if shape[::-1] != new_unpad:
         im = resize_linear_u8(im, new_unpad[1], new_unpad[0])
-    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
-    out = np.full((new_shape[0], new_shape[1], *im.shape[2:]), color, im.dtype)
+    top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
+    left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
+    fill = np.asarray(color, im.dtype).reshape(-1)
+    fill = fill[0] if im.ndim == 2 or fill.size == 1 else fill[:im.shape[2]]
+    out = np.empty((im.shape[0] + top + bottom, im.shape[1] + left + right, *im.shape[2:]),
+                   im.dtype)
+    out[...] = fill
     out[top:top + im.shape[0], left:left + im.shape[1]] = im
-    return out, (r, r), (dw, dh)
+    return out, ratio, (dw, dh)
 
 
 def polygon2mask(img_size, polygons, color: int = 1, downsample_ratio: int = 1) -> np.ndarray:

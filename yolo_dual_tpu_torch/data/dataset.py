@@ -92,10 +92,11 @@ def get_hash(paths):
     return h.hexdigest()
 
 
-def verify_image_label(im_file: str, lb_file: str):
+def verify_image_label(im_file: str, lb_file: str, num_cls_cols: int = 5):
     """Validate one frame/label pair (reference utils/dataloaders.py:989-1040).
     The frame's shape is read from the `.npy` header without loading it.
-    Returns (ok, labels (n, 5), segments list, shape (h, w), msg)."""
+    `num_cls_cols` is accepted and not read, as in JAX. Returns (ok, labels
+    (n, 5), segments list, shape (h, w), msg)."""
     segments = []
     try:
         im = np.load(im_file, mmap_mode="r")
@@ -170,7 +171,7 @@ class YoloDataset:
     with overlap=False); and the pixels: `aug_*` (the device route),
     `image_raw` (device_preprocess) or `image` uint8 (h, w, 3) (the host
     route and the host letterbox; (imgsz, imgsz), or the bucket's shape with
-    rect).
+    rect). `pad_extra` is accepted and not read, as in JAX.
     """
 
     # Aspect buckets of rect evaluation (JAX dataset.py:115-119): a fixed set of
@@ -181,8 +182,8 @@ class YoloDataset:
     def __init__(self, path, imgsz: int = 640, augment: bool = False, hyp: Optional[dict] = None,
                  task: str = "segment", mask_ratio: int = 4, overlap: bool = True,
                  max_labels: int = 120, prefix: str = "", single_cls: bool = False,
-                 cache_images=False, rect: bool = False, stride: int = 32,
-                 device_aug: bool = False, device_preprocess: bool = False):
+                 pad_extra: float = 0.0, cache_images=False, rect: bool = False,
+                 stride: int = 32, device_aug: bool = False, device_preprocess: bool = False):
         self.imgsz = imgsz
         self.augment = augment
         self.hyp = dict(hyp or {})
@@ -563,16 +564,19 @@ def quad_collate(samples):
 
 
 def create_dataloader(path, imgsz, batch_size, stride=32, single_cls=False, hyp=None,
-                      augment=False, rect=False, prefix="", shuffle=False, mask_downsample_ratio=1,
-                      overlap_mask=False, seed=0, task=None, cache_images=False, device_aug=False,
-                      device_preprocess=False, collate=None):
+                      augment=False, pad=0.0, rect=False, workers=0, prefix="", shuffle=False,
+                      mask_downsample_ratio=1, overlap_mask=False, seed=0, task=None,
+                      cache_images=False, device_aug=False, device_preprocess=False,
+                      collate=None):
     """(Loader, dataset) as JAX's create_dataloader builds them
     (data/dataset.py:560; reference utils/segment/dataloaders.py:23-78): the
     dataset's generators seeded with `seed` (JAX seeds its Python generator
     with it and draws mixup from numpy's global one, which init_seeds(seed)
     seeds), the loader shuffling with seed + epoch; task "segment" when a
     mask ratio or overlap masks are asked for. rect with augment is logged and
-    ignored (the mosaic is square), as there."""
+    ignored (the mosaic is square), as there; `pad` and `workers` are
+    accepted and not read, as there (one prefetch thread reads the
+    samples)."""
     from yolo_dual_tpu_torch.data.loader import Loader
     if rect and augment:
         LOGGER.info("rect=True with augment: mosaic pipeline is square; rect ignored")

@@ -39,18 +39,19 @@ def _cv2(why: str):
 
 class Detections:
     """Per-image results (JAX engine/autoshape.py:19; reference
-    models/common.py:726-835): `ims` the RGB uint8 images, `dets` (n, 6 + nm)
-    float32 rows [x1, y1, x2, y2, conf, cls, mask coefficients...] in each
-    image's pixels, `masks` (n, h, w) bool at image size or None, `t` the
-    call's (letterbox, forward + NMS, rescale) ms an image."""
+    models/common.py:726-835): `ims` the RGB uint8 images (the argument
+    `imgs`, as JAX names it), `dets` (n, 6 + nm) float32 rows [x1, y1, x2,
+    y2, conf, cls, mask coefficients...] in each image's pixels, `masks` (n,
+    h, w) bool at image size or None, `t` the call's (letterbox, forward +
+    NMS, rescale) ms an image."""
 
-    def __init__(self, ims, dets, masks, names, times=(0.0, 0.0, 0.0)):
-        self.ims = ims
+    def __init__(self, imgs, dets, masks, names, times=(0.0, 0.0, 0.0)):
+        self.ims = imgs
         self.dets = dets
         self.masks = masks
         self.names = names
         self.t = times
-        self.n = len(ims)
+        self.n = len(imgs)
 
     def __len__(self):
         return self.n

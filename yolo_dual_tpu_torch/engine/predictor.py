@@ -19,6 +19,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from yolo_dual_tpu_torch.data.augment import letterbox
 from yolo_dual_tpu_torch.data.loader import normalize_image
 from yolo_dual_tpu_torch.data.streams import (LoadScreenshots, LoadStreams, is_screenshot_source,
                                               is_stream_source)
@@ -226,7 +227,8 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
                    use_soft_nms: bool = False, augment: bool = False, vid_stride: int = 1,
                    max_frames: Optional[int] = None, view_img: bool = False, fuse: bool = True,
                    save_crop: bool = False, save_conf: bool = False, exist_ok: bool = False,
-                   visualize: bool = False, device="cuda"):
+                   visualize: bool = False, device_preprocess: Optional[bool] = None,
+                   device="cuda"):
     """Run streaming prediction. Returns the list of per-frame detection
     arrays (n, 6+nm) rows [x1, y1, x2, y2, conf, cls, mask coefs...] in
     letterboxed `imgsz` pixels, as the JAX function does.
@@ -244,8 +246,12 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
     without matplotlib); view_img shows each annotated frame (cv2.imshow).
     retina_masks is accepted and changes nothing: masks are always
     upsampled to the input and un-letterboxed to the frame (JAX
-    engine/predictor.py:141-145). The call's (pre, infer, post) Profile
-    timers, whose totals the final speed line reports, stay readable
+    engine/predictor.py:141-145). device_preprocess None or True letterboxes
+    each frame on `device` (the letterbox kernel on the card, its plain
+    version on the CPU), where JAX's None takes its device route on its
+    accelerator; False letterboxes on the host (data/augment.py:letterbox),
+    as JAX's host route (engine/predictor.py:195-197). The call's (pre,
+    infer, post) Profile timers, whose totals the final speed line reports, stay readable
     afterwards as `predict_images.profiles`.
     """
     dev = select_device(device)
@@ -286,7 +292,12 @@ def predict_images(model, source, imgsz: int = 640, conf_thres: float = 0.25,
         for path, im0, fps in iter_source(source, vid_stride=vid_stride, max_frames=max_frames):
             frame = frame_idx[path] = frame_idx.get(path, 0) + 1 if fps is not None else 0
             with dt[0]:
-                batch = letterbox_normalize(torch.as_tensor(im0).to(dev)[None].contiguous(), imgsz)
+                if device_preprocess is None or device_preprocess:
+                    batch = letterbox_normalize(torch.as_tensor(im0).to(dev)[None].contiguous(),
+                                                imgsz)
+                else:
+                    batch = torch.as_tensor(letterbox(im0, imgsz)[0]).to(dev)[None]
+                    batch = batch.permute(0, 3, 1, 2).contiguous()  # uint8 NCHW
             with dt[1]:
                 out, n_valid, protos = forward(batch)
             if features_due:   # the first frame's feature maps

@@ -110,9 +110,12 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
                      save_dir: str = ".", use_soft_nms: bool = False, augment: bool = False,
                      save_json: bool = False, anno_json=None, class_map=None, fuse: bool = True,
                      save_txt: bool = False, save_conf: bool = False, save_hybrid: bool = False,
-                     mesh=None, device="cuda", amp_dtype=None, verbose: bool = False):
+                     mesh=None, device="cuda", amp_dtype=None, verbose: bool = False,
+                     mask_ratio: int = 4, compute_loss=None):
     """Returns ((mp, mr, map50, map) of boxes + the same of masks, per-class
     maps (boxes' plus masks'), times_ms (pre, inference+NMS, post per image)).
+    mask_ratio and compute_loss are accepted and not read, as in JAX (the
+    masks' ratio is the loader's planes').
 
     model: a SegmentationModel; it is moved to `device`, put in eval mode and,
     with fuse=True, conv+BN-folded in place. loader: any iterable of batches in

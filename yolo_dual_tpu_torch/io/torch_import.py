@@ -110,14 +110,16 @@ def port_state_dict(state_dict: dict, spec=None):
             yield named(key, name, v)
 
 
-def translate_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool = True) -> dict:
+def translate_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool = True,
+                         verbose: bool = False) -> dict:
     """The whole state_dict of `model` with the entries of the torch
     `state_dict` (reference or JAX-exported layout) in place of its own,
     by JAX's rules (io/torch_import.py:135-239): a source key whose name or
     shape matches no entry is unmatched (a duplicate ResNet `downsample`
     is skipped), an entry of the model that no key fills is missing, leaving
     aside the buffers JAX skips. `strict` raises ValueError on either; a
-    file that fills nothing raises whatever `strict` says."""
+    file that fills nothing raises whatever `strict` says. The counts are
+    logged where an entry is missing or a key unmatched, or with `verbose`."""
     own = model.state_dict()
     take, unmatched = {}, []
     for key, name, v in port_state_dict(state_dict, getattr(model, "spec", None)):
@@ -131,7 +133,7 @@ def translate_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool 
         else:
             take[name] = v.to(own[name].dtype)
     missing = [k for k in own if k not in take and not k.endswith(SKIP_SUFFIXES)]
-    if unmatched or missing:
+    if verbose or unmatched or missing:
         LOGGER.info(f"torch import: filled {len(take)} entries, {len(missing)} missing, "
                     f"{len(unmatched)} unmatched source keys")
     if strict and (unmatched or missing):
@@ -146,10 +148,11 @@ def translate_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool 
 
 
 def import_torch_state_dict(model: torch.nn.Module, state_dict: dict,
-                            strict: bool = True) -> torch.nn.Module:
+                            strict: bool = True, verbose: bool = False) -> torch.nn.Module:
     """Fill `model` with a torch state_dict (`translate_state_dict`); the
-    entries a non-strict import leaves missing keep their values."""
-    model.load_state_dict(translate_state_dict(model, state_dict, strict), strict=True)
+    entries a non-strict import leaves missing keep their values. `verbose`
+    logs the counts, as JAX's."""
+    model.load_state_dict(translate_state_dict(model, state_dict, strict, verbose), strict=True)
     return model
 
 

@@ -124,9 +124,11 @@ def build_targets_level(targets: torch.Tensor, tmask: torch.Tensor, anchors_l: t
 class ComputeLoss:
     """Detection loss (JAX losses/detect.py:140-220; reference
     utils/loss.py:91-168). Call with the raw level maps (bs, na, ny, nx, no)
-    and padded targets; returns (loss · bs, [lbox, lobj, lcls])."""
+    and padded targets; returns (loss · bs, [lbox, lobj, lcls]). The level
+    balance is static: `autobalance` raises NotImplementedError, as JAX's."""
 
-    def __init__(self, anchors, strides: Sequence[int], nc: int, hyp: Dict):
+    def __init__(self, anchors, strides: Sequence[int], nc: int, hyp: Dict,
+                 autobalance: bool = False):
         anchors = np.asarray(anchors, np.float32).reshape(len(strides), -1, 2)
         self.anchors_grid = torch.from_numpy(anchors / np.asarray(strides, np.float32)[:, None, None])
         self.nc = int(nc)
@@ -135,6 +137,8 @@ class ComputeLoss:
         self.hyp = dict(hyp)
         self.balance = {3: [4.0, 1.0, 0.4]}.get(self.nl, [4.0, 1.0, 0.25, 0.06, 0.02])
         self.cp, self.cn = smooth_bce(self.hyp.get("label_smoothing", 0.0))
+        if autobalance:
+            raise NotImplementedError("autobalance requires cross-step state; use static balance")
 
     def _assign(self, i, pi, targets, tmask) -> Assignment:
         _, _, ny, nx, _ = pi.shape

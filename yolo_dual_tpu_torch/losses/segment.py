@@ -99,14 +99,15 @@ class ComputeSegmentLoss(ComputeLoss):
         return loss * bs, torch.stack([lbox, lseg, lobj, lcls]).detach()
 
 
-def encode_overlap_masks(instance_masks: np.ndarray):
+def encode_overlap_masks(instance_masks: np.ndarray, areas_sorted: bool = True):
     """(n, h, w) binary instance masks -> ((h, w) overlap-indexed plane, with
     value rank + 1, and the area-sort order). Larger instances are written
     first so smaller ones win overlaps (reference
-    utils/segment/dataloaders.py:309-331)."""
+    utils/segment/dataloaders.py:309-331); with `areas_sorted` False, in
+    their given order."""
     n, hgt, wid = instance_masks.shape
     out = np.zeros((hgt, wid), np.float32)
-    order = np.argsort(-instance_masks.reshape(n, -1).sum(1))
+    order = np.argsort(-instance_masks.reshape(n, -1).sum(1)) if areas_sorted else np.arange(n)
     for rank, i in enumerate(order):
         out[instance_masks[i] > 0] = rank + 1
     return out, order

@@ -111,17 +111,19 @@ class SemanticSegLoss:
 
 
 def seg_labels_to_class_weights(json_files, num_classes: int) -> np.ndarray:
-    """Class weights total / (nc x count) over the JSON masks' pixels; an
-    unreadable file is skipped (reference seg_diceloss_Resnet50.py:791-809)."""
+    """Class weights total / (nc x count) over the JSON masks' pixels; a file
+    that fails to read or count (unreadable, no `mask_data`, a negative id,
+    a top-level list) is skipped, as JAX skips it on any exception (reference
+    seg_diceloss_Resnet50.py:791-809)."""
     counts = np.zeros(num_classes, np.int64)
     total = 0
     for f in json_files:
         try:
             flat = np.asarray(json.loads(Path(f).read_text())["mask_data"], np.int64)
-        except (OSError, ValueError, KeyError):
+            counts += np.bincount(flat, minlength=num_classes)[:num_classes]
+            total += flat.size
+        except Exception:
             continue
-        counts += np.bincount(flat, minlength=num_classes)[:num_classes]
-        total += flat.size
     return (total / (num_classes * (counts + 1e-8))).astype(np.float32)
 
 

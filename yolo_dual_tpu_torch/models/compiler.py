@@ -312,17 +312,20 @@ def _semantic_row(name: str, args: list, n: int):
     return name, args, 1
 
 
-def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
+def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None, anchors_override=None,
+                 verbose: bool = False) -> ModelSpec:
     """Compile a model-config dict into a ModelSpec (reference models/yolo.py:299-382).
     A config without anchors, or with `compiler: semantic`, compiles in the
     semantic dialect; `compiler: classify` compiles in the detect dialect
-    and keeps the detect BatchNorm profile."""
+    and keeps the detect BatchNorm profile. `anchors_override` takes the
+    place of the config's anchors (after the dialect is chosen, as JAX's);
+    `verbose` logs a line a layer, JAX's."""
     style = d.get("compiler", "detect" if d.get("anchors") is not None else "semantic")
     if style not in ("detect", "semantic", "classify"):
         raise ValueError(f"unknown compiler dialect {style!r}; expected 'detect', 'semantic' "
                          "or 'classify'")
     semantic = style == "semantic"
-    anchors = d.get("anchors")
+    anchors = anchors_override if anchors_override is not None else d.get("anchors")
     model_nc = nc if (nc is not None and nc != d.get("nc")) else d["nc"]
     gd = d.get("depth_multiple", 1.0)
     gw = d.get("width_multiple", 1.0)
@@ -344,7 +347,7 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
         args = [_resolve(a, symbols) for a in args]
         if semantic:
             name, args, n = _semantic_row(name, args, n)
-        n = max(round(n * gd), 1) if n > 1 else n
+        n_ = n = max(round(n * gd), 1) if n > 1 else n
         c1 = chs[f] if isinstance(f, int) else tuple(chs[x] for x in f)
 
         if name in _CONVLIKE:
@@ -399,6 +402,8 @@ def parse_config(d: dict, ch: int = 3, nc: Optional[int] = None) -> ModelSpec:
         if i == 0:
             chs = []
         chs.append(c2)
+        if verbose:
+            LOGGER.info(f"{i:>3}{str(fi):>18}{n_:>3}  {name:<20}{str(kwargs):<40}")
 
     anchors_t = _freeze(anchors) if isinstance(anchors, list) else ()
     return ModelSpec(layers=tuple(layers), nc=model_nc, ch_in=ch, save=tuple(sorted(save)),

@@ -26,7 +26,8 @@ from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
 from yolo_dual_tpu_torch.nn.spp import FixedProfileBatchNorm2d
 from yolo_dual_tpu_torch.nn.torchvision_backbones import ConvNeXtBlock
 from yolo_dual_tpu_torch.parallel import spatial
-from yolo_dual_tpu_torch.utils.general import LOGGER, find_cfg, load_config, select_device
+from yolo_dual_tpu_torch.utils.general import (LOGGER, find_cfg, intersect_dicts, load_config,
+                                               select_device)
 
 _HEADS = ("Detect", "Segment", "DetectAux")
 # Registry names whose modules run on a rank's band inside parallel/spatial.py:spatial: their
@@ -231,9 +232,11 @@ def init_weights(model: nn.Module, generator: torch.Generator):
                 m.conv_offset_mask.bias.zero_()
 
 
-def initialize_detect_biases(model: GraphModel):
+def initialize_detect_biases(model: GraphModel, cf=None):
     """Prior init of the Detect conv biases (reference models/yolo.py:253-261);
-    of DetectAux's lead head only, as JAX's (JAX models/model.py:154)."""
+    of DetectAux's lead head only, as JAX's (JAX models/model.py:139). The
+    class biases take log(0.6 / (nc - 0.99999)), or with the class
+    frequencies `cf` (nc counts) log(cf / cf.sum())."""
     head = model.model[-1]
     if isinstance(head, DetectAux):
         head = head.lead
@@ -243,7 +246,12 @@ def initialize_detect_biases(model: GraphModel):
         for conv, s in zip(head.m, head.strides):
             b = conv.bias.view(head.na, -1)
             b[:, 4] += math.log(8 / (640 / s) ** 2)
-            b[:, 5:5 + head.nc] += math.log(0.6 / (head.nc - 0.99999))
+            if cf is None:
+                b[:, 5:5 + head.nc] += math.log(0.6 / (head.nc - 0.99999))
+            else:
+                cf = torch.as_tensor(cf, dtype=torch.float64)
+                b[:, 5:5 + head.nc] = (b[:, 5:5 + head.nc].double()
+                                       + torch.log(cf / cf.sum()).to(b.device)).to(b.dtype)
 
 
 def _config(cfg) -> dict:
@@ -259,13 +267,17 @@ class DetectionModel(GraphModel):
     weights are drawn from `generator` (default: a CPU generator seeded 0), then
     the Detect bias prior is applied. Load trained weights afterwards with
     `load_state_dict(strict=True)`. `names` maps class ids to names ("0", "1",
-    ...), as JAX's.
+    ...), as JAX's. `anchors` replaces the config's anchors and `verbose`
+    logs the compiled layers (models/compiler.py:parse_config), as JAX's
+    BaseModel does (JAX models/model.py:172).
     """
 
     def __init__(self, cfg="yolov5s.json", ch: int = 3, nc: Optional[int] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None, anchors=None,
+                 verbose: bool = False):
         dev = select_device(device)
-        spec = _probe_strides(parse_config(_config(cfg), ch=ch, nc=nc))
+        spec = _probe_strides(parse_config(_config(cfg), ch=ch, nc=nc, anchors_override=anchors,
+                                           verbose=verbose))
         with torch.device("meta"):
             super().__init__(spec)
         self.to_empty(device=dev)
@@ -280,8 +292,10 @@ class SegmentationModel(DetectionModel):
     Segment head (default "yolov5s-seg.json")."""
 
     def __init__(self, cfg="yolov5s-seg.json", ch: int = 3, nc: Optional[int] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, ch=ch, nc=nc, device=device, generator=generator)
+                 device="cuda", generator: Optional[torch.Generator] = None, anchors=None,
+                 verbose: bool = False):
+        super().__init__(cfg, ch=ch, nc=nc, device=device, generator=generator,
+                         anchors=anchors, verbose=verbose)
 
 
 class SemanticSegModel(GraphModel):
@@ -298,9 +312,11 @@ class SemanticSegModel(GraphModel):
     """
 
     def __init__(self, cfg="resnet50.json", ch: int = 3, nc: Optional[int] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None, anchors=None,
+                 verbose: bool = False):
         dev = select_device(device)
-        spec = parse_config(_config(cfg), ch=ch, nc=nc)
+        spec = parse_config(_config(cfg), ch=ch, nc=nc, anchors_override=anchors,
+                            verbose=verbose)
         if spec.style != "semantic":
             raise ValueError("SemanticSegModel needs a semantic config (no anchors); "
                              "use SegmentationModel for detect-style configs")
@@ -367,9 +383,8 @@ def reshape_classifier_output(model: ClassificationModel, nc: int,
     new = ClassificationModel(model.yaml, nc=nc, cutoff=model.cutoff, dropout=model.dropout,
                               device=next(model.parameters()).device, generator=generator)
     own = new.state_dict()
-    for k, v in model.state_dict().items():
-        if k in own and own[k].shape == v.shape:
-            own[k].copy_(v)
+    for k, v in intersect_dicts(model.state_dict(), own).items():
+        own[k].copy_(v)
     return new
 
 

@@ -122,13 +122,15 @@ class BatchNorm2d(nn.BatchNorm2d):
 class Conv(nn.Module):
     """Conv2d + BN + act (reference models/common.py:47-64). After `fuse()` the
     BN is folded into the conv and `bn` is None. The BN keeps JAX's running
-    variance in training (`BatchNorm2d`). Inside parallel/spatial.py:spatial
-    the conv runs on the rank's band with its halo rows (`spatial.conv2d`)."""
+    variance in training (`BatchNorm2d`). `bn=False` leaves the BN out and
+    `bias=True` gives the conv a bias, as JAX's Conv fields do. Inside
+    parallel/spatial.py:spatial the conv runs on the rank's band with its
+    halo rows (`spatial.conv2d`)."""
 
-    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True, bn=True, bias=False):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
-        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=bias)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM) if bn else None
         self.act = resolve_act(act)
 
     def forward(self, x):

@@ -16,8 +16,8 @@ from yolo_dual_tpu_torch.nn.common import BatchNorm2d, Conv, max_pool_same, resi
 class SimConv(Conv):
     """Conv + BN + ReLU (JAX nn/spp.py:22)."""
 
-    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act="relu"):
-        super().__init__(c1, c2, k, s, p, g, d, act)
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act="relu", bn=True, bias=False):
+        super().__init__(c1, c2, k, s, p, g, d, act, bn, bias)
 
 
 class SimSPPF(nn.Module):
@@ -117,14 +117,14 @@ class RFB(nn.Module):
 
 class SPPCSPC(nn.Module):
     """YOLOv7's CSP SPP (JAX nn/spp.py:131): every Conv grouped by `groups`
-    (SPPCSPC_group: 4); `n`, `shortcut` and `g` are accepted and unused, as
-    in JAX."""
+    (default 1; SPPCSPC_group: 4); `n`, `shortcut` and `g` are accepted and
+    unused, as in JAX."""
 
     groups = 1
 
-    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5, k=(5, 9, 13)):
+    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5, k=(5, 9, 13), groups=None):
         super().__init__()
-        c_, g = int(2 * c2 * e), self.groups
+        c_, g = int(2 * c2 * e), self.groups if groups is None else groups
         self.cv1 = Conv(c1, c_, 1, 1, g=g)
         self.cv3 = Conv(c_, c_, 3, 1, g=g)
         self.cv4 = Conv(c_, c_, 1, 1, g=g)

@@ -22,7 +22,7 @@ from yolo_dual_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 
 MAX_WH = 7680  # class-offset multiplier, same constant as the reference
 IOU_CHUNK = 1 << 25  # elements of a float IoU block: (images, n, n) built a few images at a time
-SOFT_NMS_SIGMA = 0.5  # Gaussian soft-NMS decay exp(-IoU²/sigma), JAX's default, which no caller changes
+SOFT_NMS_SIGMA = 0.5  # Gaussian soft-NMS decay exp(-IoU²/sigma): soft_nms_padded's default, JAX's
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
@@ -80,11 +80,11 @@ def _iou_one_vs_many(box: torch.Tensor, boxes: torch.Tensor, eps: float = 1e-7) 
 
 
 def soft_nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, max_det: int,
-                    score_threshold: float = 0.25):
+                    sigma: float = SOFT_NMS_SIGMA, score_threshold: float = 0.25):
     """Gaussian soft-NMS, batched (JAX ops/nms.py:217; reference
     utils/general-softnms.py:938-967): take the best remaining score (the
     first on ties), keep it with its score at that moment, decay the scores
-    of the boxes whose IoU with it exceeds iou_thres by exp(-IoU²/SOFT_NMS_SIGMA),
+    of the boxes whose IoU with it exceeds iou_thres by exp(-IoU²/sigma),
     and stop an image once its best remaining score is at most
     score_threshold. boxes (bs, N, 4) xyxy, class-offset; scores (bs, N) ≥ 0.
 
@@ -105,7 +105,7 @@ def soft_nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
         keep[:, k] = torch.where(going, i, -1)
         kept[:, k] = torch.where(going, best, 0.0)
         iou = _iou_one_vs_many(boxes[rows, i], boxes)
-        cur = cur * torch.where(iou > iou_thres, torch.exp(-(iou ** 2) / SOFT_NMS_SIGMA), 1.0)
+        cur = cur * torch.where(iou > iou_thres, torch.exp(-(iou ** 2) / sigma), 1.0)
         cur[rows, i] = -1.0
     return keep, kept
 
@@ -177,7 +177,7 @@ def nms_batched(prediction: torch.Tensor, conf_thres: float = 0.25, iou_thres: f
 
 def non_max_suppression(prediction, conf_thres: float = 0.25, iou_thres: float = 0.45,
                         classes: Optional[Sequence[int]] = None, agnostic: bool = False,
-                        multi_label: bool = False, max_det: int = 300, nm: int = 0,
+                        multi_label: bool = False, labels=(), max_det: int = 300, nm: int = 0,
                         use_soft_nms: bool = False):
     """The reference's call (utils/general.py:886; JAX ops/nms.py:463) over
     `nms_batched`: decoded predictions (or a tuple whose first item they are)

@@ -170,18 +170,18 @@ def batch_spec(mesh: Mesh, leaf_ndim: int) -> tuple:
     return tuple(spec)
 
 
-def replicate(obj, mesh: Mesh):
+def replicate(tree, mesh: Mesh):
     """Rank 0's values on every rank, in place: a module's parameters and
-    buffers, or a tensor or a list of tensors. Returns `obj`."""
+    buffers, or a tensor or a list of tensors. Returns `tree`."""
     if _active(mesh):
-        if isinstance(obj, torch.nn.Module):
-            tensors = [*obj.parameters(), *obj.buffers()]
+        if isinstance(tree, torch.nn.Module):
+            tensors = [*tree.parameters(), *tree.buffers()]
         else:
-            tensors = [obj] if isinstance(obj, torch.Tensor) else list(obj)
+            tensors = [tree] if isinstance(tree, torch.Tensor) else list(tree)
         with torch.no_grad():
             for t in tensors:
                 dist.broadcast(t.data, 0)
-    return obj
+    return tree
 
 
 def rows_of(n: int, mesh: Mesh) -> int:

@@ -13,9 +13,11 @@ or an orbax checkpoint directory of the JAX package (its EMA first). --update
 first strips the optimizer state from a training checkpoint given as --weights
 (a `.pt` with an `optimizer` entry; a plain state_dict is left as it is) or
 rewrites an orbax directory as JAX's strip_optimizer does. --data takes the
-class names and count from a data file or directory, whose splits need not
+class names and count from a data file, a data config's name (configs/data/,
+as JAX's find_cfg(data, "data")) or a directory, whose splits need not
 exist. --retina-masks, --half and --dnn are accepted and change nothing, as
-in JAX (masks are always upsampled to the frame). Reading image files and
+in JAX (masks are always upsampled to the frame), and `run` ignores other
+keywords, as JAX's run does. Reading image files and
 videos, streams, and saving or showing annotated frames need OpenCV; the
 screen needs mss; crops and feature maps are `.npy` without cv2 and
 matplotlib.
@@ -32,7 +34,8 @@ from yolo_dual_tpu_torch.engine.predictor import predict_images
 from yolo_dual_tpu_torch.io.weights import resolve_state_dict
 from yolo_dual_tpu_torch.models.model import SegmentationModel
 from yolo_dual_tpu_torch.train.checkpoint import load_checkpoint, strip_optimizer
-from yolo_dual_tpu_torch.utils.general import check_dataset, check_img_size, select_device
+from yolo_dual_tpu_torch.utils.general import (check_dataset, check_img_size, find_cfg,
+                                               select_device)
 
 
 def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
@@ -41,7 +44,7 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
         save_conf=False, nosave=False, line_thickness=3, hide_labels=False, hide_conf=False,
         nc=80, data=None, fuse=True, exist_ok=False, device="cuda", soft_nms=False,
         augment=False, vid_stride=1, max_frames=None, view_img=False, save_crop=False,
-        visualize=False, update=False, half=False, dnn=False):
+        visualize=False, update=False, half=False, dnn=False, **kw):
     dev = select_device(device)
     if update and weights and (not str(weights).endswith(".pt")
                                or load_checkpoint(weights).get("optimizer") is not None):
@@ -50,7 +53,7 @@ def run(weights="", cfg="yolov5s-seg.json", source="data/images", imgsz=640,
     names = None
     if data:
         # names and nc only: prediction does not need the splits on disk
-        d = check_dataset(data, require_splits=False)
+        d = check_dataset(find_cfg(data, "data"), require_splits=False)
         nc = int(d["nc"]) if d.get("nc") is not None else nc
         names = d.get("names")
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))

@@ -3,9 +3,14 @@
     python -m yolo_dual_tpu_torch.segment.train --cfg yolov5s-seg-dcnv3.json --data DIR_OR_JSON \
         --hyp hyp.scratch-low.json --epochs 100 --batch-size 16 --imgsz 640
 
-`--data` is a directory (`images/{train,val}/*.npy` with `labels/{train,val}/*.txt`,
-or one `images/` set used for both splits) or a JSON data file `{path, train,
-val, nc, names}` (utils/general.py:check_dataset). Each epoch: the mosaic
+`--data` (default coco128-seg.yaml) is a data file, JSON (YAML with PyYAML)
+`{path, train, val, nc, names, download}`, or the name of one of the
+package's copies of JAX's data configs, looked up in configs/data/ alone as
+JAX's find_cfg(data, "data") looks it up; or a directory
+(`images/{train,val}/*.npy` with `labels/{train,val}/*.txt`, or one
+`images/` set used for both splits) (utils/general.py:check_dataset). A
+missing val path runs the data file's `download:` hook as JAX runs it,
+unless --no-download. Each epoch: the mosaic
 samples of data/dataset.py, composed, warped, HSV-jittered and flipped on the
 device (kernels/augment.py:mosaic_warp_hsv), or with --no-device-aug, or a
 hyp the device route cannot run (mosaic < 1, mixup, copy_paste: scratch-med,
@@ -106,7 +111,8 @@ def train(opt):
         save_dir = from_rank0(lambda: increment_path(Path(opt.project) / opt.name,
                                                      exist_ok=opt.exist_ok, mkdir=True), mesh)
         hyp = load_config(find_cfg(opt.hyp))
-    data = check_dataset(opt.data)
+    data = check_dataset(find_cfg(opt.data, "data"),
+                         autodownload=not getattr(opt, "no_download", False))
     if rank0:
         json_save(save_dir / "hyp.json", hyp)
         json_save(save_dir / "opt.json", vars(opt))
@@ -295,7 +301,8 @@ def parse_opt(argv=None):
                    help="resume the newest run with a last.pt (or the given checkpoint)")
     p.add_argument("--cfg", type=str, default="yolov5n-seg.yaml", help="model config")
     p.add_argument("--data", type=str, default="coco128-seg.yaml",
-                   help="dataset directory (images/*.npy, labels/*.txt) or .json data file")
+                   help="data file or config name (configs/data/), or a dataset directory "
+                        "(images/*.npy, labels/*.txt)")
     p.add_argument("--hyp", type=str, default="hyp.scratch-low.yaml", help="hyperparameters")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=16)
@@ -342,7 +349,7 @@ def parse_opt(argv=None):
     p.add_argument("--workers", type=int, default=0,
                    help="accepted for parity (one prefetch thread reads the samples)")
     p.add_argument("--no-download", action="store_true",
-                   help="accepted: nothing is ever downloaded")
+                   help="never run the data file's download: hook")
     p.add_argument("--nbs", type=int, default=64,
                    help="nominal batch size for gradient accumulation")
     p.add_argument("--no-fused-bn-act", dest="fused_bn_act", action="store_false",

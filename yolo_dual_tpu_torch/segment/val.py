@@ -2,16 +2,23 @@
 segment/val.py).
 
 Usage:
+    python -m yolo_dual_tpu_torch.segment.val --device-preprocess
     python -m yolo_dual_tpu_torch.segment.val --data DIR --device-preprocess
     python -m yolo_dual_tpu_torch.segment.val --data data.json --weights best.pt --device-preprocess
     python -m yolo_dual_tpu_torch.segment.val --data DIR --rect --task train --verbose
 
-`--data` is a directory holding `images/` (RGB uint8 `.npy` frames; with
+`--data` (default coco128-seg.yaml) is a data file, JSON (YAML with
+PyYAML) with the data yaml's keys `path`, `train`, `val`, `test`, `nc`,
+`names` and `download`, or the name of one of the package's copies of
+JAX's data configs (coco128-seg, coco128, coco, VOC, camvid; `.yaml` or
+`.json`), looked up in configs/data/ alone, as JAX's find_cfg(data,
+"data"); or a directory holding `images/` (RGB uint8 `.npy` frames; with
 `images/train` and `images/val`, those splits) and `labels/` (the
-reference's txt labels), whose classes are the model config's; or a JSON
-file with the data yaml's keys `path`, `train`, `val`, `test`, `nc` and
-`names` (utils/general.py:check_dataset). `--task` picks the split (any of
-the data's split keys, else val), or `speed` (val at conf 0.25, iou 0.45) or
+reference's txt labels), whose classes are the model config's
+(utils/general.py:check_dataset). Where the val path is missing, the data
+file's `download:` hook runs as in JAX (a `bash ...` line or inline
+Python; a URL is refused), unless --no-download. `--task` picks the split
+(any of the data's split keys, else val), or `speed` (val at conf 0.25, iou 0.45) or
 `study` (val at 256..1536 px, a row of 8 metrics and 3 times a size in
 study_{data}_{weights}.txt). Without --weights the model has random weights
 drawn from a generator seeded with 0. With --device-preprocess the raw
@@ -23,8 +30,8 @@ its mask as COCO RLE, to predictions.json in the run directory (COCO's
 91-id categories when the val path names coco; COCOeval where pycocotools
 is installed and `path`/annotations/instances_val2017.json exists). --half runs the forward in bfloat16
 (torch.autocast), as JAX's flag maps to its bf16 policy. --cache ram keeps
-the frames in memory (disk: the `.npy` frames are the cache); --dnn,
---workers and --no-download are accepted, as in JAX. --plots draws the PR,
+the frames in memory (disk: the `.npy` frames are the cache); --dnn and
+--workers are accepted, as in JAX. --plots draws the PR,
 F1, P and R curves of boxes and masks into the run directory (matplotlib);
 --task study draws study.png where matplotlib is installed, else logs the
 skip. --data-parallel under `python -m torch.distributed.run
@@ -48,36 +55,40 @@ from yolo_dual_tpu_torch.models.model import SegmentationModel
 from yolo_dual_tpu_torch.parallel.mesh import data_parallel as join_data_parallel
 from yolo_dual_tpu_torch.parallel.mesh import from_rank0, rank0_first, shard_loader
 from yolo_dual_tpu_torch.utils.coco import coco80_to_coco91_class
-from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size,
+from yolo_dual_tpu_torch.utils.general import (LOGGER, check_dataset, check_img_size, find_cfg,
                                                increment_path, select_device)
 
 STUDY_SIZES = tuple(range(256, 1536 + 128, 128))  # --task study's image sizes (JAX's)
 
 
-def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=640,
+def run(data="coco128-seg.yaml", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=640,
         conf_thres=0.001, iou_thres=0.6, max_det=300, task="val", single_cls=False,
         verbose=False, mask_ratio=4, save_txt=False, save_conf=False, save_hybrid=False,
         project="runs/val-seg", name="exp", exist_ok=False, fuse=True, device="cuda",
         device_preprocess=False, augment=False, save_json=False, plots=False, soft_nms=False,
         data_parallel=False, rect=False, cache=False, half=False, dnn=False, workers=0,
-        no_download=False):
+        no_download=False, save_dir=None, **kw):
     """Evaluate `weights` (or the seeded random model) on the `task` split of
-    `data`. Returns evaluate_segment's (8 metrics, per-class maps, (pre,
+    `data`. Results go to `save_dir` where it is given, else to a new
+    `project`/`name` run directory when save_txt, save_json or plots is set,
+    else to "."; other keywords are ignored, as JAX's run ignores them.
+    Returns evaluate_segment's (8 metrics, per-class maps, (pre,
     inference+NMS, post) ms)."""
     mesh = join_data_parallel(device) if data_parallel else None
     if mesh is not None and batch_size % mesh.size:
         batch_size = -(-batch_size // mesh.size) * mesh.size
         LOGGER.info(f"--data-parallel: batch size rounded up to {batch_size} ({mesh.size} ranks)")
     dev = select_device(device)
-    d = check_dataset(data)
+    d = check_dataset(find_cfg(data, "data"), autodownload=not no_download)
     imgsz = check_img_size(imgsz, 32)
     nc = 1 if single_cls else d["nc"]
     model = SegmentationModel(cfg, nc=nc, device=dev, generator=torch.Generator().manual_seed(0))
     if weights:
         model.load_state_dict(resolve_state_dict(weights, model), strict=True)
-    save_dir = from_rank0(lambda: str(increment_path(Path(project) / name, exist_ok=exist_ok,
-                                                     mkdir=True)), mesh) \
-        if save_txt or save_json or plots else "."
+    if save_dir is None:
+        save_dir = from_rank0(lambda: str(increment_path(Path(project) / name, exist_ok=exist_ok,
+                                                         mkdir=True)), mesh) \
+            if save_txt or save_json or plots else "."
     # COCO's 91-id category map and annotation file for COCOeval (JAX segment/val.py:86-101)
     class_map = anno_json = None
     if save_json and "coco" in str(d.get("val", "")):
@@ -106,8 +117,9 @@ def run(data="data", weights="", cfg="yolov5s-seg.json", batch_size=16, imgsz=64
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--data", type=str, default="data",
-                   help="dataset directory (images/*.npy, labels/*.txt) or .json data file")
+    p.add_argument("--data", type=str, default="coco128-seg.yaml",
+                   help="data file or config name (configs/data/), or a dataset directory "
+                        "(images/*.npy, labels/*.txt)")
     p.add_argument("--weights", type=str, default="", help="a .pt state_dict or an orbax checkpoint directory of the JAX package")
     p.add_argument("--cfg", type=str, default="yolov5s-seg.json")
     p.add_argument("--batch-size", type=int, default=16)
@@ -143,7 +155,8 @@ def parse_opt(argv=None):
     p.add_argument("--dnn", action="store_true", help="accepted for parity (OpenCV-DNN N/A)")
     p.add_argument("--workers", type=int, default=0,
                    help="accepted for parity (one prefetch thread reads the samples)")
-    p.add_argument("--no-download", action="store_true", help="accepted: nothing is downloaded")
+    p.add_argument("--no-download", action="store_true",
+                   help="never run the data file's download: hook")
     p.add_argument("--save-json", action="store_true",
                    help="save COCO-RLE predictions.json (+COCOeval if pycocotools is installed)")
     p.add_argument("--plots", action="store_true", help="PR/F1/P/R curves (matplotlib)")

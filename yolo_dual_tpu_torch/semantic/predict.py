@@ -38,8 +38,9 @@ SUFFIXES = {".npy", ".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
 
 def run(weights="", cfg="resnet50.json", source="", imgsz=640, nc=12, gt_json_dir="",
         alpha=0.5, names=None, project="runs/predict-semantic", name="exp", exist_ok=False,
-        device="cuda"):
-    """Predict every frame of `source`. Returns (metrics dict or None,
+        device="cuda", **kw):
+    """Predict every frame of `source` (other keywords ignored, as JAX's run
+    ignores them). Returns (metrics dict or None,
     save_dir, speed), speed = (pre, infer, post) ms a frame: pre the read,
     the host letterbox and the copy to the device; infer the forward and the
     argmax; post the copy back, the colouring and the writes."""

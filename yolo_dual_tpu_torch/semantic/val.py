@@ -56,9 +56,10 @@ def save_image(path: Path, rgb: np.ndarray) -> Path:
 
 def run(weights="", cfg="resnet50.json", img_dir="", json_dir="", imgsz=640, batch_size=16,
         nc=12, ignore_index=11, loss="dice", visualize=False, project="runs/val-semantic",
-        name="exp", device="cuda", data_parallel=False, device_preprocess=False):
-    """Evaluate `weights` (or the seeded random model) on the JSON set.
-    Returns evaluate_semantic's ((mIoU, val loss, 0, 0), per-class IoU, (ms an image,))."""
+        name="exp", device="cuda", data_parallel=False, device_preprocess=False, **kw):
+    """Evaluate `weights` (or the seeded random model) on the JSON set; other
+    keywords are ignored, as JAX's run ignores them. Returns
+    evaluate_semantic's ((mIoU, val loss, 0, 0), per-class IoU, (ms an image,))."""
     mesh = join_data_parallel(device) if data_parallel else None
     if mesh is not None and batch_size % mesh.size:
         batch_size = -(-batch_size // mesh.size) * mesh.size

@@ -23,15 +23,15 @@ import torch
 
 from yolo_dual_tpu_torch.io import ocdbt
 from yolo_dual_tpu_torch.io.weights import state_dict_from_orbax
-from yolo_dual_tpu_torch.utils.general import LOGGER
+from yolo_dual_tpu_torch.utils.general import LOGGER, intersect_dicts
 
 
-def save_checkpoint(path, ckpt: dict) -> Path:
-    """Write `ckpt` to `path` through a temporary file, so a run killed while
-    saving leaves the previous checkpoint whole."""
+def save_checkpoint(path, state_dict: dict) -> Path:
+    """Write the checkpoint dict `state_dict` to `path` through a temporary
+    file, so a run killed while saving leaves the previous checkpoint whole."""
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")
-    torch.save(ckpt, tmp)
+    torch.save(state_dict, tmp)
     os.replace(tmp, path)
     return path
 
@@ -46,7 +46,7 @@ def load_weights(model: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
     another class count, BatchNorm counters a JAX export lacks). Raises when
     nothing matches: that is a wrong file, never a partial load."""
     own = model.state_dict()
-    take = {k: v for k, v in state_dict.items() if k in own and own[k].shape == v.shape}
+    take = intersect_dicts(state_dict, own)
     if state_dict and not take:
         raise ValueError(f"weights match no entry of the model (first keys: {list(state_dict)[:5]})")
     missing = len(own) - len(take)

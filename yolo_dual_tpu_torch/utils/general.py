@@ -4,8 +4,8 @@ selection, timers.
 Port of yolo_dual_tpu/utils/general.py (make_divisible, check_img_size,
 LOGGER, colorstr, Profile, increment_path, init_seeds, yaml_load, yaml_save,
 check_dataset, labels_to_class_weights, labels_to_image_weights,
-platform_info, clean_str), plus a config loader that reads the package's
-JSON config copies without PyYAML; run settings are saved as JSON for the
+intersect_dicts, platform_info, clean_str), plus a config loader that reads
+the package's JSON config copies without PyYAML; run settings are saved as JSON for the
 same reason, and PyYAML is imported only where a YAML file is read or
 written.
 """
@@ -20,6 +20,7 @@ import os
 import platform
 import random
 import re
+import subprocess
 import time
 from pathlib import Path
 
@@ -94,27 +95,29 @@ def load_config(path) -> dict:
 
 # The folders of the package's JSON copies, in find_cfg's search order.
 CONFIG_DIRS = ("segment", "semantic", "hyps", "models", "hub", "spp", "attention", "backbone",
-               "loss")
+               "loss", "data")
 
 
-def find_cfg(name) -> Path:
+def find_cfg(name, *dirs) -> Path:
     """Resolve a config name: an existing path, else the package's JSON copy of
-    that model or hyperparameter config (`yolov5s-seg.yaml` and
+    that model, hyperparameter or data config (`yolov5s-seg.yaml` and
     `yolov5s-seg.json` both find configs/segment/yolov5s-seg.json;
     `hyp.scratch-low.yaml` finds configs/hyps/hyp.scratch-low.json;
-    `yolov3-tiny.yaml` finds configs/hub/yolov3-tiny.json). A name qualified
+    `coco128-seg.yaml` finds configs/data/coco128-seg.json). A name qualified
     by its folder under configs/, as the JAX package names its configs
     (`backbone/resnet18.yaml`, `semantic/resnet50.json`), finds that folder's
-    copy; a bare stem is searched in the order of CONFIG_DIRS. Two stems are
-    shared, resnet18 and resnet50 (semantic/ and backbone/): bare, they find
-    the semantic configs, so `resnet50.yaml` is the semantic flagship."""
+    copy; a bare stem is searched in `dirs`, as the JAX CLIs' find_cfg(name,
+    *dirs) searches them (`find_cfg(data, "data")` finds no model config),
+    or without `dirs` in the order of CONFIG_DIRS. Two stems are shared,
+    resnet18 and resnet50 (semantic/ and backbone/): bare, they find the
+    semantic configs, so `resnet50.yaml` is the semantic flagship."""
     p = Path(name)
     if p.exists():
         return p
     if len(p.parts) == 2 and p.parts[0] in CONFIG_DIRS:
         cands = [CONFIGS / p.parts[0] / (p.stem + ".json")]
     else:
-        cands = [CONFIGS / sub / (p.stem + ".json") for sub in CONFIG_DIRS]
+        cands = [CONFIGS / sub / (p.stem + ".json") for sub in (dirs or CONFIG_DIRS)]
     for c in cands:
         if c.exists():
             return c
@@ -143,51 +146,87 @@ def json_save(file, data: dict):
                                       for k, v in data.items()}, indent=1))
 
 
-def init_seeds(seed: int = 0):
+def init_seeds(seed: int = 0, deterministic: bool = False):
     """Seed Python's, numpy's and torch's global generators (JAX
     utils/general.py:74; the datasets and models draw from their own seeded
-    generators)."""
+    generators). `deterministic` is torch's counterpart of JAX's XLA flag
+    `--xla_gpu_deterministic_ops`: deterministic algorithms only, cuDNN
+    deterministic and not benchmarking, and cuBLAS's workspace set as
+    deterministic cuBLAS needs it where the environment does not set it."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+    if deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     return seed
 
 
-def check_dataset(data, require_splits: bool = True) -> dict:
-    """Resolve a dataset: a directory, or a JSON (YAML with PyYAML) data file
-    with the data yaml's keys `path`, `train`, `val`, `nc`, `names` (JAX
-    utils/general.py:143, local only: a `download` hook is never run).
+def check_dataset(data, autodownload: bool = True, require_splits: bool = True) -> dict:
+    """Resolve a dataset (JAX utils/general.py:143): a data file (JSON, or YAML
+    with PyYAML) or dict with the data yaml's keys `path`, `train`, `val`,
+    `test`, `nc`, `names` and `download`, or a directory.
+
+    For a data file the dict is JAX's: each split joined to `path` when the
+    file has one, else kept as written (relative to the working directory);
+    `names` a dict of int ids; `nc` len(names) where the file has no `nc`.
+    When a named val path is missing (an absent or empty `val` names none)
+    and `require_splits` is set, the file's `download:` hook runs where
+    `autodownload` is on, as JAX runs it after logging its first 500
+    characters: a `bash ...` line in the shell, any other text that is not
+    a URL as Python with the dict bound as `yaml`; a URL is refused, since
+    the port downloads nothing. The val paths are checked again after the
+    hook. Without a hook, or with `autodownload` off, it raises
+    FileNotFoundError.
 
     A directory holds `images/` (`.npy` frames) and `labels/` (txt labels),
     split into `images/train` and `images/val` when both exist, else one set
-    for both splits; its classes are the model config's (nc None). Returns
-    {"train", "val", "nc", "names"} with the paths resolved; raises when the
-    val path is missing, unless `require_splits` is False (a predictor takes
-    only names and nc)."""
-    p = Path(data)
-    if p.is_dir():
-        im = p / "images" if (p / "images").is_dir() else p
+    for both splits; its classes are the model config's (nc None)."""
+    if isinstance(data, (str, Path)) and Path(data).is_dir():
+        im = Path(data) / "images" if (Path(data) / "images").is_dir() else Path(data)
         split = (im / "train").is_dir() and (im / "val").is_dir()
-        d = {"train": str(im / "train" if split else im), "val": str(im / "val" if split else im),
-             "nc": None, "names": None}
-    else:
-        d = dict(load_config(p))
-        for k in ("train", "val", "test"):
-            if d.get(k):
-                vals = d[k] if isinstance(d[k], list) else [d[k]]
-                root = Path(d["path"]) if d.get("path") else p.parent
-                resolved = [str(root / v) for v in vals]
-                d[k] = resolved if isinstance(d[k], list) else resolved[0]
-        if isinstance(d.get("names"), list):
-            d["names"] = dict(enumerate(d["names"]))
-        if d.get("names") is not None:
-            d["names"] = {int(k): v for k, v in d["names"].items()}
-        d.setdefault("nc", len(d["names"]) if d.get("names") else None)
-    val = d.get("val")
-    missing = [v for v in (val if isinstance(val, list) else [val]) if not v or not Path(v).exists()]
-    if missing and require_splits:
-        raise FileNotFoundError(f"dataset {data}: val path not found: {missing} "
-                                "(nothing is downloaded)")
+        return {"train": str(im / "train" if split else im),
+                "val": str(im / "val" if split else im), "nc": None, "names": None}
+    d = dict(load_config(data)) if isinstance(data, (str, Path)) else data
+    for k in ("train", "val", "test"):
+        if d.get(k):
+            vals = d[k] if isinstance(d[k], list) else [d[k]]
+            resolved = [str(Path(d["path"]) / v) if d.get("path") else str(v) for v in vals]
+            d[k] = resolved if isinstance(d[k], list) else resolved[0]
+    if isinstance(d.get("names"), list):
+        d["names"] = dict(enumerate(d["names"]))
+    if isinstance(d.get("names"), dict):  # JSON keys are strings
+        d["names"] = {int(k): v for k, v in d["names"].items()}
+    d.setdefault("nc", len(d.get("names") or {}))
+
+    val, hook = d.get("val"), d.get("download")
+    val_paths = [Path(v) for v in (val if isinstance(val, list) else [val])] if val else []
+    if require_splits and val_paths and not all(v.exists() for v in val_paths):
+        missing = [str(v) for v in val_paths if not v.exists()]
+        if not (hook and autodownload):
+            raise FileNotFoundError(
+                f"Dataset val path not found: {missing}"
+                + ("" if hook else " (no download: hook in the data yaml)")
+                + ("" if autodownload else " (autodownload disabled)"))
+        LOGGER.warning(
+            f"Dataset val path missing ({missing}); executing the data yaml's download hook "
+            f"(pass autodownload=False / --no-download to refuse):\n{str(hook)[:500]}")
+        t0 = time.time()
+        if isinstance(hook, str) and hook.startswith("http"):
+            raise FileNotFoundError(f"Dataset val path not found: {missing}; the download hook "
+                                    f"is a URL ({hook}) and the port downloads nothing: fetch "
+                                    "the data yourself")
+        if isinstance(hook, str) and hook.startswith("bash "):
+            subprocess.run(hook, shell=True, check=True)
+        else:  # inline Python, with the resolved dict in scope as JAX's
+            exec(hook, {"yaml": d, "Path": Path})
+        ok = all(v.exists() for v in val_paths)
+        LOGGER.info(f"Dataset download hook {'succeeded' if ok else 'FAILED'} "
+                    f"({time.time() - t0:.1f}s)")
+        if not ok:
+            raise FileNotFoundError(f"download hook ran but val path still missing: {d['val']}")
     return d
 
 
@@ -212,6 +251,15 @@ def labels_to_image_weights(labels, nc: int = 80, class_weights=None) -> np.ndar
     counts = np.stack([np.bincount(np.asarray(lb)[:, 0].astype(int), minlength=nc)
                        if len(lb) else np.zeros(nc) for lb in labels])
     return (cw.reshape(1, nc) * counts).sum(1)
+
+
+def intersect_dicts(da: dict, db: dict, exclude=()) -> dict:
+    """The entries of `da` whose key is in `db` with the same shape (np.shape,
+    so tensors, arrays and nested lists alike) and contains none of the
+    `exclude` strings (JAX utils/general.py:221)."""
+    return {k: v for k, v in da.items()
+            if k in db and all(x not in k for x in exclude)
+            and tuple(np.shape(v)) == tuple(np.shape(db[k]))}
 
 
 def select_device(device="cuda") -> torch.device:

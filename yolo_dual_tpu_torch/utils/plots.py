@@ -36,9 +36,10 @@ colors = Colors()
 
 class Annotator:
     """Box / mask / label drawing on a numpy HWC uint8 image
-    (reference utils/plots.py:71-183)."""
+    (reference utils/plots.py:71-183). `font_size`, `pil` and `example` are
+    accepted and not read, as in JAX (labels are drawn with cv2's font)."""
 
-    def __init__(self, im, line_width=None):
+    def __init__(self, im, line_width=None, font_size=None, pil=False, example=""):
         self.im = np.ascontiguousarray(im)
         self.lw = line_width or max(round(sum(im.shape[:2]) / 2 * 0.003), 2)
 
