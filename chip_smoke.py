@@ -93,14 +93,15 @@ which raises on failure:
    route (K1 at 96 -> 96, 180 launches), under deterministic algorithms
    (torch.use_deterministic_algorithms, cuDNN's deterministic ones), reaches
    mIoU >= 0.9285 - 0.05; it runs in a process of its own beside 6e's three
-   (`learning_proofs`, `--learning-proof`), all four at once;
+   (`start_learning_proofs`, `--learning-proof`), all four at once, started
+   after (a)'s timed micro-steps, so (b)'s runs are timed beside them;
    after phase 9 one more resumed device-route epoch under torch.profiler;
 6e. the YOLO semantic family (yolo_semantic_path): yolov5_seg.json (18 DCNv2
    calls in three C3_DCN rows), yolov8_seg.json (C2f, three C2f_DCN) and
    yolov9_seg.json (five C3k2, GAM), each at nc 12, 640 px, full width and
    depth, seeded weights with the DCNv2 offset heads drawn, BatchNorm
-   calibrated on 4 frames, on 48 + 16 CamVid-style 720x960 frames (6c's
-   writer) under build/: (a) `semantic.val.run` at bs 16 on the device route
+   calibrated on 4 frames, on 6d's 48 + 16 CamVid-style 720x960 frames:
+   (a) `semantic.val.run` at bs 16 on the device route
    (the K1 count set to 0 just before reads 3), its speed line and img/s;
    4 frames card against CPU under 6c's limits (TF32 only read);
    `semantic.predict.run` on 4 frames at batch 1; the fused forward + argmax
@@ -118,8 +119,8 @@ which raises on failure:
    Ghost, Transformer and YOLOv3 modules, the 11 torchvision-backbone configs
    (backbone/*.json) and yolov5s as the control, each at its published width
    and depth, nc 80, 640 px, built by `build_model` on cuda (seeded weights,
-   BatchNorm calibrated on 4 seeded frames) behind `AutoShape(fuse=True)`: 4
-   seeded frames of the MAIN_SHAPES sizes on the card and on the CPU (TF32
+   BatchNorm calibrated on 4 seeded frames) behind `AutoShape(fuse=True)`: 3
+   seeded frames, one of each MAIN_SHAPES size, on the card and on the CPU (TF32
    off): raw head maps within 1e-3 of each map's largest magnitude,
    detections at conf 0.05 paired (boxes within 0.05 px, confidences within
    1e-4; near ties counted; for a torchvision-backbone config that leaves
@@ -127,7 +128,8 @@ which raises on failure:
    than twice the CPU's float32 ones, and the rows paired at the confidence
    gap the raw maps' measured gap admits: earned_pairs); the bs-32 fused
    forward + nms_from_raw in img/s and its peak memory, AutoShape at batch 1
-   and 8 in ms a call split into host letterbox / forward + NMS / rescale;
+   and 8 in ms of one call after a warm-up, split into host letterbox /
+   forward + NMS / rescale;
    no kernel launch on this path (AutoShape letterboxes on the host);
 6g. classification (classify_path), the card's name and power limit on its
    first line: (a) yolov5s-cls (yolov5s.yaml, cutoff 10) and the 12
@@ -283,8 +285,9 @@ which raises on failure:
    measure the host's wrapper as well; K1's call through the wrapper is timed
    by CUDA events again, and at batch 1 the host's share printed), after every
    timed path, as a profiler session can slow the host's later launches; then
-   K2's and K3's device times on the inputs of the trained model's six DCNv3
-   calls (bs 16, its offsets after phase 7) under window margins of 1 and 2
+   K2's and K3's device times on the inputs of the trained model's first
+   DCNv3 call at each map size (bs 16, its offsets after phase 7) under
+   window margins of 1 and 2
    px, each beside its window-escape share; K1's device time on phase 6b's
    eval batch (and, among the K1 cases, at the semantic validator's batch);
 10. the train CLI (phase 10, `cli_train_path`): a seeded dataset written
@@ -316,15 +319,21 @@ which raises on failure:
    labels, mixup, HSV, rasterise); the first micro-step (forward, loss,
    backward) of its first HOST_STEP_BS samples on the card and on the CPU,
    TF32 off: loss items and gradients within HOST_STEP_TOL of the largest;
-   (b) --remat on that batch:
-   a micro-step with and without it (TF32 off; 12 and 6 K2 launches, 6 K3
-   each), loss items and gradients within REMAT_TOL, the BatchNorm statistics
-   equal, then each timed with TF32 convolutions, with its peak memory; (c)
-   `segment.val --rect --task train` on phase 10's train frames (two
+   (b) `segment.val --rect --task train` on phase 10's train frames (two
    buckets) labelled with the primed yolov5s-seg's own boxes: the speed line,
    the batches a bucket, box mAP50 above 0.05, and
    RECT_CHECK_FRAMES frames a bucket on the card and on the CPU within
    RECT_MAP_TOL;
+6p. per-layer rematerialisation (`remat_layers_path`) on 10b's host batch:
+   yolov5s-seg-dcnv3 at full width and depth, bs 16, accumulate 4,
+   hyp.scratch-low, a micro-step of each of REMAT_SETTINGS (plain;
+   remat_layers True, (0, 1, 2, 3, 4) and (4, 6, 8); Trainer(remat=True))
+   with TF32 off and the counts set to 0 just before (K2 6 a step plus one
+   for each DCNv3 call in a wrapped row: 6, 12, 8, 12 and 12; K3 6): loss
+   items and gradients within REMAT_TOL of the plain step's largest, the
+   BatchNorm statistics updated once; each then timed with TF32 convolutions
+   (ms a micro-step, peak GB), and one bs-32 micro-step with
+   remat_layers=True where twice its bs-16 peak fits the card;
 6k. data parallelism and the utils layer (`data_parallel_path`, after 10b,
    on a cut of phase 10's set: 16 train and 16 val 480x640 frames), TF32
    off: `python -m torch.distributed.run --standalone --nproc-per-node 2
@@ -450,21 +459,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def stamp(what: str):
+    """Prints the process clock beside `what`: where a phase's seconds go."""
+    print(f"at {time.perf_counter():.1f} s: {what}", flush=True)
+
+
 def profiled_kernel_ms(fn, kernel: str, iters: int):
     """Mean device ms per launch of the CUDA kernels whose name holds `kernel`
     over `iters` calls of `fn`, each of which launches one, from
     torch.profiler's kernel records: the kernel's own time, without the host
     wrapper that CUDA events around the call also count at batch 1. Late in a
     long process a session can hold another number of records than launches
-    (each session's count is printed then): it is run again, up to three
-    times; where none held `iters`, the time is the mean over the records of
+    (each session's count is printed then): it is run again, up to twice in
+    all; where neither held `iters`, the time is the mean over the records of
     the session that held the most (each record is one launch's own time),
     and "not measured" only where no session held one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(3):
+    for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -476,7 +490,7 @@ def profiled_kernel_ms(fn, kernel: str, iters: int):
         if count == iters:
             return total / iters / 1e3
         seen.append((count, total))
-    print(f"profiler records of {kernel} in 3 sessions of {iters} launches: "
+    print(f"profiler records of {kernel} in 2 sessions of {iters} launches: "
           f"{[c for c, _ in seen]}", flush=True)
     count, total = max(seen)
     return total / count / 1e3 if count else "not measured"
@@ -799,8 +813,9 @@ def device_phase(lres: dict, dres: dict, bres: dict):
 
 def trained_inputs_phase(calls):
     """Phase 9, second part: K2's and K3's own device times (torch.profiler)
-    on the inputs of the trained model's DCNv3 calls (bs 16, the offsets after
-    the training micro-steps; a seeded output gradient), under the launch plan
+    on the inputs of the trained model's first DCNv3 call at each of the
+    three map sizes (layers 0, 2 and 5: bs 16, the offsets after the
+    training micro-steps; a seeded output gradient), under the launch plan
     with a window margin of 1 px (the kernels' own) and of 2 px, each beside
     its share of samples outside the window. Each plan's result is first held against the plain
     version (1e-5 of each output's largest magnitude, as the model's
@@ -809,8 +824,12 @@ def trained_inputs_phase(calls):
     from yolo_dual_tpu_torch.kernels.dcn_sampling import (
         _launch, dcnv3_core, dcnv3_core_bwd, dcnv3_plan, dcnv3_window_escapes)
     gen = torch.Generator(device="cuda").manual_seed(10)
+    seen = set()
     for i, (x, offset, mask, cfg) in enumerate(calls):
         b, h, w, c = x.shape
+        if (h, w, c) in seen:
+            continue
+        seen.add((h, w, c))
         ho, wo = offset.shape[1:3]
         gout = torch.randn(b, ho, wo, c, device="cuda", generator=gen)
         ins = (x, offset, mask, gout)
@@ -1576,7 +1595,7 @@ def semantic_path(card: str):
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
                 val.run(device_preprocess=True, **kw)
                 torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1833,8 +1852,9 @@ def semantic_train_path(card: str):
     SEM_TRAIN_EPOCHS epochs on the device route (K1 once a training batch, the
     count set to 0 just before), a bare --resume to one more, one host-route
     epoch (0 launches), the native mask scanner loaded, results.csv finite;
-    (c) the learning proof. Returns the K1 launches by geometry and a function
-    that profiles one more resumed device-route epoch (after phase 9)."""
+    (c) the learning proof. Returns the K1 launches by geometry, a function
+    that profiles one more resumed device-route epoch (after phase 9) and the
+    set's (images, json) directories, "train" and "val" (6e's set too)."""
     import shutil
     from yolo_dual_tpu_torch import native
     from yolo_dual_tpu_torch.data.json_dataset import JSONSegmentDataset
@@ -1850,14 +1870,16 @@ def semantic_train_path(card: str):
     samples = [ds[i] for i in range(2 * SEM_BS)]
     result = {"card": card, "frames": {"train": SEM_TRAIN_FRAMES, "val": SEM_VAL_FRAMES},
               "write_dataset_s": write_s}
+    stamp("6d set written")
     result["step_card_vs_cpu"] = semantic_step_card_vs_cpu(
         [s["image_raw"] for s in samples[:4]], [s["mask_raw"] for s in samples[:4]])
+    stamp("6d step card vs cpu")
     result["micro_step"] = semantic_micro_steps(samples, card)
     del samples
-    result["host_batch_ms"] = semantic_host_batch_ms(img_dir, json_dir)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True
+    stamp("6d micro-steps")
+    # the proofs run beside the rest of 6d: its host batch and CLI runs are timed beside them
+    scene = write_synthetic_camvid_scene(root / "scene")
+    proofs = start_learning_proofs(scene, root)
     project = root / "runs"
     common = ["--cfg", "resnet50.json", "--img-dir", str(img_dir), "--json-dir", str(json_dir),
               "--val-img-dir", str(val_img), "--val-json-dir", str(val_json),
@@ -1865,6 +1887,10 @@ def semantic_train_path(card: str):
     steps = SEM_TRAIN_FRAMES // SEM_BS
     probe = CliProbe(cli)
     try:
+        result["host_batch_ms"] = semantic_host_batch_ms(img_dir, json_dir)
+        stamp("6d host batch")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
         torch.cuda.reset_peak_memory_stats()
         (dev_epochs, _), dev_launches = cli_launches(lambda: probe.run(
             common + ["--epochs", str(SEM_TRAIN_EPOCHS), "--name", "device",
@@ -1878,10 +1904,15 @@ def semantic_train_path(card: str):
         (host_epochs, _), host_launches = cli_launches(lambda: probe.run(
             common + ["--epochs", "1", "--name", "host"]))
         host_res = cli_results(project / "host")
-        scene = write_synthetic_camvid_scene(root / "scene")
+    except BaseException:
+        for proc, _ in proofs.values():  # no proof outlives a failed phase
+            proc.kill()
+        raise
     finally:
         probe.close()
-    PROOFS.update(learning_proofs(scene, root))
+    stamp("6d CLI runs")
+    PROOFS.update(join_learning_proofs(proofs, root))
+    stamp("6d learning proofs")
     golden = PROOFS.pop("resnet50.json")
     native_loaded = native.load() is not None
     train_s = dev_epochs[-1]["train_s"]  # the second epoch: warm
@@ -1926,7 +1957,7 @@ def semantic_train_path(card: str):
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
                 cli.main(["--project", str(project), "--name", "device", "--resume", "--epochs",
                           str(SEM_TRAIN_EPOCHS + 2), "--device", "cuda"])
                 torch.cuda.synchronize()
@@ -1946,7 +1977,7 @@ def semantic_train_path(card: str):
                 "idle_share": 1 - device_ms / wall_ms if device_ms else "not measured",
                 "top_ms": [[e.key[:80], round(e.self_device_time_total / 1e3, 3), e.count]
                            for e in top]}
-    return launches, profile
+    return launches, profile, {"train": (img_dir, json_dir), "val": (val_img, val_json)}
 
 
 @contextlib.contextmanager
@@ -1979,7 +2010,7 @@ def learning_proof(probe, scene, root: Path, project: Path, cfg: str, name: str,
     the launches and a digest of last.pt's tensors."""
     import hashlib
     from yolo_dual_tpu_torch.train.checkpoint import load_checkpoint
-    hyp = root / f"hyp_{name}.json"   # a file a proof: learning_proofs runs four at once
+    hyp = root / f"hyp_{name}.json"   # a file a proof: four run at once (start_learning_proofs)
     hyp.write_text(json.dumps(SEM_GOLDEN_HYP))
     t = time.perf_counter()
     with deterministic_algorithms(deterministic):
@@ -2000,39 +2031,51 @@ def learning_proof(probe, scene, root: Path, project: Path, cfg: str, name: str,
             "last_pt_sha1": digest.hexdigest()}
 
 
-# the four learning proofs run at once, each in its own process (learning_proofs), started by
-# phase 6d; 6e reads the YOLO configs' results from here
+# the four learning proofs run at once, each in its own process (start_learning_proofs), started
+# by phase 6d; 6e reads the YOLO configs' results from here
 PROOFS: dict = {}
 
 
-def learning_proofs(scene, root: Path) -> dict:
+def start_learning_proofs(scene, root: Path) -> dict:
     """The learning proofs of resnet50.json (6d) and YOLO_SEM_CFGS (6e), each
     `learning_proof` in a process of its own (`chip_smoke.py --learning-proof
     CFG NAME ROOT`), all four at once: they are host-bound (96 px, bs 4), and
     one after another they took 180–265 s. Each process runs under
     deterministic algorithms and counts its own K1 launches, so a proof's
-    result does not depend on the others beside it; its `run_s` is its wall
-    clock beside them. Returns {cfg: learning_proof's result}; a process that
-    fails raises with the tail of its log."""
+    result does not depend on what runs beside it; its `run_s` is its wall
+    clock beside them. Returns {cfg: (process, its name)} for
+    `join_learning_proofs`."""
     runs = {"resnet50.json": "golden", **{c: f"{c.removesuffix('.json')}_golden"
                                           for c in YOLO_SEM_CFGS}}
     env = dict(os.environ, OMP_NUM_THREADS="2")
     procs = {}
     for cfg, name in runs.items():   # stdout and stderr to files: a full pipe would block
         with open(root / f"{name}.out", "w") as o, open(root / f"{name}.log", "w") as e:
-            procs[cfg] = subprocess.Popen(
+            procs[cfg] = (subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--learning-proof", cfg, name,
                  str(root), str(scene[0]), str(scene[1])], stdout=o, stderr=e, env=env,
-                cwd=Path(__file__).resolve().parent)
+                cwd=Path(__file__).resolve().parent), name)
+    return procs
+
+
+def join_learning_proofs(procs: dict, root: Path) -> dict:
+    """Waits for `start_learning_proofs`' processes. Returns {cfg:
+    learning_proof's result}; a process that fails raises with the tail of
+    its log."""
     out = {}
-    for cfg, proc in procs.items():
-        proc.wait(timeout=900)
-        lines = [ln for ln in (root / f"{runs[cfg]}.out").read_text().splitlines()
-                 if ln.startswith("learning proof result ")]
-        if proc.returncode or not lines:
-            tail = (root / f"{runs[cfg]}.log").read_text()[-3000:]
-            raise AssertionError(f"learning proof of {cfg} exited {proc.returncode}: {tail}")
-        out[cfg] = json.loads(lines[-1].removeprefix("learning proof result "))
+    try:
+        for cfg, (proc, name) in procs.items():
+            proc.wait(timeout=900)
+            lines = [ln for ln in (root / f"{name}.out").read_text().splitlines()
+                     if ln.startswith("learning proof result ")]
+            if proc.returncode or not lines:
+                tail = (root / f"{name}.log").read_text()[-3000:]
+                raise AssertionError(f"learning proof of {cfg} exited {proc.returncode}: {tail}")
+            out[cfg] = json.loads(lines[-1].removeprefix("learning proof result "))
+    finally:
+        for proc, _ in procs.values():  # none outlives a failed one
+            if proc.poll() is None:
+                proc.kill()
     return out
 
 
@@ -2166,11 +2209,12 @@ def dcnv2_share(model, x, step: dict) -> dict:
     return out
 
 
-def yolo_semantic_path(card: str):
+def yolo_semantic_path(card: str, sets: dict):
     """Phase 6e: the YOLO semantic family, each config of YOLO_SEM_CFGS at full
     width and depth (seeded weights, DCNv2 offset heads drawn, BatchNorm
-    calibrated on 4 frames at fill 128) on a CamVid-style set written under
-    build/ (6c's writer: 48 train + 16 val 720x960 frames). (a) `semantic.val.run`
+    calibrated on 4 frames at fill 128) on 6d's CamVid-style set (`sets`:
+    its "train" and "val" (images, json) directories, 6c's writer, 48 train +
+    16 val 720x960 frames; its mask caches written by 6d's runs). (a) `semantic.val.run`
     at bs 16 on the device route over the 48 frames (the K1 count set to 0 just
     before reads 3), its speed line and img/s; 4 frames card against CPU under
     6c's limits (TF32 read, not required to break them); `semantic.predict.run`
@@ -2193,9 +2237,9 @@ def yolo_semantic_path(card: str):
     from yolo_dual_tpu_torch.train.checkpoint import load_checkpoint
     root = Path(__file__).resolve().parent / "build" / "phase6e"
     shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
     t = time.perf_counter()
-    img_dir, json_dir = write_semantic_set(root / "train", SEM_TRAIN_FRAMES, seed=41)
-    val_img, val_json = write_semantic_set(root / "val", SEM_VAL_FRAMES, seed=42)
+    (img_dir, json_dir), (val_img, val_json) = sets["train"], sets["val"]
     ds = JSONSegmentDataset(img_dir, json_dir, 640, augment=True, seed=0, device_preprocess=True)
     samples = [ds[i] for i in range(2 * SEM_BS)]
     frames4 = [s["image_raw"] for s in samples[:SEM_CHECK_FRAMES]]
@@ -2260,10 +2304,13 @@ def yolo_semantic_path(card: str):
             r["fused_forward_argmax_bs32"] = {"ms": fms, "img_per_s": SEM_INFER_BS / fms * 1e3}
             del model, x
             torch.cuda.empty_cache()
+            stamp(f"6e {name} val, card vs cpu, predict, bs-32 forward")
             # (b) the micro-step, and one step card against CPU
             r["micro_step"] = semantic_micro_steps(samples, card, cfg)
+            stamp(f"6e {name} micro-steps")
             r["step_card_vs_cpu"] = semantic_step_card_vs_cpu(frames4, masks4, cfg, earned=True,
                                                               prepare=prepare)
+            stamp(f"6e {name} step card vs cpu")
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = True
             # (c) semantic.train: one device-route epoch
@@ -2298,7 +2345,8 @@ def yolo_semantic_path(card: str):
                         or ul["letterbox_normalize"] != 2 * steps \
                         or any(gap[k] > RESUME_TOL[k] for k in gap):
                     problems.append(f"{name} --resume: {r['resume_vs_uninterrupted']}")
-            # (d) the learning proof, run beside 6d's (learning_proofs)
+            stamp(f"6e {name} CLI runs")
+            # (d) the learning proof, run beside 6d's (start_learning_proofs)
             proof = PROOFS.pop(cfg)
             proof["floor"] = YOLO_SEM_GOLDEN[cfg] - 0.05
             r["learning_proof"] = proof
@@ -2338,7 +2386,7 @@ ZOO_CONF = 0.05  # checks and timed calls: a random network keeps few or no rows
 ZOO_CHECK_MAX_DET = 1000  # card vs CPU: no max_det cut
 ZOO_RAW_TOL = 1e-3  # card vs CPU, TF32 off: raw head maps within this share of a map's largest
 ZOO_BOX_TOL, ZOO_CONF_TOL, ZOO_NEAR = 0.05, 1e-4, 1e-4  # px; confidence; a near tie
-ZOO_FRAMES, ZOO_BATCH = 4, 8
+ZOO_FRAMES, ZOO_BATCH = 3, 8  # a frame of each of MAIN_SHAPES' sizes
 
 
 def earned_pairs(cpu_model, x, raw_g, raw_c, pair_all, left):
@@ -2380,8 +2428,8 @@ def detect_zoo_path(card: str) -> dict:
     TF32 convolutions (torch's default), each beside the rows its last call
     returned: the bs-32 fused forward + nms_from_raw over the letterboxed
     frames in img/s (CUDA events) and its peak memory; AutoShape at batch 1
-    on each frame and at ZOO_BATCH, ms a call split into host letterbox /
-    forward + NMS / rescale (host clock). Every config's
+    on each frame and at ZOO_BATCH, ms of one call after a warm-up, split
+    into host letterbox / forward + NMS / rescale (host clock). Every config's
     failure fails the phase. The
     path launches none of K1-K3 (AutoShape letterboxes on the host): the
     counts, set to 0 before each config's AutoShape calls and read after them,
@@ -2400,7 +2448,7 @@ def detect_zoo_path(card: str) -> dict:
     frames = make_frames(ZOO_FRAMES, seed=5)
     calib = make_frames(4, seed=6)
     x = torch.from_numpy(np.stack([letterbox(f, 640)[0] for f in frames])).permute(0, 3, 1, 2)
-    x32 = x.repeat(32 // len(frames), 1, 1, 1).cuda().float() / 255
+    x32 = x[torch.arange(32) % len(frames)].cuda().float() / 255
     launches = {k.__name__: 0 for k in kernels}
     failures = []
     for cfg in DETECT_ZOO:
@@ -2463,10 +2511,8 @@ def detect_zoo_path(card: str) -> dict:
 
         def autoshape_ms(batch):
             api(batch)  # warm-up at this batch
-            parts = np.zeros(3)
-            for _ in range(3):
-                out = api(batch)
-                parts += np.array(out.t) * len(batch) / 3
+            out = api(batch)
+            parts = np.array(out.t) * len(batch)
             return {"letterbox": parts[0], "forward_nms": parts[1], "rescale": parts[2],
                     "call": float(parts.sum()), "rows": sum(len(d) for d in out.dets)}
         row["autoshape_bs1_ms"] = [{"frame": "x".join(map(str, f.shape[:2])), **autoshape_ms([f])}
@@ -2917,7 +2963,7 @@ def auxota_path(card: str):
     api = AutoShape(serve_model, imgsz=640, conf=AUX_SERVE_CONF)
     frames = make_frames(ZOO_FRAMES, seed=5)
     x32 = torch.from_numpy(np.stack([letterbox(f, 640)[0] for f in frames])).permute(0, 3, 1, 2)
-    x32 = x32.repeat(32 // len(frames), 1, 1, 1).cuda().float() / 255
+    x32 = x32[torch.arange(32) % len(frames)].cuda().float() / 255
 
     def step():
         with torch.inference_mode():
@@ -3636,8 +3682,7 @@ def serve_path(card: str):
                 client(det["bodies"][0])
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with torch_profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA]) as prof:
+                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for body in det["bodies"]:
                         client(body)
                     torch.cuda.synchronize()
@@ -4420,7 +4465,7 @@ def profile_steps(trainer, state, batches, step_ms: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for b in batches:
             trainer.train_step(state, b)
         torch.cuda.synchronize()
@@ -4750,7 +4795,7 @@ def cli_train_path(card: str, micro_step_ms: float):
         from yolo_dual_tpu_torch.segment import train as cli
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             cli.main(["--project", str(project), "--name", "f32", "--resume", "--epochs",
                       str(CLI_EPOCHS + 2)])
             torch.cuda.synchronize()
@@ -4883,73 +4928,141 @@ def host_step_card_vs_cpu(batch: dict) -> dict:
             "tolerance": HOST_STEP_TOL}
 
 
-def remat_phase(batch: dict, card: str) -> dict:
-    """--remat on one bs-16 host batch: a micro-step (accumulate 4, so no
-    optimizer update; TF32 off) of two copies of yolov5s-seg-dcnv3, one plain
-    and one rematerialised, launches counted: loss items and gradients within
-    REMAT_TOL of the largest (grad_gaps), the BatchNorm statistics equal; then
-    each timed with TF32 convolutions (CUDA events) with its peak memory."""
+# Phase 6p: per-layer rematerialisation (models/model.py:GraphModel remat_layers, JAX's
+# GraphModel.remat_layers) on phase 10b's host batch: yolov5s-seg-dcnv3 at full width and depth,
+# 640 px, bs 16, accumulate 4, SGD with hyp.scratch-low; each setting's micro-step against the
+# plain one, and Trainer(remat=True) (the whole forward recomputed) beside them
+REMAT_SETTINGS = {"plain": {}, "remat_layers=True": {"remat_layers": True},
+                  "remat_layers=(0, 1, 2, 3, 4)": {"remat_layers": (0, 1, 2, 3, 4)},
+                  "remat_layers=(4, 6, 8)": {"remat_layers": (4, 6, 8)},
+                  "Trainer(remat=True)": {"remat": True}}
+REMAT_HYP = "hyp.scratch-low.json"
+REMAT_TIMED = 4  # timed micro-steps a setting, after one warm-up
+REMAT_BS32_SHARE = 0.9  # the bs-32 step runs where twice True's bs-16 peak is under this share
+
+
+def remat_layers_path(batch: dict, card: str) -> dict:
+    """Phase 6p. For each of REMAT_SETTINGS a fresh yolov5s-seg-dcnv3 with phase
+    7's weights takes one micro-step of the bs-16 host batch (TF32 off, 10b's
+    setting; K2 and K3 counted, set to 0 just before): loss items and
+    gradients within REMAT_TOL of the largest (grad_gaps) and the BatchNorm
+    statistics equal to the plain step's (updated once), K2 launching once a
+    DCNv3 call plus once more for each call in a wrapped row (all six under
+    Trainer(remat=True)), K3 once a call. Then each is timed with TF32
+    convolutions, as the CLI trains: ms a micro-step (CUDA events over
+    REMAT_TIMED after one warm-up) and the peak GB of that window, beside the
+    GB the process held as it began (the model, its gradients and optimizer
+    state, and what earlier phases keep alive). Then one
+    bs-32 micro-step (the batch twice, accumulate 2) with remat_layers=True
+    where twice its bs-16 peak is under REMAT_BS32_SHARE of the card's
+    memory, its ms and peak; else why not. Returns the checked steps'
+    launches."""
     from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    from yolo_dual_tpu_torch.models.model import SegmentationModel, remat_rows
+    from yolo_dual_tpu_torch.nn.dcn import DCNv3
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
-    base = dcnv3_train_model()
+    weights = dcnv3_train_model().state_dict()
     gpu_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
                  if k in ("image", "targets", "tmask", "masks")}
-    runs = {}
-    for remat in (False, True):
-        m = copy.deepcopy(base)
-        trainer, state = train_setup(m, TRAIN_BS, ACCUMULATE, hyp_name=HOST_HYP, remat=remat)
-        # the checked step with TF32 off: with it on, the two runs' convolutions may take
-        # algorithms of other TF32 roundings (their free memory differs), ~1e-3 apart
+    n_dcn = sum(DCN_PATH_SHAPES.values())
+
+    def model_of(kw):
+        m = SegmentationModel("yolov5s-seg-dcnv3.json", device="cuda",
+                              remat_layers=kw.get("remat_layers", False))
+        m.load_state_dict(weights, strict=True)
+        return m
+    runs, problems = {}, []
+    launches = {"dcnv3_sampling": 0, "dcnv3_sampling_backward": 0}
+    for name, kw in REMAT_SETTINGS.items():
+        m = model_of(kw)
+        rows = remat_rows(m.spec, kw.get("remat_layers", False))
+        wrapped = sum(isinstance(d, DCNv3) for i in rows for d in m.model[i].modules())
+        trainer, state = train_setup(m, TRAIN_BS, ACCUMULATE, hyp_name=REMAT_HYP,
+                                     remat=kw.get("remat", False))
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.synchronize()
         dcnv3_sampling.launches = dcnv3_sampling_backward.launches = 0
         state, metrics = trainer.train_step(state, gpu_batch)
         torch.cuda.synchronize()
-        torch.backends.cudnn.allow_tf32 = True  # timed as the CLI trains
-        launches = {"dcnv3_sampling": dcnv3_sampling.launches,
-                    "dcnv3_sampling_backward": dcnv3_sampling_backward.launches}
+        got = {"dcnv3_sampling": dcnv3_sampling.launches,
+               "dcnv3_sampling_backward": dcnv3_sampling_backward.launches}
+        torch.backends.cudnn.allow_tf32 = True
+        want = {"dcnv3_sampling": n_dcn + (n_dcn if kw.get("remat") else wrapped),
+                "dcnv3_sampling_backward": n_dcn}
+        if got != want:
+            problems.append(f"{name}: launches {got}, expected {want}")
+        for k in launches:
+            launches[k] += got[k]
         first = {"items": metrics["items"].cpu(),
                  "grads": {k: q.grad.detach().cpu() for k, q in m.named_parameters()},
                  "buffers": {k: b.detach().cpu() for k, b in m.named_buffers()}}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        step_ms = cuda_ms(lambda: trainer.train_step(state, gpu_batch), 4, warmup=1)
-        runs[remat] = {**first, "launches": launches, "micro_step_ms": step_ms,
-                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        held = torch.cuda.memory_allocated()  # the process's tensors, this model's among them
+        step_ms = cuda_ms(lambda: trainer.train_step(state, gpu_batch), REMAT_TIMED, warmup=1)
+        runs[name] = {**first, "launches": got, "rows": sorted(rows), "micro_step_ms": step_ms,
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "held_before_gb": held / 1e9}
+        print(f"6p {name} ({card}): {step_ms:.2f} ms a micro-step, "
+              f"{runs[name]['peak_memory_gb']:.3f} GB peak ({held / 1e9:.3f} GB held before), "
+              f"K2 {got['dcnv3_sampling']} K3 {got['dcnv3_sampling_backward']} a micro-step",
+              flush=True)
         del m, trainer, state
         torch.cuda.empty_cache()
-    plain, rem = runs[False], runs[True]
-    gaps = grad_gaps(rem["grads"], plain["grads"])
-    # equal, or (where the card's reductions are not bitwise repeatable) the batch counts
-    # equal and the statistics within STATS_SHARE: a second update would move them by about
-    # the momentum (0.03) times their distance from the batch statistics
-    stats_equal = all(torch.equal(rem["buffers"][k], v) for k, v in plain["buffers"].items())
-    stats_share = max(share(rem["buffers"][k], v) for k, v in plain["buffers"].items()
-                      if v.is_floating_point() and v.abs().max() > 0)
-    counts_equal = all(torch.equal(rem["buffers"][k], v) for k, v in plain["buffers"].items()
-                       if not v.is_floating_point())
+    plain = runs["plain"]
     out = {"card": card, "bs": TRAIN_BS, "imgsz": TRAIN_IMGSZ, "accumulate": ACCUMULATE,
-           "plain": {k: plain[k] for k in ("launches", "micro_step_ms", "peak_memory_gb")},
-           "remat": {k: rem[k] for k in ("launches", "micro_step_ms", "peak_memory_gb")},
-           "items_share": share(rem["items"], plain["items"]), "grads": gaps,
-           "batchnorm_stats_equal": stats_equal, "batchnorm_counts_equal": counts_equal,
-           "batchnorm_stats_share": stats_share, "tolerance": REMAT_TOL}
-    print("remat " + json.dumps(out), flush=True)
-    n_dcn = sum(DCN_PATH_SHAPES.values())
-    problems = []
-    if plain["launches"] != {"dcnv3_sampling": n_dcn, "dcnv3_sampling_backward": n_dcn}:
-        problems.append(f"plain micro-step launches {plain['launches']}")
-    if rem["launches"] != {"dcnv3_sampling": 2 * n_dcn, "dcnv3_sampling_backward": n_dcn}:
-        problems.append(f"remat micro-step launches {rem['launches']}")
-    if out["items_share"] > REMAT_TOL or gaps["share_of_largest"] > REMAT_TOL:
-        problems.append(f"remat against plain: items {out['items_share']}, "
-                        f"gradients {gaps['share_of_largest']}")
-    if not (stats_equal or (counts_equal and stats_share <= STATS_SHARE)):
-        problems.append(f"remat changed the BatchNorm statistics (share {stats_share}, "
-                        f"counts equal {counts_equal})")
+           "hyp": REMAT_HYP, "tolerance": REMAT_TOL, "settings": {}}
+    for name, r in runs.items():
+        gaps = grad_gaps(r["grads"], plain["grads"])
+        pb, rb = plain["buffers"], r["buffers"]
+        stats_equal = all(torch.equal(rb[k], v) for k, v in pb.items())
+        # where the card's reductions are not bitwise repeatable: the batch counts equal and
+        # the statistics within STATS_SHARE (a second update would move them by ~the momentum)
+        counts_equal = all(torch.equal(rb[k], v) for k, v in pb.items()
+                           if not v.is_floating_point())
+        stats_share = max(share(rb[k], v) for k, v in pb.items()
+                          if v.is_floating_point() and v.abs().max() > 0)
+        row = {k: r[k] for k in ("rows", "launches", "micro_step_ms", "peak_memory_gb",
+                                 "held_before_gb")}
+        row.update({"items_share": share(r["items"], plain["items"]), "grads": gaps,
+                    "batchnorm_stats_equal": stats_equal, "batchnorm_counts_equal": counts_equal,
+                    "batchnorm_stats_share": stats_share})
+        out["settings"][name] = row
+        if row["items_share"] > REMAT_TOL or gaps["share_of_largest"] > REMAT_TOL:
+            problems.append(f"{name} against plain: items {row['items_share']}, "
+                            f"gradients {gaps['share_of_largest']}")
+        if not (stats_equal or (counts_equal and stats_share <= STATS_SHARE)):
+            problems.append(f"{name} changed the BatchNorm statistics (share {stats_share}, "
+                            f"counts equal {counts_equal})")
+    del runs, plain
+    total = torch.cuda.mem_get_info()[1]
+    need = 2 * out["settings"]["remat_layers=True"]["peak_memory_gb"] * 1e9
+    if need < REMAT_BS32_SHARE * total:
+        kw = REMAT_SETTINGS["remat_layers=True"]
+        m = model_of(kw)
+        trainer, state = train_setup(m, 2 * TRAIN_BS, ACCUMULATE // 2, hyp_name=REMAT_HYP)
+        b32 = {k: torch.cat([v, v]) for k, v in gpu_batch.items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = cuda_ms(lambda: trainer.train_step(state, b32), 2, warmup=1)
+        out["bs32_remat_layers_true"] = {"bs": 2 * TRAIN_BS, "accumulate": ACCUMULATE // 2,
+                                         "micro_step_ms": ms,
+                                         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                         "held_before_gb": held / 1e9}
+        del m, trainer, state, b32
+        torch.cuda.empty_cache()
+    else:
+        out["bs32_remat_layers_true"] = (
+            f"not run: twice the bs-16 peak, {need / 1e9:.3f} GB, is not under "
+            f"{REMAT_BS32_SHARE} of the card's {total / 1e9:.3f} GB")
+    out["phase_6p_s"] = time.perf_counter() - t0
+    print("remat layers (6p) " + json.dumps(out), flush=True)
+    print(f"phase 6p s {out['phase_6p_s']:.2f}", flush=True)
     if problems:
-        raise AssertionError("remat: " + "; ".join(problems))
-    return {k: plain["launches"][k] + rem["launches"][k] for k in plain["launches"]}
+        raise AssertionError("6p remat_layers: " + "; ".join(problems))
+    return launches
 
 
 def write_rect_set(root: Path, src: Path, cfg: str) -> Path:
@@ -5074,9 +5187,9 @@ def host_route_path(card: str, device_epoch_img_s: float):
     """Phase 10b on phase 10's dataset: (a) segment.train on the host route
     (yolov5s-seg-dcnv3, hyp.scratch-high, 640 px, bs 16, f32, 1 epoch,
     --image-weights --cache disk; launches counted), one host batch timed by
-    part and its first micro-step card vs CPU; (b) --remat against the plain
-    micro-step; (c) segment.val --rect --task train on its frames, relabelled.
-    Returns the launches of (a) and (b)."""
+    part and its first micro-step card vs CPU; (b) segment.val --rect --task
+    train on its frames, relabelled. Returns the launches of (a) and the host
+    batch (phase 6p's)."""
     from yolo_dual_tpu_torch.io.weights import load_state_dict_file
     from yolo_dual_tpu_torch.models.model import SegmentationModel
     t0 = time.perf_counter()
@@ -5119,10 +5232,9 @@ def host_route_path(card: str, device_epoch_img_s: float):
           flush=True)
     if check["items_share"] > HOST_STEP_TOL or check["grads"]["share_of_largest"] > HOST_STEP_TOL:
         raise AssertionError(f"host micro-step card vs CPU: {check}")
-    remat_launches = remat_phase(batch, card)
     rect_val_phase(root, card)
     print(f"phase 10b s {time.perf_counter() - t0:.2f}", flush=True)
-    return launches, remat_launches
+    return launches, batch
 
 
 # --- phase 6k: data parallelism over torch.distributed and the utils layer ----------------
@@ -5810,7 +5922,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sp-rank", metavar="DIR",
                     help="run as a rank of phase 6m under torch.distributed.run (DIR: its job)")
     ap.add_argument("--learning-proof", nargs=5, metavar=("CFG", "NAME", "ROOT", "IMAGES", "JSON"),
-                    help="run one learning proof of 6d / 6e in this process (learning_proofs)")
+                    help="run one learning proof of 6d / 6e in this process "
+                         "(start_learning_proofs)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -5899,11 +6012,11 @@ def main(argv=None) -> int:
     elapsed("6c")
     # 6d. the semantic flagship trains: one step card vs CPU, semantic.train on both routes,
     # --resume, the learning proof
-    semantic_train_k1, semantic_train_profile = semantic_train_path(card)
+    semantic_train_k1, semantic_train_profile, semantic_set = semantic_train_path(card)
     by_path["train semantic resnet50"] = {"letterbox_normalize": sum(semantic_train_k1.values())}
     elapsed("6d")
     # 6e. the YOLO semantic family: semantic.val, .predict, .train, the learning proofs
-    yolo_k1, yolo_paths = yolo_semantic_path(card)
+    yolo_k1, yolo_paths = yolo_semantic_path(card, semantic_set)
     by_path["eval semantic yolo"] = {"letterbox_normalize": yolo_paths["eval"]}
     by_path["train semantic yolo"] = {"letterbox_normalize": yolo_paths["train"]}
     elapsed("6e")
@@ -5954,10 +6067,14 @@ def main(argv=None) -> int:
     by_path["train CLI yolov5s-seg-dcnv3"], cli_profile, device_epoch_img_s = \
         cli_train_path(card, step_ms)
     elapsed("10")
-    # 10b. the host augmentation route, --remat and rect validation on phase 10's set
-    by_path["train CLI host route"], by_path["remat micro-steps"] = \
-        host_route_path(card, device_epoch_img_s)
+    # 10b. the host augmentation route and rect validation on phase 10's set
+    by_path["train CLI host route"], host_batch = host_route_path(card, device_epoch_img_s)
     elapsed("10b")
+    # 6p. per-layer rematerialisation (remat_layers) and --remat on 10b's host batch: each
+    # setting's micro-step against the plain one (K2 twice in a wrapped DCNv3 row, K3 once)
+    by_path["remat micro-steps"] = remat_layers_path(host_batch, card)
+    del host_batch
+    elapsed("6p")
     # 6k. data parallelism on 2 ranks sharing the card (K2, K3 and K1 on the ranks' paths)
     # and the utils layer, on a cut of phase 10's set
     by_path["data parallel and utils"] = data_parallel_path(card)
@@ -5971,6 +6088,7 @@ def main(argv=None) -> int:
     # then phase 7's profiled accumulation cycle: after a session of CPU and CUDA activity
     # the later sessions of the process missed or doubled kernel records
     device_phase(lres, dres, bres)
+    stamp("9 device times")
     from yolo_dual_tpu_torch.kernels.preprocess import letterbox_normalize
     eval_k1 = profiled_kernel_ms(lambda: letterbox_normalize(eval_batch, 640, scaleup=False),
                                  "letterbox", 20)
@@ -5979,16 +6097,22 @@ def main(argv=None) -> int:
     del eval_batch
     trained_inputs_phase(trained)
     del trained
+    stamp("9 trained inputs")
     print("train profile " + json.dumps(train_profile()), flush=True)
     del train_profile
+    stamp("9 train profile")
     print("train cli epoch profile " + json.dumps(cli_profile()), flush=True)
     del cli_profile
+    stamp("9 train cli epoch profile")
     print("semantic val profile " + json.dumps(semantic_profile()), flush=True)
     del semantic_profile
+    stamp("9 semantic val profile")
     print("semantic train epoch profile " + json.dumps(semantic_train_profile()), flush=True)
     del semantic_train_profile
+    stamp("9 semantic train epoch profile")
     print("auxota train profile " + json.dumps(auxota_profile()), flush=True)
     del auxota_profile
+    stamp("9 auxota train profile")
     print("serve burst profile " + json.dumps(serve_profile()), flush=True)
     del serve_profile
     elapsed("9 and the profiles")

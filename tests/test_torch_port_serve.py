@@ -4,7 +4,10 @@
   for cv2's: round trips of grey, grey + alpha, BGR and BGRA at odd shapes
   under each row filter, read back by cv2 too; the PNGs cv2 writes at
   compression 0-9 (libpng picks Sub, Up, Average and Paeth rows) decoded
-  exactly; the refusals (16-bit, interlaced, palette, damaged).
+  exactly; a 16-bit PNG as cv2 decodes it; the refusals (a header that
+  does not fit its data, damaged files). A 16-bit, an interlaced and a
+  palette PNG get JAX's server's detections (tests/test_torch_port_png.py
+  holds the decoder against cv2 on every kind).
 - JAX's root serve.py and the port's serve.py (--device cpu), each on port 0
   in a daemon thread, answer the same requests with the same status codes:
   PNG and JPEG bodies, an empty body, garbage, /health and other paths.
@@ -127,10 +130,12 @@ def test_png_refusals():
     x = frames(2)[1]
     buf = png.encode(x)
     ok, b16 = cv2.imencode(".png", x.astype(np.uint16) * 257)
-    assert ok
-    for bad, match in ((b16.tobytes(), "bit depth 16"),
-                       (_with_ihdr(buf, interlace=1), "interlaced"),
-                       (_with_ihdr(buf, ctype=3), "palette"), (b"\xff\xd8\xff" + buf, "not a PNG"),
+    assert ok  # a 16-bit PNG decodes as cv2 decodes it (tests/test_torch_port_png.py)
+    np.testing.assert_array_equal(png.decode(b16.tobytes(), color=True),
+                                  cv2.imdecode(b16, cv2.IMREAD_COLOR))
+    for bad, match in ((_with_ihdr(buf, interlace=2), "interlace method"),
+                       (_with_ihdr(buf, interlace=1), "too short|filter type"),
+                       (_with_ihdr(buf, ctype=3), "PLTE"), (b"\xff\xd8\xff" + buf, "not a PNG"),
                        (buf[:40], "truncated|short|CRC|without"),
                        (buf[:33] + buf[33:37] + b"JUNK" + buf[41:], "CRC")):
         with pytest.raises(ValueError, match=match):
@@ -288,11 +293,26 @@ def test_clients_cross_servers(detect_servers):
 
 
 def test_refusals_name_what_is_missing(detect_servers, monkeypatch):
-    (_, port_url), _ = detect_servers
+    from test_torch_port_png import write_png
+    (jax_url, port_url), _ = detect_servers
     x = frames(6)[0]
-    status, _, reason = request(port_url, "/predict", cv2.imencode(".png", x.astype(np.uint16))[1]
-                                .tobytes())
-    assert status == 400 and "bit depth 16" in reason   # JAX's cv2 reads it (ROADMAP §C)
+    # what JAX's cv2 reads the port's codec reads too: a 16-bit, an interlaced and a palette
+    # PNG of the frame get JAX's server's detections
+    rng = np.random.default_rng(6)
+    colours, index = np.unique((x // 32 * 32 + 16).reshape(-1, 3), axis=0, return_inverse=True)
+    for body in (cv2.imencode(".png", x.astype(np.uint16) * 257)[1].tobytes(),
+                 write_png(x[..., ::-1], 2, 8, True, rng),
+                 write_png(index.reshape(*x.shape[:2], 1), 3, 8, False, rng,
+                           plte=colours[:, ::-1])):
+        status, got, _ = request(port_url, "/predict", body)
+        assert status == 200
+        want = json.loads(request(jax_url, "/predict", body)[1])["detections"]
+        got = json.loads(got)["detections"]
+        w = np.array([[*d["box"], d["conf"], d["cls"]] for d in want], np.float64).reshape(-1, 6)
+        g = np.array([[*d["box"], d["conf"], d["cls"]] for d in got], np.float64).reshape(-1, 6)
+        _, ties, left_w, left_g = pair_detections(w, g, conf_thres=0.25, box_tol=1e-3,
+                                                  conf_tol=1e-5)
+        assert len(g) == len(w) > 0 and not len(left_w) and not len(left_g), ties
     monkeypatch.setitem(sys.modules, "cv2", None)       # a machine without cv2
     status, _, reason = request(port_url, "/predict", bodies(6)["jpeg0"])
     assert status == 400 and "cv2" in reason

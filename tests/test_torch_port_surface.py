@@ -134,7 +134,6 @@ EXCLUDED = {
     "models.compiler.build_module:name": "the port builds from the LayerSpec that holds it",
     "models.compiler.build_module:kwargs": "the port builds from the LayerSpec that holds them",
     "models.compiler.build_module:layer_name": "flax's module name",
-    "models.compiler.build_module:remat": "flax's per-layer remat; the port's is Trainer(remat)",
     "models.model.GraphModel:fused": "the port folds in place (GraphModel.fuse)",
     "models.model.initialize_detect_biases:spec": "the port reads the model's own head",
     "models.model.ClassificationModel:dtype": "flax's compute dtype; the port's is "
@@ -177,7 +176,6 @@ MODEL_BUILDER_KW = {
     "blocked_stem": "TPU scheduling (nn/blocked_train.py)",
     "fused_bn": "the flax BatchNorm VJP, TPU scheduling",
     "fused_bn_act": "the flax BatchNorm VJP, TPU scheduling",
-    "remat_layers": "flax's per-layer remat; the port's is Trainer(remat)",
 }
 EXCLUDED.update({f"models.model.{m}:{k}": reason for m in (
     "BaseModel", "DetectionModel", "SegmentationModel", "SemanticSegModel", "GraphModel")

@@ -130,7 +130,7 @@ def test_reference_pt_reads_as_jax_imports_it(case, tmp_path):
             jax_import(template, sd_np, spec=jm.spec)
         with pytest.raises(ValueError, match="matched 0"):
             jax_import(template, sd_np, spec=jm.spec, strict=False)
-        with pytest.raises(ValueError, match="strict torch import failed"):
+        with pytest.raises(ValueError, match="matched 0"):
             resolve_state_dict(path, port)
         with pytest.raises(ValueError, match="matched 0"):
             import_torch_state_dict(port, torch.load(path, weights_only=True), strict=False)

@@ -69,8 +69,9 @@ def _rank(rank: int, world: int, init: str, out_dir: str, job_file: str):
 
 def build_trainer(job: dict, mesh=None):
     """(Trainer, state) of `job`'s task from its config and state_dict: SGD on
-    its `hyp` at inner step `count`, the EMA, the task's loss, and `remat`
-    and the model's `dtype` (float32) where the job sets them."""
+    its `hyp` at inner step `count`, the EMA, the task's loss, and `remat`,
+    the model's `remat_layers` and its `dtype` (float32) where the job sets
+    them."""
     from yolo_dual_tpu_torch.classify.train import build_classifier
     from yolo_dual_tpu_torch.losses.segment import ComputeSegmentLoss
     from yolo_dual_tpu_torch.losses.semantic import SemanticSegLoss
@@ -79,13 +80,14 @@ def build_trainer(job: dict, mesh=None):
     from yolo_dual_tpu_torch.train.optim import smart_optimizer
     from yolo_dual_tpu_torch.train.trainer import Trainer, classify_loss
     task = job["task"]
+    remat_layers = job.get("remat_layers", False)
     if task == "segment":
-        model = SegmentationModel(job["cfg"], device="cpu")
+        model = SegmentationModel(job["cfg"], device="cpu", remat_layers=remat_layers)
         head = model.model[-1]
         loss = ComputeSegmentLoss(head.anchors, head.strides, model.nc, head.nm, job["hyp"],
                                   overlap=True)
     elif task == "semantic":
-        model = SemanticSegModel(job["cfg"], device="cpu")
+        model = SemanticSegModel(job["cfg"], device="cpu", remat_layers=remat_layers)
         loss = SemanticSegLoss(model.nc, flavor="dice")
     else:
         model = build_classifier(job["cfg"], job["nc"], device="cpu")

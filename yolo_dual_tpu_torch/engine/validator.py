@@ -129,7 +129,9 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     train CLI's --dtype bf16 model; its outputs are converted to float32.
     augment: the test-time augmentation of models/model.py:forward_augment,
     whose decoded predictions go through nms_batched, its masks from the
-    identity pass' protos (JAX engine/validator.py:67-79). use_soft_nms:
+    identity pass' protos (JAX engine/validator.py:67-79); on a space mesh
+    it runs gathered, the whole frames on every space rank, as
+    models/model.py:_walk runs a gathered layer. use_soft_nms:
     Gaussian soft-NMS in place of the greedy one. Batches may differ in
     (h, w) (rect buckets, data/dataset.py): the head's grids, the NMS and the
     masks follow each batch's shape. verbose: a row of the 8 metrics for each
@@ -144,9 +146,6 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
     then > 0.5; with `anno_json`, COCOeval where pycocotools is installed.
     """
     dev = select_device(device)
-    if augment and mesh is not None and mesh.sp > 1:
-        raise ValueError("test-time augmentation rescales the frames and does not run on a "
-                         "space mesh")
     model = model.to(dev).eval()
     if fuse:
         model.fuse()
@@ -172,8 +171,9 @@ def evaluate_segment(model, loader, nc: int, conf_thres: float = 0.001, iou_thre
         with dt[1], torch.inference_mode():
             with torch.autocast(dev.type, dtype=amp_dtype or torch.float32,
                                 enabled=amp_dtype is not None), spatial.spatial(mesh):
-                if augment:
-                    pred, protos = forward_augment(model, image)
+                if augment:  # gathered: the whole frames on every space rank, whose scales
+                    with spatial.whole_maps():  # give heights the bands need not divide
+                        pred, protos = forward_augment(model, image)
                 else:
                     levels, protos = model(_band(image, mesh), decode=False)
             if augment:

@@ -110,16 +110,9 @@ def port_state_dict(state_dict: dict, spec=None):
             yield named(key, name, v)
 
 
-def translate_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool = True,
-                         verbose: bool = False) -> dict:
-    """The whole state_dict of `model` with the entries of the torch
-    `state_dict` (reference or JAX-exported layout) in place of its own,
-    by JAX's rules (io/torch_import.py:135-239): a source key whose name or
-    shape matches no entry is unmatched (a duplicate ResNet `downsample`
-    is skipped), an entry of the model that no key fills is missing, leaving
-    aside the buffers JAX skips. `strict` raises ValueError on either; a
-    file that fills nothing raises whatever `strict` says. The counts are
-    logged where an entry is missing or a key unmatched, or with `verbose`."""
+def _match(model: torch.nn.Module, state_dict: dict):
+    """(the model's state_dict, its entries the file fills, the file's keys
+    that fill none, the model's entries no key fills) by JAX's rules."""
     own = model.state_dict()
     take, unmatched = {}, []
     for key, name, v in port_state_dict(state_dict, getattr(model, "spec", None)):
@@ -133,6 +126,26 @@ def translate_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool 
         else:
             take[name] = v.to(own[name].dtype)
     missing = [k for k in own if k not in take and not k.endswith(SKIP_SUFFIXES)]
+    return own, take, unmatched, missing
+
+
+def missing_entries(model: torch.nn.Module, state_dict: dict) -> list:
+    """The entries of `model` that the torch `state_dict` leaves unfilled
+    (`translate_state_dict`'s missing ones)."""
+    return _match(model, state_dict)[3]
+
+
+def translate_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool = True,
+                         verbose: bool = False) -> dict:
+    """The whole state_dict of `model` with the entries of the torch
+    `state_dict` (reference or JAX-exported layout) in place of its own,
+    by JAX's rules (io/torch_import.py:135-239): a source key whose name or
+    shape matches no entry is unmatched (a duplicate ResNet `downsample`
+    is skipped), an entry of the model that no key fills is missing, leaving
+    aside the buffers JAX skips. `strict` raises ValueError on either; a
+    file that fills nothing raises whatever `strict` says. The counts are
+    logged where an entry is missing or a key unmatched, or with `verbose`."""
+    own, take, unmatched, missing = _match(model, state_dict)
     if verbose or unmatched or missing:
         LOGGER.info(f"torch import: filled {len(take)} entries, {len(missing)} missing, "
                     f"{len(unmatched)} unmatched source keys")

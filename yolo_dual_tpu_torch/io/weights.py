@@ -12,14 +12,15 @@ of the mapping in yolo_dual_tpu/train/checkpoint.py:92-143
 
 from __future__ import annotations
 
+import copy
 import re
 
 import numpy as np
 import torch
 
 from yolo_dual_tpu_torch.io.ocdbt import OrbaxCheckpoint
-from yolo_dual_tpu_torch.io.torch_import import (load_torch_checkpoint, port_state_dict,
-                                                 translate_state_dict)
+from yolo_dual_tpu_torch.io.torch_import import (load_torch_checkpoint, missing_entries,
+                                                 port_state_dict, translate_state_dict)
 
 
 def _flatten(tree, path=()):
@@ -121,10 +122,14 @@ def state_dict_from_orbax(path, prefer_ema: bool = True) -> dict:
 def resolve_state_dict(weights, model=None) -> dict:
     """The state_dict of a weights path under the port's names (JAX
     io/weights.py:12 resolve_variables). A `.pt` file goes through JAX's
-    torch import rules: given the `model` it is for, the model's whole
-    state_dict filled from the file (`io/torch_import.py:translate_state_dict`,
-    strict: a key of the file or an entry of the model left over raises
-    ValueError), else the file's entries under the port's names
+    torch import rules: given the `model` it is for, a whole state_dict of
+    the model filled from the file where its entries match by name and shape
+    (`io/torch_import.py:translate_state_dict`, strict=False), the file's
+    other keys skipped; where the file leaves entries unfilled, they hold
+    JAX's fresh `model.init()` (PRNGKey(0) and the Detect bias prior:
+    `models/flax_init.py:flax_init_` on a copy of the model), as JAX's fill
+    of a fresh init does. A file that fills nothing raises ValueError.
+    Without a `model`, the file's entries under the port's names
     (`load_state_dict_file`). A file that pickles the reference's modules
     needs the reference tree on sys.path, as JAX's CLIs do. Anything else is
     an orbax checkpoint directory (`state_dict_from_orbax`, the EMA first).
@@ -132,5 +137,9 @@ def resolve_state_dict(weights, model=None) -> dict:
     if str(weights).endswith(".pt"):
         if model is None:
             return load_state_dict_file(weights)
-        return translate_state_dict(model, load_torch_checkpoint(weights))
+        from yolo_dual_tpu_torch.models.flax_init import flax_init_
+        sd = load_torch_checkpoint(weights)
+        if missing_entries(model, sd):
+            model = flax_init_(copy.deepcopy(model), 0)
+        return translate_state_dict(model, sd, strict=False)
     return state_dict_from_orbax(weights)

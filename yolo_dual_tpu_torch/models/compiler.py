@@ -140,17 +140,24 @@ def _populate_registry():
         REGISTRY[nm] = lambda c1, kw, nm=nm: T.build_stage(nm, c1, **kw)
 
 
-def build_module(layer: LayerSpec) -> nn.Module:
+def build_module(layer: LayerSpec, remat: bool = False) -> nn.Module:
     """Instantiate the module of one compiled row (an nn.Sequential of
-    `layer.n` copies when the row repeats a module the compiler could not fold)."""
+    `layer.n` copies when the row repeats a module the compiler could not fold).
+    `remat=True` marks the module (`.remat`) so that models/model.py:GraphModel
+    recomputes its forward in the backward in training instead of keeping its
+    internal activations, each copy of a repeated row on its own (JAX's
+    build_module(remat=True), which wraps the class in nn.remat)."""
     _populate_registry()
     if layer.name not in REGISTRY:
         raise KeyError(f"Module {layer.name!r} is not registered. Known: {sorted(REGISTRY)}")
     build = REGISTRY[layer.name]
     if layer.n > 1:
-        return nn.Sequential(*(build(layer.c1 if r == 0 else layer.c2, layer.kw())
-                               for r in range(layer.n)))
-    return build(layer.c1, layer.kw())
+        mod = nn.Sequential(*(build(layer.c1 if r == 0 else layer.c2, layer.kw())
+                              for r in range(layer.n)))
+    else:
+        mod = build(layer.c1, layer.kw())
+    mod.remat = remat
+    return mod
 
 
 # Modules whose first arg is c2 (width-scaled on the detect path).

@@ -14,7 +14,8 @@ starts where JAX's does. It copies what the values depend on:
   `make_rng`; the 1-based order in which the scope creates its parameters);
 - the initializers: conv kernels lecun_normal (a normal truncated to ±2,
   std sqrt(1/fan_in) / 0.8796..., drawn on the HWIO shape), Dense kernels
-  the same on the (in, out) shape, C2f_DCN's `m_{i}_dcn_weight` the same,
+  the same on the (in, out) shape but DCNv3's offset and mask heads, zero,
+  C2f_DCN's `m_{i}_dcn_weight` the same,
   DCNv2's `weight` uniform in ±1/sqrt(cin·k²), DCNv2's `conv_offset_mask`,
   every bias and BatchNorm or LayerNorm shift zero, their scales one,
   ConvNeXt's layer scale `gamma` 1e-6, running statistics 0 and 1, transposed
@@ -163,15 +164,20 @@ def flax_init_(model: nn.Module, seed: int = 0) -> nn.Module:
     built from a config) to the value JAX's `model.init()` under
     `jax.random.PRNGKey(seed)` gives it, in place. Raises for a
     parameterised module this does not know."""
+    from yolo_dual_tpu_torch.models.heads import Segment
     from yolo_dual_tpu_torch.models.model import initialize_detect_biases
     from yolo_dual_tpu_torch.nn.common import C3SPP, C3TR, Sum
-    from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2
+    from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
     from yolo_dual_tpu_torch.nn.torchvision_backbones import ConvNeXtBlock
     root = (0, int(seed))  # jax.random.PRNGKey(seed) for 0 <= seed < 2**32
+    zero_heads = {id(h) for m in model.modules() if isinstance(m, DCNv3)
+                  for h in (m.offset, m.mask)}
     owners, inner = {}, {}
     for mname, mod in model.named_modules():
         if isinstance(mod, (C3TR, C3SPP)):  # their inner block `m` is JAX's m_tr / m_spp
             inner[f"{mname}.m."] = f"{mname}.{'m_tr' if isinstance(mod, C3TR) else 'm_spp'}."
+        elif isinstance(mod, Segment):  # JAX's Segment holds its Detect convs under `detect`
+            inner[f"{mname}.m."] = f"{mname}.detect.m."
         for pname, p in mod.named_parameters(recurse=False):
             owners[f"{mname}.{pname}" if mname else pname] = (mod, pname, p)
     for name, (mod, pname, p) in owners.items():
@@ -180,7 +186,7 @@ def flax_init_(model: nn.Module, seed: int = 0) -> nn.Module:
         path, leaf = jax_scope(scoped)
         dev = p.device
         norm = isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm))
-        if norm or pname == "bias":
+        if norm or pname == "bias" or id(mod) in zero_heads:
             p.fill_(1.0 if (pname == "weight" and norm) else 0.0)
         elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):  # (k, k, c2, c1) for the latter
             if path[-1] == "conv_offset_mask":  # DCNv2's offset and mask head

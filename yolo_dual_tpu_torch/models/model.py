@@ -9,6 +9,7 @@ The space-to-depth blocked stem that the JAX `fuse()` applies on its own
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -16,11 +17,12 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from yolo_dual_tpu_torch.models.compiler import (LayerSpec, ModelSpec, build_module, parse_config,
                                                  with_strides)
 from yolo_dual_tpu_torch.models.heads import Detect, DetectAux
-from yolo_dual_tpu_torch.nn.common import Conv, Sum, resize_bilinear
+from yolo_dual_tpu_torch.nn.common import Conv, Sum, frozen_batch_stats, resize_bilinear
 from yolo_dual_tpu_torch.nn.attention import AttentionConv, AttentionStem
 from yolo_dual_tpu_torch.nn.dcn import C2f_DCN, DCNv2, DCNv3
 from yolo_dual_tpu_torch.nn.spp import FixedProfileBatchNorm2d
@@ -35,6 +37,23 @@ _HEADS = ("Detect", "Segment", "DetectAux")
 # gathers its sampling's input itself (nn/dcn.py). A channel Concat and an integer nearest
 # Upsample never mix rows, nor do the heads' 1x1 convs. Every other layer runs gathered.
 _ROW_LOCAL = frozenset({"Conv", "Bottleneck", "C3", "SPPF", "Proto", "C3_DCNV3"})
+# Shape-only rows that `remat_layers` never wraps: they keep no activations of their own
+# (JAX models/model.py:GraphModel._NO_REMAT); nor does it wrap the heads.
+_NO_REMAT = frozenset({"Concat", "Upsample", "nn.Upsample", "Contract", "Expand", "Sum",
+                       "MaxPool2d", "nn.MaxPool2d", "nn.ZeroPad2d", "nn.Softmax",
+                       "nn.BatchNorm2d"})
+
+
+def remat_rows(spec: ModelSpec, remat_layers) -> frozenset:
+    """The indices of the rows `remat_layers` wraps (JAX models/model.py:_walk):
+    True every row but the heads and the shape-only rows of `_NO_REMAT`, a
+    tuple of indices those of its rows, False none."""
+    if not remat_layers:
+        return frozenset()
+    every = remat_layers is True
+    return frozenset(layer.i for layer in spec.layers
+                     if (every or layer.i in remat_layers)
+                     and layer.name not in _NO_REMAT and layer.name not in _HEADS)
 
 
 def _row_local(layer: LayerSpec, mod: nn.Module) -> bool:
@@ -57,6 +76,15 @@ def _tensors(tree):
     return []
 
 
+def _rebuild(tree, tensors):
+    """`tree` with its tensors replaced, in order, by those of the iterator `tensors`."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(x, tensors) for x in tree)
+    return tree
+
+
 def _map(fn, tree):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
@@ -69,13 +97,23 @@ class GraphModel(nn.Module):
     """Walks a compiled ModelSpec (reference BaseModel._forward_once,
     models/yolo.py:114-125). Layer i is `self.model[i]`, so parameter names are
     the reference's `model.{i}.…`. Every BatchNorm takes the spec's profile
-    (`spec.bn_profile`) but RFB's, which keep their own (nn/spp.py:BasicConv)."""
+    (`spec.bn_profile`) but RFB's, which keep their own (nn/spp.py:BasicConv).
 
-    def __init__(self, spec: ModelSpec):
+    `remat_layers` (JAX's GraphModel.remat_layers): in training, the rows it
+    names (`remat_rows`: True every compute row, a tuple of layer indices
+    those rows) recompute their forward in the backward instead of keeping
+    their internal activations, each copy of a repeated row on its own
+    (torch.utils.checkpoint; `_call`). The gradients, the loss and the
+    BatchNorm statistics are those of the plain step; eval forwards are
+    unchanged."""
+
+    def __init__(self, spec: ModelSpec, remat_layers=False):
         super().__init__()
         self.spec = spec
         self.save = frozenset(spec.save)
-        self.model = nn.ModuleList(build_module(layer) for layer in spec.layers)
+        rows = remat_rows(spec, remat_layers)
+        self.model = nn.ModuleList(build_module(layer, remat=layer.i in rows)
+                                   for layer in spec.layers)
         eps, momentum = spec.bn_profile
         for m in self.modules():
             if isinstance(m, nn.BatchNorm2d) and not isinstance(m, FixedProfileBatchNorm2d):
@@ -118,12 +156,12 @@ class GraphModel(nn.Module):
                            mod(inp, decode=False))
                 out, rows = (mod.decoded(raw) if decode else raw), None
             elif mesh is None or _row_local(layer, mod):
-                out = mod(inp)
+                out = self._call(mod, inp)
             else:
                 inp = _map(lambda t: spatial.gather_rows(t, dim=2, sum_grads=True,
                                                          site=f"layer {layer.name}"), inp)
                 with spatial.whole_maps():
-                    out = mod(inp)
+                    out = self._call(mod, inp)
                 if all(t.ndim == 4 for t in _tensors(out)):
                     out = _map(lambda t: spatial.keep_rows(t, dim=2), out)
                 else:
@@ -132,6 +170,32 @@ class GraphModel(nn.Module):
         if mesh is not None and rows:
             out = _map(lambda t: spatial.gather_rows(t, dim=2, site="output"), out)
         return out
+
+    def _call(self, mod: nn.Module, inp):
+        """`mod(inp)`; in training, for a module built with `remat`, under
+        torch.utils.checkpoint (non-reentrant): the backward recomputes the
+        forward, each copy of a repeated row on its own, and the recompute
+        runs under the spatial context of the call (this rank's bands, or the
+        whole maps of a gathered layer) with the BatchNorm statistics frozen,
+        so they are updated once, by the call itself."""
+        if not (self.training and getattr(mod, "remat", False)):
+            return mod(inp)
+        mesh = spatial.space_mesh()  # None on whole maps (a gathered layer, or no mesh)
+
+        @contextlib.contextmanager
+        def recompute(m):
+            with frozen_batch_stats(m), spatial.spatial(mesh):
+                yield
+
+        def run(m, x):  # the tensors as arguments: checkpoint reads their devices
+            return checkpoint(lambda *t: m(_rebuild(x, iter(t))), *_tensors(x),
+                              use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), recompute(m)))
+        if isinstance(mod, nn.Sequential):
+            for m in mod:
+                inp = run(m, inp)
+            return inp
+        return run(mod, inp)
 
     def _log_gathered(self, mesh):
         """Logs once a model which layers run gathered over `mesh`'s bands."""
@@ -269,17 +333,19 @@ class DetectionModel(GraphModel):
     `load_state_dict(strict=True)`. `names` maps class ids to names ("0", "1",
     ...), as JAX's. `anchors` replaces the config's anchors and `verbose`
     logs the compiled layers (models/compiler.py:parse_config), as JAX's
-    BaseModel does (JAX models/model.py:172).
+    BaseModel does (JAX models/model.py:172). `remat_layers` (False, True or a
+    tuple of layer indices) recomputes those rows in the backward in training
+    (GraphModel).
     """
 
     def __init__(self, cfg="yolov5s.json", ch: int = 3, nc: Optional[int] = None,
                  device="cuda", generator: Optional[torch.Generator] = None, anchors=None,
-                 verbose: bool = False):
+                 verbose: bool = False, remat_layers=False):
         dev = select_device(device)
         spec = _probe_strides(parse_config(_config(cfg), ch=ch, nc=nc, anchors_override=anchors,
                                            verbose=verbose))
         with torch.device("meta"):
-            super().__init__(spec)
+            super().__init__(spec, remat_layers)
         self.to_empty(device=dev)
         self.nc = spec.nc
         self.names = {i: str(i) for i in range(spec.nc)}
@@ -293,9 +359,9 @@ class SegmentationModel(DetectionModel):
 
     def __init__(self, cfg="yolov5s-seg.json", ch: int = 3, nc: Optional[int] = None,
                  device="cuda", generator: Optional[torch.Generator] = None, anchors=None,
-                 verbose: bool = False):
+                 verbose: bool = False, remat_layers=False):
         super().__init__(cfg, ch=ch, nc=nc, device=device, generator=generator,
-                         anchors=anchors, verbose=verbose)
+                         anchors=anchors, verbose=verbose, remat_layers=remat_layers)
 
 
 class SemanticSegModel(GraphModel):
@@ -308,12 +374,13 @@ class SemanticSegModel(GraphModel):
     (resnet50.json: half the input), it is resized bilinearly to the input's.
     Built on the meta device and materialized on `device`, weights drawn
     from `generator` (default: a CPU generator seeded 0); BatchNorms carry
-    torch's defaults (eps 1e-5, momentum 0.1).
+    torch's defaults (eps 1e-5, momentum 0.1). `remat_layers` as
+    DetectionModel's.
     """
 
     def __init__(self, cfg="resnet50.json", ch: int = 3, nc: Optional[int] = None,
                  device="cuda", generator: Optional[torch.Generator] = None, anchors=None,
-                 verbose: bool = False):
+                 verbose: bool = False, remat_layers=False):
         dev = select_device(device)
         spec = parse_config(_config(cfg), ch=ch, nc=nc, anchors_override=anchors,
                             verbose=verbose)
@@ -321,7 +388,7 @@ class SemanticSegModel(GraphModel):
             raise ValueError("SemanticSegModel needs a semantic config (no anchors); "
                              "use SegmentationModel for detect-style configs")
         with torch.device("meta"):
-            super().__init__(spec)
+            super().__init__(spec, remat_layers)
         self.to_empty(device=dev)
         self.nc = spec.nc
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
@@ -440,7 +507,8 @@ def build_model(cfg, task: Optional[str] = None, **kw) -> GraphModel:
     build_model chooses it (JAX models/model.py:463): no anchors -> semantic,
     a last head row `Segment` -> segment, else detect. `task` overrides
     ("classify": ClassificationModel, whose `kw` are nc, cutoff, dropout,
-    device, generator); `kw` goes to the wrapper (ch, nc, device, generator)."""
+    device, generator); `kw` goes to the wrapper (ch, nc, device, generator,
+    remat_layers, ...)."""
     d = _config(cfg)
     if task is None:
         if d.get("anchors") is None:

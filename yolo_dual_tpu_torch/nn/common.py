@@ -6,6 +6,7 @@ Attribute names follow the reference torch modules (`conv`, `bn`, `cv1`, `m.0`,
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -117,6 +118,22 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(1 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
                 self.running_var.mul_(1 - m).add_(var.to(self.running_var.dtype), alpha=m)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Training forwards inside leave every BatchNorm of `module` with its
+    running statistics and batch count as they are (`BatchNorm2d.update_stats`):
+    the recomputed forward of a rematerialised model or layer. Each
+    BatchNorm's setting is restored after, so the contexts nest."""
+    bns = [(m, m.update_stats) for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m, _ in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, update in bns:
+            m.update_stats = update
 
 
 class Conv(nn.Module):

@@ -64,7 +64,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from yolo_dual_tpu_torch.data.loader import normalize_image
-from yolo_dual_tpu_torch.nn.common import BatchNorm2d
+from yolo_dual_tpu_torch.nn.common import frozen_batch_stats
 from yolo_dual_tpu_torch.parallel import spatial
 from yolo_dual_tpu_torch.parallel.mesh import across, convert_sync_batchnorm, global_sum, mean_share
 from yolo_dual_tpu_torch.train.ema import ModelEMA
@@ -111,20 +111,6 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 DROPOUT_SEED = 17  # the dropout generator of micro-step t is seeded (17 << 32) + t
-
-
-@contextlib.contextmanager
-def frozen_batch_stats(model: nn.Module):
-    """Training forwards inside leave every BatchNorm's running statistics and
-    batch count as they are (nn/common.py:BatchNorm2d.update_stats)."""
-    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
-    for m in bns:
-        m.update_stats = False
-    try:
-        yield
-    finally:
-        for m in bns:
-            m.update_stats = True
 
 
 class Rematerialised(nn.Module):

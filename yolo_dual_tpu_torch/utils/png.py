@@ -1,18 +1,26 @@
-"""8-bit PNG codec in numpy and zlib: the port's stand-in for
+"""PNG codec in numpy and zlib: the port's stand-in for
 `cv2.imencode(".png")` and `cv2.imdecode`, which the JAX package's serve.py
 and io/remote.py call, so the server and its client run without cv2.
 
 It keeps cv2's channel order: `encode` reads a 3- or 4-channel array as BGR
 or BGRA, and `decode` returns BGR or BGRA, so a round trip through this codec
-equals one through cv2's. Grey, grey + alpha, RGB and RGBA images of bit depth
-8, not interlaced, decode with all five row filters; 16-bit, interlaced and
-palette PNGs raise ValueError.
+equals one through cv2's. `encode` writes 8-bit images. `decode` reads every
+PNG that libpng (cv2) reads: grey at bit depth 1, 2, 4, 8 or 16, grey + alpha,
+RGB and RGBA at 8 or 16, palette images (PLTE, tRNS) at 1, 2, 4 or 8, plain
+or Adam7-interlaced, with all five row filters; it gives what
+cv2.imdecode(IMREAD_UNCHANGED) gives, or with `color` what IMREAD_COLOR
+gives (8-bit BGR: 16-bit samples keep their high byte, grey below 8 bits is
+scaled to 0-255, a palette is looked up, grey is spread to three channels and
+alpha dropped).
 
 Rows filtered with None, Sub or Up decode a row at a time (Sub is a wrapping
 cumsum). Average and Paeth rows depend on the pixel to their left, so an image
 with any of them decodes along anti-diagonals, a step for each of h + w - 1
 diagonals, each vectorised over the rows it crosses; libpng (cv2) picks filters
-row by row and writes such rows.
+row by row and writes such rows. The filters act on bytes: a pixel's left
+neighbour is the byte one pixel back (one byte below 8 bits a pixel). An
+interlaced image is seven such images (the Adam7 passes), each filtered on
+its own.
 """
 
 from __future__ import annotations
@@ -25,7 +33,6 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4}
 _COLOR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}    # channels -> PNG colour type
-_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}       # PNG colour type -> channels
 
 
 def is_png(buf) -> bool:
@@ -133,15 +140,19 @@ def _unfilter_diagonals(rows: np.ndarray, kinds: np.ndarray, bpp: int) -> np.nda
     return out.astype(np.uint8).reshape(h, n)
 
 
-def decode(buf, color: bool = False) -> np.ndarray:
-    """The image of PNG bytes `buf`: (h, w) grey, (h, w, 2) grey + alpha,
-    (h, w, 3) BGR or (h, w, 4) BGRA, as cv2.imdecode(IMREAD_UNCHANGED) gives
-    it; with `color`, (h, w, 3) BGR as IMREAD_COLOR gives it (grey spread to
-    three channels, alpha dropped). Raises ValueError on anything else."""
-    b = bytes(buf)
+# colour type -> (channels, allowed bit depths)
+_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)),
+          6: (4, (8, 16))}
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _chunks(b: bytes) -> dict:
+    """IHDR's fields, PLTE, tRNS and the joined IDAT data of PNG bytes `b`."""
     if not is_png(b):
         raise ValueError("not a PNG")
-    pos, ihdr, idat = 8, None, []
+    pos, out, idat = 8, {}, []
     while pos + 8 <= len(b):
         n, kind = struct.unpack(">I4s", b[pos:pos + 8])
         data = b[pos + 8:pos + 8 + n]
@@ -151,40 +162,98 @@ def decode(buf, color: bool = False) -> np.ndarray:
         if crc != zlib.crc32(kind + data) & 0xFFFFFFFF:
             raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
         if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", data)
+            out["IHDR"] = struct.unpack(">IIBBBBB", data)
+        elif kind in (b"PLTE", b"tRNS"):
+            out[kind.decode()] = data
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
             break
         pos += 12 + n
-    if ihdr is None or not idat:
+    if "IHDR" not in out or not idat:
         raise ValueError("PNG without IHDR or IDAT")
-    w, h, depth, ctype, _, _, interlace = ihdr
-    if depth != 8:
-        raise ValueError(f"PNG bit depth {depth}: only 8-bit PNGs are decoded")
-    if interlace:
-        raise ValueError("interlaced PNG: not decoded")
-    if ctype not in _CHANNELS:
-        raise ValueError(f"PNG colour type {ctype} (palette): not decoded")
-    ch = _CHANNELS[ctype]
+    out["IDAT"] = b"".join(idat)
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """The (h, w, ch) samples of unfiltered rows: uint16 at depth 16 (big
+    endian), else uint8, sub-byte samples unpacked from the high bit down."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows[:, :w * ch * 2].copy().view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows[:, :w * ch].reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    vals = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(2, dtype=np.uint8)
+    return vals[:, :w * ch].reshape(h, w, ch)
+
+
+def decode(buf, color: bool = False) -> np.ndarray:
+    """The image of PNG bytes `buf` as cv2.imdecode(IMREAD_UNCHANGED) gives it:
+    (h, w) grey, (h, w, 2) grey + alpha (cv2 gives BGRA, the grey spread),
+    (h, w, 3) BGR or (h, w, 4) BGRA, uint16
+    at bit depth 16, uint8 else (grey below 8 bits scaled to 0-255); a palette
+    image as BGR, and it or an RGB image as BGRA where it has a tRNS chunk. With `color`, (h, w, 3)
+    uint8 BGR as IMREAD_COLOR gives it (module docstring). Raises ValueError
+    on anything else."""
+    c = _chunks(bytes(buf))
+    w, h, depth, ctype, _, _, interlace = c["IHDR"]
+    if ctype not in _TYPES or depth not in _TYPES[ctype][1]:
+        raise ValueError(f"PNG colour type {ctype} at bit depth {depth}: not a valid PNG")
+    if interlace > 1:
+        raise ValueError(f"PNG interlace method {interlace}")
+    if ctype == 3 and "PLTE" not in c:
+        raise ValueError("palette PNG without a PLTE chunk")
+    ch = _TYPES[ctype][0]
+    bits = ch * depth
+    bpp = max(1, bits // 8)  # the filters' byte distance to the left neighbour
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = zlib.decompress(c["IDAT"])
     except zlib.error as e:
         raise ValueError(f"PNG image data: {e}") from e
-    stride = w * ch + 1
-    if len(raw) < h * stride:
-        raise ValueError("PNG image data too short")
-    rows = np.frombuffer(raw, np.uint8, h * stride).reshape(h, stride)
-    kinds = rows[:, 0]
-    if (kinds > 4).any():
-        raise ValueError(f"PNG filter type {int(kinds.max())}")
-    unfilter = _unfilter_diagonals if (kinds >= 3).any() else _unfilter_rows
-    img = unfilter(np.ascontiguousarray(rows[:, 1:]), kinds, ch).reshape(h, w, ch)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    img = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * bits + 7) // 8 + 1
+        if len(raw) < pos + ph * stride:
+            raise ValueError("PNG image data too short")
+        rows = np.frombuffer(raw, np.uint8, ph * stride, pos).reshape(ph, stride)
+        pos += ph * stride
+        kinds = rows[:, 0]
+        if (kinds > 4).any():
+            raise ValueError(f"PNG filter type {int(kinds.max())}")
+        unfilter = _unfilter_diagonals if (kinds >= 3).any() else _unfilter_rows
+        img[y0::dy, x0::dx] = _samples(unfilter(np.ascontiguousarray(rows[:, 1:]), kinds, bpp),
+                                       pw, ch, depth)
+    if ctype == 3:
+        plte = np.frombuffer(c["PLTE"], np.uint8)
+        lut = plte[:len(plte) // 3 * 3].reshape(-1, 3)[:, ::-1]  # BGR
+        if int(img.max()) >= len(lut):
+            raise ValueError(f"PNG palette index {int(img.max())} past the palette's {len(lut)}")
+        if not color and "tRNS" in c:
+            alpha = np.full(len(lut), 255, np.uint8)
+            t = np.frombuffer(c["tRNS"], np.uint8)[:len(lut)]
+            alpha[:len(t)] = t
+            lut = np.concatenate([lut, alpha[:, None]], 1)
+        return np.ascontiguousarray(lut[img[..., 0]])
+    if depth < 8:  # libpng's expansion of low-depth grey
+        img = img * np.uint8(255 // (2 ** depth - 1))
     if color:
+        if depth == 16:
+            img = (img >> 8).astype(np.uint8)
         return np.ascontiguousarray(np.repeat(img[..., :1], 3, 2) if ch <= 2
                                     else img[..., 2::-1])
     if ch == 1:
         return img[..., 0]
+    if ctype == 2 and "tRNS" in c and len(c["tRNS"]) >= 6:  # one transparent RGB colour
+        key = np.array(struct.unpack(">HHH", c["tRNS"][:6]), img.dtype)
+        alpha = np.where((img == key).all(2), 0, np.iinfo(img.dtype).max).astype(img.dtype)
+        img = np.concatenate([img, alpha[..., None]], 2)
     return np.ascontiguousarray(_to_rgb_order(img))
 
 
@@ -192,7 +261,7 @@ def imdecode_color(buf) -> np.ndarray | None:
     """A BGR frame of encoded bytes as the JAX server reads a request
     (cv2.imdecode(IMREAD_COLOR), None when it cannot decode): PNGs through
     `decode`, other formats through cv2 where it is installed. Raises
-    ValueError for a PNG this codec refuses, and ImportError naming cv2 for a
+    ValueError for a PNG that is not valid, and ImportError naming cv2 for a
     body that is not a PNG on a machine without it."""
     if not len(buf):
         return None
