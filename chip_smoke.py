@@ -379,6 +379,15 @@ which raises on failure:
    the metrics within DP_MAP_TOL; a `spatial partitioning (6m)` JSON line
    (micro-step ms and peak bytes, ranks against one process, the gaps and
    their limits, the exchanges a rank's cycle, the launches);
+6q. determinism and bfloat16 (`determinism_path`, right after phase 3), TF32
+   off: K3 twice at each DCN_PATH_SHAPES map at bs 16 on the inputs of phase
+   7's model (DCNv3 heads drawn) on a seeded batch, dx, doffset and dmask
+   equal bit for bit, with samples outside their windows; 6m's one-process
+   cycle twice under deterministic algorithms, the state_dicts bit-equal; K2
+   and K3 on bfloat16 inputs equal to the float32 kernels' outputs on float32
+   copies, rounded to bfloat16, bit for bit; K2's and K3's device ms and
+   bounds in float32 and bfloat16 at each shape; a `determinism and bfloat16
+   (6q)` JSON line;
 11. a JSON line of every kernel with its launches on the main paths, then the
    JSON result line.
 
@@ -438,6 +447,7 @@ MODELS = ("yolov5s-seg.json", "yolov5s-seg-dcnv3.json")
 DCN_PATH_SHAPES = {(80, 80, 64): 2, (40, 40, 128): 3, (20, 20, 256): 1}
 DCN_OFFSET_BIAS_PX = 1.0  # the smoke model's DCNv3 offset heads: biases N(0, 1 px^2) ...
 DCN_OFFSET_GAIN = 0.2  # ... and weights N(0, gain^2 / fan_in); see draw_dcnv3_heads
+K3_KERNELS = 3  # kernels a K3 call launches: its first pass, the main kernel, dx's pass
 TRAIN_BS, TRAIN_IMGSZ, TRAIN_MICRO_STEPS, TRAIN_MAX_BOXES = 16, 640, 8, 8
 ACCUMULATE = max(round(64 / TRAIN_BS), 1)  # nominal batch 64 (segment/train.py --nbs)
 EPOCHS, STEPS_PER_EPOCH = 100, 7393  # the CLI's default epochs; COCO train2017 at bs 16
@@ -459,16 +469,24 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def k3_kernels() -> int:
+    """Kernels a K3 call launches in the package imported: K3_KERNELS, or 1 in
+    a checkout from before K3's fixed-point passes (--device-times ROOT)."""
+    from yolo_dual_tpu_torch.kernels import dcn_sampling
+    return K3_KERNELS if hasattr(dcn_sampling, "BWD_PARTS") else 1
+
+
 def stamp(what: str):
     """Prints the process clock beside `what`: where a phase's seconds go."""
     print(f"at {time.perf_counter():.1f} s: {what}", flush=True)
 
 
-def profiled_kernel_ms(fn, kernel: str, iters: int):
-    """Mean device ms per launch of the CUDA kernels whose name holds `kernel`
-    over `iters` calls of `fn`, each of which launches one, from
-    torch.profiler's kernel records: the kernel's own time, without the host
-    wrapper that CUDA events around the call also count at batch 1. Late in a
+def profiled_kernel_ms(fn, kernel: str, iters: int, per_call: int = 1):
+    """Mean device ms per call of the CUDA kernels whose name holds `kernel`
+    over `iters` calls of `fn`, each of which launches `per_call` of them (K3:
+    its three passes, K3_KERNELS), from torch.profiler's kernel records: the
+    kernels' own time, without the host wrapper that CUDA events around the
+    call also count at batch 1. Late in a
     long process a session can hold another number of records than launches
     (each session's count is printed then): it is run again, up to twice in
     all; where neither held `iters`, the time is the mean over the records of
@@ -487,13 +505,13 @@ def profiled_kernel_ms(fn, kernel: str, iters: int):
                   if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
         count = sum(e.count for e in events)
         total = sum(e.self_device_time_total for e in events)
-        if count == iters:
+        if count == iters * per_call:
             return total / iters / 1e3
         seen.append((count, total))
-    print(f"profiler records of {kernel} in 2 sessions of {iters} launches: "
+    print(f"profiler records of {kernel} in 2 sessions of {iters * per_call} launches: "
           f"{[c for c, _ in seen]}", flush=True)
     count, total = max(seen)
-    return total / count / 1e3 if count else "not measured"
+    return total / count * per_call / 1e3 if count else "not measured"
 
 
 def window_escapes(offset, h: int, w: int, group_channels: int, backward: bool, kernel=3,
@@ -602,10 +620,11 @@ def letterbox_phase():
     return results
 
 
-def dcnv3_bytes(b: int, h: int, w: int, c: int, kk: int) -> int:
+def dcnv3_bytes(b: int, h: int, w: int, c: int, kk: int, itemsize: int = 4) -> int:
     """Least bytes one DCNv3 sampling call must move (stride 1, one group): x,
-    offset and mask read once, the output written once, all float32."""
-    return 4 * (b * h * w * c + b * h * w * kk * 3 + b * h * w * c)
+    offset and mask read once, the output written once, `itemsize` bytes an
+    element (float32 4, bfloat16 2)."""
+    return itemsize * (b * h * w * c + b * h * w * kk * 3 + b * h * w * c)
 
 
 def dcnv3_flops(b: int, h: int, w: int, c: int, kk: int) -> int:
@@ -683,11 +702,12 @@ def dcnv3_phase():
 
 
 
-def dcnv3_bwd_bytes(b: int, h: int, w: int, c: int, kk: int) -> int:
+def dcnv3_bwd_bytes(b: int, h: int, w: int, c: int, kk: int, itemsize: int = 4) -> int:
     """Least bytes one DCNv3 backward call must move (stride 1, one group): x,
     offset, mask and the output gradient read once, dx, doffset and dmask
-    written once, all float32."""
-    return 4 * (3 * b * h * w * c + 2 * b * h * w * kk * 3)
+    written once, `itemsize` bytes an element. K3's fixed-point sums of dx are
+    scratch of its design, not of the function, and do not count."""
+    return itemsize * (3 * b * h * w * c + 2 * b * h * w * kk * 3)
 
 
 def dcnv3_bwd_flops(b: int, h: int, w: int, c: int, kk: int) -> int:
@@ -806,7 +826,8 @@ def device_phase(lres: dict, dres: dict, bres: dict):
                 def fn():
                     with torch.no_grad():
                         return dcnv3_sampling(x, offset, mask, *args, c, 1.0)
-            r["device_ms"] = profiled_kernel_ms(fn, kernel, 200 if b == 1 else 20)
+            r["device_ms"] = profiled_kernel_ms(fn, kernel, 200 if b == 1 else 20,
+                                                k3_kernels() if res is bres else 1)
             print(f"device {kernel} {name}: {r['device_ms']} ms a launch", flush=True)
     torch.cuda.empty_cache()
 
@@ -822,7 +843,7 @@ def trained_inputs_phase(calls):
     activations exceed 1). Inputs are cycled in copies past the 50 MB L2."""
     import itertools
     from yolo_dual_tpu_torch.kernels.dcn_sampling import (
-        _launch, dcnv3_core, dcnv3_core_bwd, dcnv3_plan, dcnv3_window_escapes)
+        _backward, _launch, dcnv3_core, dcnv3_core_bwd, dcnv3_plan, dcnv3_window_escapes)
     gen = torch.Generator(device="cuda").manual_seed(10)
     seen = set()
     for i, (x, offset, mask, cfg) in enumerate(calls):
@@ -847,9 +868,7 @@ def trained_inputs_phase(calls):
                 def run():
                     xs, off, m, g = next(it)
                     if backward:
-                        outs = (torch.zeros_like(xs), torch.empty_like(off), torch.empty_like(m))
-                        _launch("dcnv3_backward_launch", (xs, off, m, g, *outs), xs, off, *cfg,
-                                plan=plan)
+                        outs = _backward(xs, off, m, g, cfg, plan=plan)
                     else:
                         outs = (torch.empty(b, ho, wo, c, device="cuda"),)
                         _launch("dcnv3_sampling_launch", (xs, off, m, *outs), xs, off, *cfg,
@@ -865,7 +884,8 @@ def trained_inputs_phase(calls):
                 row[key] = {
                     "plan": f"tile {plan.th}x{plan.tw} window {plan.wh}x{plan.ww} chunk {plan.cc}",
                     "device_ms": profiled_kernel_ms(
-                        run, "dcnv3_backward_kernel" if backward else "dcnv3_sampling_kernel", 20),
+                        run, "dcnv3_backward_kernel" if backward else "dcnv3_sampling_kernel", 20,
+                        K3_KERNELS if backward else 1),
                     "escapes": dcnv3_window_escapes(offset, h, w, *cfg[:5], cfg[6], plan),
                     "err": err}
             del want
@@ -5592,10 +5612,11 @@ SP_UPDATE_TOL = DP_UPDATE_TOL  # a parameter's update, the ranks against one pro
 SP_STAT_TOL = DP_STAT_TOL  # BatchNorm statistics: max gap / max |statistic|
 # both limits are held above the card's spread (one process against itself) and below the
 # gaps of the same ranks without halo exchanges (the fault), each measured in the phase. The
-# cycles run on cuDNN's deterministic algorithms: with its default ones the spread reached
-# 3.69e-3 (--sp-spread: cuDNN's atomics, then K3's). So run, three runs read the ranks' update
-# gap 3.69e-3 each, the spread 2.35e-4 to 4.18e-4 (K3's atomics) and the fault 1.72;
-# statistics 2.4e-7, spread 0, fault 4.9e-3
+# cycles run on cuDNN's deterministic algorithms: with its default ones two cycles differ by
+# up to 3.69e-3 (--sp-spread 3, "default": cuDNN's atomics), on them by nothing (bit-equal
+# state_dicts in "cudnn_deterministic" and "deterministic": K3 sums dx in fixed point). So
+# run, three runs read the ranks' update gap 3.69e-3 each and the fault 1.72; statistics
+# 2.4e-7, fault 4.9e-3
 SP_EVAL_FRAMES = 8
 SP_TIMEOUT_S = 300
 
@@ -5703,6 +5724,13 @@ def band_kernel_phase() -> dict:
     return out
 
 
+def sp_reference_cycle(start: Path) -> dict:
+    """6m's one-process reference cycle from the weights in `start`: the
+    global batches' rows in the order of the ranks' shards; its state_dict."""
+    rows = torch.from_numpy(np.concatenate([np.arange(d, SP_BS, SP_DP) for d in range(SP_DP)]))
+    return dp_cycle(None, start, rows=rows, bs=SP_BS, cycle=SP_CYCLE, seed=SP_CYCLE_SEED)[0]
+
+
 def sp_spread(runs: int) -> dict:
     """Where 6m's spread comes from: 6m's one-process reference cycle, `runs`
     times in each of four settings from one start (TF32 off), and in each
@@ -5712,7 +5740,8 @@ def sp_spread(runs: int) -> dict:
     algorithms as well, deterministic_algorithms); "deterministic_plain_k3"
     (K3 swapped for its plain version, whose scatter-add is deterministic
     there). Each setting takes away one source of run-to-run variation:
-    cuDNN's atomics, torch's, K3's."""
+    cuDNN's atomics, torch's. K3 adds none (it sums dx in fixed point): its
+    cycles are bit-equal wherever its plain version's are."""
     import shutil
     from yolo_dual_tpu_torch.kernels import dcn_sampling
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -5723,12 +5752,9 @@ def sp_spread(runs: int) -> dict:
     start = torch.load(root / "start.pt", map_location="cpu", weights_only=True)
     params = [k for k in start if "running" not in k and "num_batches" not in k]
     stats = [k for k in start if "running" in k]
-    rank_rows = torch.from_numpy(np.concatenate([np.arange(d, SP_BS, SP_DP)
-                                                 for d in range(SP_DP)]))
 
     def cycle():
-        return dp_cycle(None, root / "start.pt", rows=rank_rows, bs=SP_BS, cycle=SP_CYCLE,
-                        seed=SP_CYCLE_SEED)[0]
+        return sp_reference_cycle(root / "start.pt")
 
     def plain_k3(x, offset, mask, grad_out, *cfg):
         return dcn_sampling.dcnv3_core_bwd(x, offset, mask, grad_out, *cfg)
@@ -5905,6 +5931,103 @@ def spatial_path(card: str) -> dict:
     return launches
 
 
+# --- phase 6q: K3's bits on every run; K2 and K3 in bfloat16 ------------------------------
+
+Q_BATCH_SEED = 900  # 6q's bs-16 batch, whose DCNv3 inputs (a), (c) and (d) take
+
+
+def determinism_path(card: str) -> dict:
+    """Phase 6q, TF32 off (restored after). (a) K3 twice at each
+    DCN_PATH_SHAPES map at bs TRAIN_BS, on the inputs of the first DCNv3 call
+    of that size of phase 7's model (dcnv3_train_model: its heads drawn by
+    draw_dcnv3_heads) on a seeded bs-16 batch, with a seeded output gradient:
+    dx, doffset and dmask equal bit for bit, and samples leave their windows
+    (dcnv3_window_escapes above 0); (b) 6m's one-process cycle
+    (sp_reference_cycle) twice under deterministic_algorithms(): the
+    state_dicts equal bit for bit; (c) K2 and K3 on bfloat16 copies of (a)'s
+    inputs against the float32 kernels on float32 copies of the same values:
+    each output equals the float32 one rounded to bfloat16, bit for bit; (d)
+    K2's and K3's device ms (torch.profiler) in float32 and in bfloat16 at
+    each shape, beside each type's bound. Its launches count on no path."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_sampling, dcnv3_sampling_backward
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "phase6q"
+    root.mkdir(parents=True, exist_ok=True)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out, failures = {"card": card, "shapes": {}}, []
+    try:
+        model = dcnv3_train_model()
+        torch.save(model.state_dict(), root / "start.pt")
+        x = train_batch(np.random.default_rng(Q_BATCH_SEED), TRAIN_BS, TRAIN_IMGSZ, "cuda")["image"]
+        calls = {}
+        for xs, off, m, cfg in dcnv3_calls(model, x.permute(0, 3, 1, 2).float().div(255)
+                                           .contiguous()):
+            calls.setdefault(tuple(xs.shape[1:]), (xs, off, m, cfg))
+        del model, x
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for (h, w, c), (xs, off, m, cfg) in sorted(calls.items(), reverse=True):
+            b, kk = xs.shape[0], cfg[0] ** 2
+            name = f"{b}x{h}x{w}x{c}"
+            g = torch.randn(b, *off.shape[1:3], c, device="cuda", generator=gen)
+            first = dcnv3_sampling_backward(xs, off, m, g, *cfg)
+            second = dcnv3_sampling_backward(xs, off, m, g, *cfg)
+            torch.cuda.synchronize()
+            row = {"K3_bit_equal": all(torch.equal(a, r) for a, r in zip(first, second)),
+                   "K3_escapes": window_escapes(off, h, w, c, True, *cfg[:5], cfg[6])["escapes"]}
+            del first, second
+            bf = [t.bfloat16() for t in (xs, off, m, g)]
+            f32 = [t.float() for t in bf]
+            with torch.no_grad():
+                got, want = dcnv3_sampling(*bf[:3], *cfg), dcnv3_sampling(*f32[:3], *cfg)
+            got, want = (got, *dcnv3_sampling_backward(*bf, *cfg)), \
+                (want, *dcnv3_sampling_backward(*f32, *cfg))
+            torch.cuda.synchronize()
+            row["bfloat16_equal_float32_rounded"] = {
+                k: a.dtype == torch.bfloat16 and torch.equal(a, r.bfloat16())
+                for k, a, r in zip(("K2", "dx", "doffset", "dmask"), got, want)}
+            del got, want
+            flops = {"K2": dcnv3_flops(b, h, w, c, kk), "K3": dcnv3_bwd_flops(b, h, w, c, kk)}
+            for dtype, ins in (("float32", (xs, off, m, g)), ("bfloat16", bf)):
+                size = ins[0].element_size()
+                for k, nbytes in (("K2", dcnv3_bytes(b, h, w, c, kk, size)),
+                                  ("K3", dcnv3_bwd_bytes(b, h, w, c, kk, size))):
+                    row[f"{k}_{dtype}_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                                       flops[k] / FP32_FLOP_PER_S) * 1e3
+
+                def fwd(ins=ins):
+                    with torch.no_grad():
+                        return dcnv3_sampling(*ins[:3], *cfg)
+                row[f"K2_{dtype}_device_ms"] = profiled_kernel_ms(fwd, "dcnv3_sampling_kernel", 20)
+                row[f"K3_{dtype}_device_ms"] = profiled_kernel_ms(
+                    lambda ins=ins: dcnv3_sampling_backward(*ins, *cfg), "dcnv3_backward_kernel", 20,
+                    K3_KERNELS)
+            out["shapes"][name] = row
+            print(f"6q {name} ({card}): " + json.dumps(row), flush=True)
+            if not row["K3_bit_equal"]:
+                failures.append(f"{name}: two K3 calls differ")
+            if not row["K3_escapes"] > 0:
+                failures.append(f"{name}: no sample leaves its window")
+            if not all(row["bfloat16_equal_float32_rounded"].values()):
+                failures.append(f"{name}: bfloat16 {row['bfloat16_equal_float32_rounded']}")
+            del bf, f32, g
+        del calls
+        torch.cuda.empty_cache()
+        with deterministic_algorithms():
+            sds = [sp_reference_cycle(root / "start.pt") for _ in range(2)]
+        out["cycle_bit_equal"] = all(torch.equal(sds[0][k], sds[1][k]) for k in sds[0])
+        if not out["cycle_bit_equal"]:
+            failures.append("two deterministic cycles of 6m's one process differ")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    out["phase_6q_s"] = time.perf_counter() - t_phase
+    print("determinism and bfloat16 (6q) " + json.dumps(out), flush=True)
+    print(f"phase 6q s {out['phase_6q_s']:.2f}", flush=True)
+    if failures:
+        raise AssertionError("6q: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device-times", metavar="ROOT", nargs="?",
@@ -5998,6 +6121,10 @@ def main(argv=None) -> int:
     dres = dcnv3_phase()
     bres = dcnv3_bwd_phase()
     elapsed("3")
+    # 6q. K3 gives the same bits on every run (6m's cycle too, under deterministic algorithms);
+    # K2 and K3 in bfloat16 equal the float32 kernels' outputs, rounded
+    determinism_path(card)
+    elapsed("6q")
 
     # 4-6. each model's prediction path; 7. the training path; 8. training, card vs CPU
     frames = make_frames(N_FRAMES)

@@ -10,9 +10,10 @@ that has neither; tests/conftest.py imports JAX, hence:
 Tolerance: 1e-5 absolute on values of order 1, the limit chip_smoke.py holds
 the kernels to; the kernel and the plain version sum in other orders. The
 backward kernel is held to 1e-5 relative to the largest magnitude of each
-gradient: dx sums its adds, in a shared-memory window and then into device
-memory, by float atomics in an order that changes from run to run, and doffset
-sums over the group's channels.
+gradient: dx is summed in fixed point (exactly, up to terms below 2^-45 of the
+largest) and doffset over the group's channels, where the plain version adds
+in float32. Two calls of a kernel on the same inputs give the same bits, and a
+bfloat16 call the float32 call's outputs on float32 copies, rounded.
 """
 
 import os
@@ -163,18 +164,51 @@ def test_dcnv3_far_offsets_give_and_receive_nothing(cuda):
         assert not t.any()
 
 
-def test_dcnv3_backward_doffset_dmask_are_bitwise_stable(cuda):
-    """doffset and dmask are reduced in a fixed order (one owner warp per sum,
-    chunks in order): two calls give the same bits. dx, summed by atomics, only
-    agrees to the tolerance."""
+@pytest.mark.parametrize("offset_std, row0", [(2.0, 0), (8.0, 0), (8.0, 40)],
+                         ids=["normal", "escaping", "escaping_band"])
+def test_dcnv3_backward_is_bitwise_stable(cuda, offset_std, row0):
+    """Two calls on the same inputs give the same bits of dx, doffset and
+    dmask: doffset and dmask are reduced in a fixed order (one owner warp per
+    sum, chunks in order), dx in fixed point, whose integer adds give one sum
+    in any order. Also where many samples leave their window (offsets N(0, 8
+    px)) and on a band of rows (row0 40), and against the plain version."""
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import dcnv3_plan, dcnv3_window_escapes
     x, offset, mask = (torch.from_numpy(a).to(cuda) for a in
-                       sampling_inputs(7, 2, 80, 80, 1, 64, 3))
-    gout = torch.randn(2, 80, 80, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(7))
-    first = dcnv3_sampling_backward(x, offset, mask, gout, 3, 1, 1, 1, 1, 64, 1.0)
-    second = dcnv3_sampling_backward(x, offset, mask, gout, 3, 1, 1, 1, 1, 64, 1.0)
+                       sampling_inputs(7, 2, 80, 80, 1, 64, 3, offset_std=offset_std))
+    offset, mask = offset[:, row0:].contiguous(), mask[:, row0:].contiguous()
+    gout = torch.randn(2, 80 - row0, 80, 64, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(7))
+    args = (3, 1, 1, 1, 1, 64, 1.0, row0)
+    first = dcnv3_sampling_backward(x, offset, mask, gout, *args)
+    second = dcnv3_sampling_backward(x, offset, mask, gout, *args)
     torch.cuda.synchronize()
-    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
-    assert_grads_close(first, second)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert_grads_close(first, dcnv3_core_bwd(x, offset, mask, gout, *args))
+    plan = dcnv3_plan(2, 80 - row0, 80, 1, 64, 3, 1, 1, 1, 1.0, True)
+    escapes = dcnv3_window_escapes(offset, 80, 80, 3, 1, 1, 1, 1, 1.0, plan, row0)
+    assert escapes > (0.3 if offset_std > 2 else 0.0), escapes
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_dcnv3_kernels_in_bfloat16_equal_float32_rounded(cuda, name):
+    """K2 and K3 on bfloat16 inputs against the float32 kernels on float32
+    copies of the same values: every output is the float32 one rounded to
+    bfloat16, bit for bit, and in its input's type."""
+    b, h, w, g, gc, k, s, p, d, scale, std, kind = CASES[name]
+    x, offset, mask = (torch.from_numpy(a).to(cuda).bfloat16() for a in
+                       sampling_inputs(len(name), b, h, w, g, gc, k, s, std, kind))
+    gout = torch.randn((b, *offset.shape[1:3], g * gc), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(len(name))).bfloat16()
+    cfg = (k, s, p, d, g, gc, scale)
+    with torch.no_grad():
+        got = dcnv3_sampling(x, offset, mask, *cfg)
+        want = dcnv3_sampling(x.float(), offset.float(), mask.float(), *cfg)
+    got_b = dcnv3_sampling_backward(x, offset, mask, gout, *cfg)
+    want_b = dcnv3_sampling_backward(x.float(), offset.float(), mask.float(), gout.float(), *cfg)
+    torch.cuda.synchronize()
+    for a, r in zip((got, *got_b), (want, *want_b)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, r.bfloat16())
 
 
 def test_dcnv3_backward_launches_its_kernel_once(cuda):
@@ -201,7 +235,9 @@ def test_dcnv3_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         dcnv3_sampling(x, offset.cpu(), mask, 3, 1, 1, 1, 1, 8, 1.0)
     with pytest.raises(TypeError, match="float32"):
-        dcnv3_sampling(x.half(), offset, mask, 3, 1, 1, 1, 1, 8, 1.0)
+        dcnv3_sampling(x.half(), offset.half(), mask.half(), 3, 1, 1, 1, 1, 8, 1.0)
+    with pytest.raises(TypeError, match="one type"):
+        dcnv3_sampling(x.bfloat16(), offset, mask, 3, 1, 1, 1, 1, 8, 1.0)
 
 
 def frames(seed, b, h, w):
@@ -443,12 +479,15 @@ def test_nms_from_raw_on_tied_scores_equals_cpu(cuda, multi_label):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)
 
 
-def test_dcnv3_under_autocast_samples_in_float32(cuda):
+def test_dcnv3_under_autocast_samples_bfloat16(cuda, monkeypatch):
     """Under torch.autocast (the train CLI's --dtype bf16) DCNv3's projections
-    are bfloat16: the module hands the sampling float32 copies, so K2 and K3
-    launch on float32 (never reinterpreted bytes) and the gradients reach
-    the bfloat16 projections. Against the float32 module: 5e-2 of the
-    output's largest magnitude (bfloat16's 8 bits through two projections)."""
+    are bfloat16 and go to K2 and K3 as they are (JAX nn/dcn.py:388-399): each
+    kernel launches once, on bfloat16, and the output and every parameter's
+    gradient equal, bit for bit, those of the route that hands the kernels
+    float32 copies and rounds the output to bfloat16. Against the float32
+    module: 5e-2 of the output's largest magnitude (bfloat16's 8 bits through
+    two projections)."""
+    import yolo_dual_tpu_torch.nn.dcn as dcn
     from yolo_dual_tpu_torch.nn.dcn import DCNv3
     torch.manual_seed(0)
     m = DCNv3(64, group=4).to(cuda)
@@ -456,17 +495,35 @@ def test_dcnv3_under_autocast_samples_in_float32(cuda):
         m.offset.weight.normal_(0, 0.05)
         m.offset.bias.normal_(0, 1.0)
     x = torch.randn(2, 20, 20, 64, device=cuda)
-    before = (dcnv3_sampling.launches, dcnv3_sampling_backward.launches)
-    with torch.autocast("cuda", dtype=torch.bfloat16):
-        out = m(x)
-    assert out.dtype == torch.bfloat16
-    out.float().square().sum().backward()
-    assert (dcnv3_sampling.launches, dcnv3_sampling_backward.launches) == \
-        (before[0] + 1, before[1] + 1)
-    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in m.parameters())
+    real, seen = dcn.dcnv3_sampling, []
+
+    def run(sampling):
+        monkeypatch.setattr(dcn, "dcnv3_sampling", sampling)
+        m.zero_grad()
+        before = (dcnv3_sampling.launches, dcnv3_sampling_backward.launches)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = m(x)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert (dcnv3_sampling.launches, dcnv3_sampling_backward.launches) == \
+            (before[0] + 1, before[1] + 1)
+        return [out.detach()] + [p.grad.clone() for p in m.parameters()]
+
+    def direct(proj, offset, mask, *cfg):
+        seen.append((proj.dtype, offset.dtype, mask.dtype))
+        return real(proj, offset, mask, *cfg)
+
+    def float_copies(proj, offset, mask, *cfg):
+        return real(proj.float(), offset.float(), mask.float(), *cfg).to(proj.dtype)
+    got, want = run(direct), run(float_copies)
+    assert seen == [(torch.bfloat16,) * 3] and got[0].dtype == torch.bfloat16
+    assert all(torch.isfinite(t).all() for t in got)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(dcn, "dcnv3_sampling", real)
     with torch.no_grad():
-        want = m(x)
-    assert (out.float() - want).abs().max() <= 5e-2 * want.abs().max()
+        full = m(x)
+    assert (got[0].float() - full).abs().max() <= 5e-2 * full.abs().max()
 
 
 @pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "ones_mask"])
@@ -533,6 +590,39 @@ def test_resize_backward_under_deterministic_algorithms(cuda, deterministic, sha
     assert torch.equal(first[1], second[1])
     for got, want in zip(first, cpu):
         assert (got - want).abs().max() <= 1e-5
+
+
+def test_dcnv3_seg_backward_is_deterministic_on_the_card(cuda, deterministic):
+    """yolov5s-seg-dcnv3 in train mode under deterministic algorithms, its
+    DCNv3 offset heads drawn so that samples leave their windows: two runs of
+    the forward and backward (K2 and K3 six times each) give bit-identical,
+    finite gradients, as JAX's deterministic kernels give."""
+    from yolo_dual_tpu_torch.models.model import SegmentationModel
+    from yolo_dual_tpu_torch.nn.dcn import DCNv3
+    x = torch.rand(2, 3, 128, 128, generator=torch.Generator().manual_seed(0))
+
+    def grads():
+        model = SegmentationModel("yolov5s-seg-dcnv3.json", device=cuda)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, DCNv3):
+                    m.offset.weight.copy_(torch.randn(m.offset.weight.shape, generator=gen) * 0.05)
+                    m.offset.bias.copy_(torch.randn(m.offset.bias.shape, generator=gen) * 2.0)
+        model.train()
+        before = (dcnv3_sampling.launches, dcnv3_sampling_backward.launches)
+        levels, protos = model(x.to(cuda))  # train mode: the raw level maps and the protos
+        loss = sum((t * torch.linspace(-1, 1, t.numel(), device=cuda).view(t.shape)).sum()
+                   for t in (*levels, protos))
+        loss.backward()
+        torch.cuda.synchronize()
+        assert (dcnv3_sampling.launches, dcnv3_sampling_backward.launches) == \
+            (before[0] + 6, before[1] + 6)
+        return [p.grad.cpu() for p in model.parameters() if p.grad is not None]
+    first, second = grads(), grads()
+    assert len(first) == len(second) > 0
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("cfg", ["resnet50.json", "yolov5_seg.json"])

@@ -6,7 +6,9 @@ a nano DCNv3 model end to end (forward unfused and fused, and predict_images).
 Inputs and weights are made with numpy from a seed and handed to both. JAX
 matmuls run at "highest" precision, as tests/test_kernels.py pins them.
 Tolerance: atol 1e-4 and rtol 1e-4 in float32, because the two frameworks sum
-in different orders.
+in different orders; in bfloat16 one bfloat16 ulp of each value against the
+Pallas kernel (float32 sums in another order, then rounded), and bit for bit
+between the DCNv3 module under CPU autocast and its float32-copy route.
 """
 
 import jax
@@ -15,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import CORE_CASES, nhwc, random_variables, sampling_inputs
+from torch_port_common import (CORE_CASES, bf16_ulp_gap, nhwc, random_variables,
+                               sampling_inputs, to_bfloat16)
 from yolo_dual_tpu.engine import predict_images as jax_predict_images
 from yolo_dual_tpu.kernels.dcn_sampling import _dcnv3_banded_dispatch
 from yolo_dual_tpu.models.compiler import parse_config as jax_parse_config
@@ -61,26 +64,85 @@ def test_dcnv3_core_matches_jax(name):
     np.testing.assert_array_equal(dcnv3_sampling(*args).numpy(), got.numpy())
 
 
+def pallas_case(case):
+    """(x, offset, mask, g, gc, k) of the Pallas kernel comparisons: "in_band",
+    or "band_escape", whose Δy 15 on 24 rows leaves the kernel's 16-row band and
+    takes its escape to the lax core."""
+    if case == "in_band":
+        b, h, w, g, gc, k = 1, 8, 8, 2, 4, 3
+        return (*sampling_inputs(3, b, h, w, g, gc, k), g, gc, k)
+    b, h, w, g, gc, k = 1, 24, 8, 1, 4, 3
+    x = np.random.default_rng(4).standard_normal((b, h, w, g * gc)).astype(np.float32)
+    offset = np.zeros((b, h, w, g * k * k * 2), np.float32)
+    offset[..., 1::2] = 15.0
+    mask = np.full((b, h, w, g * k * k), 1 / 9, np.float32)
+    return x, offset, mask, g, gc, k
+
+
 @pytest.mark.parametrize("case", ["in_band", "band_escape"])
 def test_dcnv3_core_matches_pallas_kernel(case):
     """The plain core against the JAX package's Pallas kernel itself, run as
-    its own tests run it (interpret mode). Δy 15 on 24 rows leaves the kernel's
-    16-row band and takes its escape to the lax core."""
-    if case == "in_band":
-        b, h, w, g, gc, k = 1, 8, 8, 2, 4, 3
-        x, offset, mask = sampling_inputs(3, b, h, w, g, gc, k)
-    else:
-        b, h, w, g, gc, k = 1, 24, 8, 1, 4, 3
-        x = np.random.default_rng(4).standard_normal((b, h, w, g * gc)).astype(np.float32)
-        offset = np.zeros((b, h, w, g * k * k * 2), np.float32)
-        offset[..., 1::2] = 15.0
-        mask = np.full((b, h, w, g * k * k), 1 / 9, np.float32)
+    its own tests run it (interpret mode)."""
+    x, offset, mask, g, gc, k = pallas_case(case)
     want = np.asarray(_dcnv3_banded_dispatch(jnp.asarray(x), jnp.asarray(offset),
                                              jnp.asarray(mask), k, 1, 1, g, gc, 1.0,
                                              interpret=True))
     got = dcnv3_core(torch.from_numpy(x), torch.from_numpy(offset), torch.from_numpy(mask),
                      k, 1, 1, 1, g, gc, 1.0)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("case", ["in_band", "band_escape"])
+def test_dcnv3_sampling_bfloat16_matches_pallas_kernel(case):
+    """bfloat16 x, offset and mask: the wrapper's CPU path (the plain core,
+    in float32 from the bfloat16 values, rounded to bfloat16) against JAX's
+    Pallas kernel in interpret mode on the same bfloat16 inputs, which reads
+    them as float32 and writes x's type (kernels/dcn_sampling.py:173, 262).
+    The output's type is JAX's, and each value within one bfloat16 ulp of
+    JAX's: the float32 sums are added in another order before rounding."""
+    x, offset, mask, g, gc, k = pallas_case(case)
+    port, ref = to_bfloat16(x, offset, mask)
+    want = _dcnv3_banded_dispatch(*ref, k, 1, 1, g, gc, 1.0, interpret=True)
+    got = dcnv3_sampling(*port, k, 1, 1, 1, g, gc, 1.0)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    assert bf16_ulp_gap(got, want) <= 1.0
+
+
+def test_dcnv3_under_cpu_autocast_equals_float32_copies(monkeypatch):
+    """Under CPU torch.autocast(bfloat16) DCNv3 hands the sampling its bfloat16
+    projections and mask, which the plain version computes in float32: the
+    output and every parameter's gradient equal, bit for bit, those of the same
+    module whose sampling is handed float32 copies and its output rounded to
+    bfloat16."""
+    torch.manual_seed(0)
+    m = PD.DCNv3(16, group=2)
+    with torch.no_grad():
+        m.offset.weight.normal_(0, 0.05)
+        m.offset.bias.normal_(0, 1.0)
+        m.mask.weight.normal_(0, 0.2)
+    x = torch.randn(2, 7, 6, 16, generator=torch.Generator().manual_seed(1))
+    real, seen = PD.dcnv3_sampling, []
+
+    def run(sampling):
+        monkeypatch.setattr(PD, "dcnv3_sampling", sampling)
+        m.zero_grad()
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            out = m(x)
+        (out.float() * torch.linspace(-1, 1, out.numel()).view(out.shape)).sum().backward()
+        return [out.detach()] + [p.grad.clone() for p in m.parameters()]
+
+    def direct(proj, offset, mask, *cfg):
+        seen.append((proj.dtype, offset.dtype, mask.dtype))
+        return real(proj, offset, mask, *cfg)
+
+    def float_copies(proj, offset, mask, *cfg):
+        return real(proj.float(), offset.float(), mask.float(), *cfg).to(proj.dtype)
+    got, want = run(direct), run(float_copies)
+    assert seen == [(torch.bfloat16,) * 3] and got[0].dtype == torch.bfloat16
+    assert len(got) == len(want) == 1 + len(list(m.parameters()))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 MODULES = {  # name: (flax module, port module, NHWC input shape, input is NHWC for the port)

@@ -7,6 +7,8 @@ Inputs are made with numpy from a seed and handed to both. Tolerance: atol
 1e-4 and rtol 1e-4 in float32 (the frameworks sum in different orders); the
 gradcheck uses torch's float64 defaults. Offsets are N(0, 2 px) or wider, so
 no sample lies on an integer position, where the bilinear has no derivative.
+In bfloat16 the wrapper's CPU path is held against the Pallas backward on the
+same bfloat16 inputs: JAX's output types, each value within one bfloat16 ulp.
 """
 
 import jax.numpy as jnp
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import CORE_CASES, sampling_inputs
+from torch_port_common import CORE_CASES, bf16_ulp_gap, sampling_inputs, to_bfloat16
 from yolo_dual_tpu.kernels.dcn_sampling import _dcnv3_banded_bwd
 from yolo_dual_tpu.nn import dcn as JD
 from yolo_dual_tpu_torch.kernels.dcn_sampling import (
@@ -47,16 +49,22 @@ def test_dcnv3_core_bwd_matches_jax(name):
         np.testing.assert_array_equal(a.numpy(), r.numpy())
 
 
-@pytest.mark.parametrize("case", ["in_band", "band_escape"])
-def test_dcnv3_core_bwd_matches_pallas_kernel(case):
-    """The plain backward against the JAX package's Pallas backward kernel,
-    run as tests/test_kernels.py runs it (interpret mode). Δy 15 on 24 rows
-    leaves the kernel's 16-row band and takes its escape to the lax backward."""
+def pallas_bwd_case(case):
+    """(x, offset, mask, gout, g, gc, k) of the Pallas backward comparisons:
+    "in_band", or "band_escape", whose Δy 15 on 24 rows leaves the kernel's
+    16-row band and takes its escape to the lax backward."""
     b, h, w, g, gc, k = (2, 9, 8, 2, 4, 3) if case == "in_band" else (1, 24, 8, 1, 4, 3)
     x, offset, mask = sampling_inputs(7, b, h, w, g, gc, k)
     if case == "band_escape":
         offset[..., 1::2] = 15.0
-    gout = with_grad_out(8, x, offset)
+    return x, offset, mask, with_grad_out(8, x, offset), g, gc, k
+
+
+@pytest.mark.parametrize("case", ["in_band", "band_escape"])
+def test_dcnv3_core_bwd_matches_pallas_kernel(case):
+    """The plain backward against the JAX package's Pallas backward kernel,
+    run as tests/test_kernels.py runs it (interpret mode)."""
+    x, offset, mask, gout, g, gc, k = pallas_bwd_case(case)
     want = _dcnv3_banded_bwd(*(jnp.asarray(a) for a in (x, offset, mask, gout)), kernel=k, pad=1,
                              dilation=1, group=g, group_channels=gc, offset_scale=1.0,
                              interpret=True)
@@ -64,6 +72,25 @@ def test_dcnv3_core_bwd_matches_pallas_kernel(case):
                          k, 1, 1, 1, g, gc, 1.0)
     for name_, a, r in zip(("dx", "doffset", "dmask"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), **TOL, err_msg=name_)
+
+
+@pytest.mark.parametrize("case", ["in_band", "band_escape"])
+def test_dcnv3_sampling_backward_bfloat16_matches_pallas_kernel(case):
+    """bfloat16 x, offset, mask and output gradient: the wrapper's CPU path
+    (the plain backward, in float32 from the bfloat16 values) against JAX's
+    Pallas backward in interpret mode on the same bfloat16 inputs, which
+    returns dx, doffset and dmask in their inputs' types
+    (kernels/dcn_sampling.py:478): those types, and each value within one
+    bfloat16 ulp of JAX's (float32 sums added in another order, then rounded)."""
+    x, offset, mask, gout, g, gc, k = pallas_bwd_case(case)
+    port, ref = to_bfloat16(x, offset, mask, gout)
+    want = _dcnv3_banded_bwd(*ref, kernel=k, pad=1, dilation=1, group=g, group_channels=gc,
+                             offset_scale=1.0, interpret=True)
+    got = dcnv3_sampling_backward(*port, k, 1, 1, 1, g, gc, 1.0)
+    for name_, a, r in zip(("dx", "doffset", "dmask"), got, want):
+        assert r.dtype == jnp.bfloat16 and a.dtype == torch.bfloat16, name_
+        assert a.shape == r.shape, name_
+        assert bf16_ulp_gap(a, r) <= 1.0, name_
 
 
 @pytest.mark.parametrize("name", ["g1", "g2", "stride2", "dilation2_k5", "offset_scale2",

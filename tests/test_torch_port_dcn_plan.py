@@ -121,9 +121,11 @@ def test_window_escapes(backward):
 
 def test_kernels_are_bound_once(monkeypatch):
     """The wrapper binds each launch function's ctypes signature once, outside
-    the build's locks: 4 (forward) or 7 (backward) pointers, 13 ints (the
+    the build's locks: 4 (forward) or 9 (backward: its outputs, dx's
+    fixed-point sums and the first pass's maxima) pointers, 13 ints (the
     shapes, the geometry and the output-row origin row0), the offset scale,
-    the plan's 7 ints and the stream."""
+    the plan's 7 ints, the type code (and the backward's first-pass blocks)
+    and the stream."""
     class Fn:
         argtypes = restype = None
 
@@ -135,9 +137,9 @@ def test_kernels_are_bound_once(monkeypatch):
     loads = []
     monkeypatch.setattr(build, "load_library", lambda name: loads.append(name) or Lib())
     monkeypatch.setattr(dcn_sampling, "_BOUND", {})
-    for fn, n_ptr in (("dcnv3_sampling_launch", 4), ("dcnv3_backward_launch", 7)):
+    for fn, n_ptr, n_tail in (("dcnv3_sampling_launch", 4, 1), ("dcnv3_backward_launch", 9, 2)):
         launch, _ = dcn_sampling._bind(fn)
-        assert len(launch.argtypes) == n_ptr + 13 + 1 + 7 + 1
+        assert len(launch.argtypes) == n_ptr + 13 + 1 + 7 + n_tail + 1
         assert dcn_sampling._BOUND[fn][0] is launch
     assert loads == ["dcnv3", "dcnv3_bwd"]
 

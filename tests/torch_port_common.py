@@ -98,6 +98,23 @@ def sampling_inputs(seed, b, h, w, g, gc, k, stride=1, offset_std=2.0):
     return x, offset, mask.reshape(b, ho, wo, g * k * k).astype(np.float32)
 
 
+def to_bfloat16(*arrays):
+    """Each float32 array rounded to bfloat16 (torch's round to nearest even),
+    as the port's torch tensors and as JAX's arrays of the same values."""
+    port = [torch.from_numpy(np.asarray(a, np.float32)).bfloat16() for a in arrays]
+    return port, [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in port]
+
+
+def bf16_ulp_gap(got, want) -> float:
+    """The largest |got - want| in bfloat16 ulps of the larger magnitude of the
+    two values (the ulp of v: 2^(floor(log2 |v|) - 7)); equal zeros are 0 apart."""
+    a = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    b = np.asarray(want).astype(np.float32)
+    m = np.maximum(np.abs(a), np.abs(b))
+    ulp = np.exp2(np.floor(np.log2(np.where(m > 0, m, 1.0))) - 7)
+    return float((np.abs(a - b) / ulp).max())
+
+
 CORE_CASES = {  # name: (b, h, w, g, gc, k, stride, pad, dilation, offset_scale, offset_std)
     "g1": (2, 8, 9, 1, 4, 3, 1, 1, 1, 1.0, 2.0),
     "g2": (2, 8, 9, 2, 4, 3, 1, 1, 1, 1.0, 2.0),

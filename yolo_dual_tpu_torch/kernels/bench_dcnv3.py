@@ -84,13 +84,9 @@ def inputs(gen, b, h, w, c):
 
 
 def run(x, offset, mask, gout, c, plan, backward):
-    from yolo_dual_tpu_torch.kernels.dcn_sampling import _launch
+    from yolo_dual_tpu_torch.kernels.dcn_sampling import _backward, _launch
     if backward:
-        dx = torch.zeros_like(x)
-        outs = (dx, torch.empty_like(offset), torch.empty_like(mask))
-        _launch("dcnv3_backward_launch", (x, offset, mask, gout, *outs), x, offset, *ARGS, c,
-                1.0, plan=plan)
-        return outs
+        return _backward(x, offset, mask, gout, (*ARGS, c, 1.0), plan=plan)
     out = torch.empty_like(x)
     _launch("dcnv3_sampling_launch", (x, offset, mask, out), x, offset, *ARGS, c, 1.0, plan=plan)
     return (out,)

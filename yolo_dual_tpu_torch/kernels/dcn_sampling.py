@@ -10,8 +10,15 @@ forward is the plain `dcnv3_core` and the backward the plain `dcnv3_core_bwd`
 model's stride probe runs on them). All tensors are channels-last, as in the
 JAX package: x (B, H, W, C = g·gc), offset (B, Ho, Wo, g·kk·2) as (Δx, Δy)
 pairs, mask (B, Ho, Wo, g·kk) softmaxed over kk; the output is (B, Ho, Wo, C).
-The kernels take float32; the plain versions any one floating type (float64
-for a CPU reference or gradcheck).
+The kernels take float32 or bfloat16, every tensor of a call of one type, as
+JAX's kernels take them: they compute in float32 and store each output in its
+input's type, so a bfloat16 call gives the float32 call's outputs on float32
+copies, rounded. The plain versions take any one floating type; below float32
+they compute in float32 and return the inputs' types, as JAX's kernels do
+(float64 for a CPU reference or gradcheck stays float64).
+
+K3 gives the same bits on every run, as JAX's kernel does: dx is summed in
+fixed point (csrc/dcnv3_bwd.cu), doffset and dmask in a fixed order.
 
 `row0` is the global row of the first output row: a space rank of a 2-D mesh
 (parallel/spatial.py) samples its band's Ho output rows, from its band's
@@ -87,12 +94,21 @@ def dcnv3_coords(offset: torch.Tensor, kernel: int, stride: int, pad: int, dilat
     return sxf, syf
 
 
+def _narrow(t: torch.Tensor) -> bool:
+    """A floating type below float32, which the plain versions compute in float32."""
+    return t.dtype in (torch.bfloat16, torch.float16)
+
+
 def dcnv3_core(x, offset, mask, kernel: int, stride: int, pad: int, dilation: int,
                group: int, group_channels: int, offset_scale: float,
                row0: int = 0) -> torch.Tensor:
     """Plain torch DCNv3 sampling (JAX nn/dcn.py:dcnv3_core): zero padding,
     per-group bilinear samples weighted by the mask and summed over kk; the
-    output rows from global row `row0`."""
+    output rows from global row `row0`. Below float32 it computes in float32
+    and returns x's type, as JAX's kernel (kernels/dcn_sampling.py:173-262)."""
+    if _narrow(x):
+        return dcnv3_core(x.float(), offset.float(), mask.float(), kernel, stride, pad, dilation,
+                          group, group_channels, offset_scale, row0).to(x.dtype)
     b, h, w, c = x.shape
     xp = F.pad(x, (0, 0, pad, pad, pad, pad))
     hin, win = h + 2 * pad, w + 2 * pad
@@ -117,7 +133,15 @@ def dcnv3_core_bwd(x, offset, mask, g_out, kernel: int, stride: int, pad: int, d
       corners of the padded input, cropped to the unpadded input;
     - doffset: ḡ·mask·∂sample/∂s, with ∂sample/∂sx = (1−wy)(v01−v00) +
       wy(v11−v10) (and likewise for y), times offset_scale = ∂s/∂offset;
-    - dmask: ⟨sample, ḡ⟩ per kernel point."""
+    - dmask: ⟨sample, ḡ⟩ per kernel point.
+
+    Below float32 it computes in float32 and returns each gradient in its
+    input's type, as JAX's (nn/dcn.py:197-257)."""
+    if _narrow(x):
+        dx, doff, dmask = dcnv3_core_bwd(x.float(), offset.float(), mask.float(), g_out.float(),
+                                         kernel, stride, pad, dilation, group, group_channels,
+                                         offset_scale, row0)
+        return dx.to(x.dtype), doff.to(offset.dtype), dmask.to(mask.dtype)
     b, h, w, c = x.shape
     gc = group_channels
     kk = kernel * kernel
@@ -195,11 +219,13 @@ def dcnv3_core_grid_sample(x, offset, mask, kernel: int, stride: int, pad: int, 
 
 
 def _check(x, offset, mask, kernel, stride, pad, dilation, group, group_channels, row0=0):
-    # the kernels take float32; the plain versions any one floating type
-    want = torch.float32 if x.device.type == "cuda" else x.dtype
-    if not x.is_floating_point() or {offset.dtype, mask.dtype, x.dtype} != {want}:
-        raise TypeError(f"dcnv3_sampling expects {'float32' if want == torch.float32 else want} "
-                        f"tensors on {x.device.type}, got {x.dtype}, {offset.dtype}, {mask.dtype}")
+    # the kernels take float32 or bfloat16; the plain versions any one floating type
+    cuda = x.device.type == "cuda"
+    if (not x.is_floating_point() or {offset.dtype, mask.dtype} != {x.dtype}
+            or cuda and x.dtype not in (torch.float32, torch.bfloat16)):
+        want = "float32 or bfloat16" if cuda else "floating"
+        raise TypeError(f"dcnv3_sampling expects {want} tensors of one type on {x.device.type}, "
+                        f"got {x.dtype}, {offset.dtype}, {mask.dtype}")
     if x.ndim != 4 or offset.ndim != 4 or mask.ndim != 4:
         raise ValueError("dcnv3_sampling expects 4-D channels-last x, offset and mask")
     b, _, _, c = x.shape
@@ -230,7 +256,8 @@ class DCNv3Plan(NamedTuple):
     the input of wh × ww pixels whose origin lies `win_off` pixels from the tile's
     origin times the stride (rows and columns alike); it takes the group's channels in
     chunks of `cc`, `cpb` chunks a block (the backward takes all of them). The
-    window holds x and, in the backward, dx."""
+    window holds x; the backward sums each window pixel's dx in the tile's sample
+    order before it goes into dx's fixed-point sums."""
     th: int
     tw: int
     cc: int
@@ -243,6 +270,8 @@ class DCNv3Plan(NamedTuple):
 
 
 SHARED_BYTES = 232448  # 227 KB, the most one block of an sm_90 card may take
+BWD_STATIC_BYTES = 256  # the backward kernels' static shared memory (the scale), at most
+BWD_PARTS = 2 * 132  # blocks of K3's first pass, each of which writes its share's maxima
 SM_SHARED_BYTES = 233472  # 228 KB an SM, of which each resident block also holds 1 KB
 SMS = 132  # streaming multiprocessors of an H100 SXM
 TILES = ((8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
@@ -275,7 +304,7 @@ def blocks_per_sm(shared_bytes: int) -> int:
 @functools.lru_cache(maxsize=512)
 def dcnv3_plan(b: int, ho: int, wo: int, group: int, group_channels: int, kernel: int,
                stride: int, pad: int, dilation: int, offset_scale: float,
-               backward: bool, margin: int = WINDOW_MARGIN) -> DCNv3Plan:
+               backward: bool, margin: int = WINDOW_MARGIN, itemsize: int = 4) -> DCNv3Plan:
     """The launch plan of one DCNv3 call, cached per shape. Chunks of up to
     `CHUNK` channels, lanes along them; a window margin of `margin` px.
     The first tile of `TILES` wins whose block leaves room for four blocks an
@@ -286,7 +315,12 @@ def dcnv3_plan(b: int, ho: int, wo: int, group: int, group_channels: int, kernel
     failing that, the plan with the most blocks. A forward call too small to
     fill one such wave (batch 1) takes tiles of at most 4 x 4 and chunks of at
     most 64 channels, each chunk in a block of its own. PERF.md compares these
-    picks with kernels/bench_dcnv3.py's grid."""
+    picks with kernels/bench_dcnv3.py's grid. The forward sizes its window by
+    `itemsize`, x's bytes an element (a forward's output does not depend on
+    its plan); the backward always by float32's: its tile orders dx's float32
+    sums, so a bfloat16 call takes the float32 call's plan and its outputs are
+    the float32 call's, rounded."""
+    size = 4 if backward else itemsize
     kk = kernel * kernel
     # chunks of CHUNK channels on tiles down to 2 x 2 first; the forward then halves its
     # chunks, spread over blocks, before the tiles shrink further
@@ -298,7 +332,7 @@ def dcnv3_plan(b: int, ho: int, wo: int, group: int, group_channels: int, kernel
     for (th, tw), cc in order:
         win_off, wh, ww = dcnv3_window(th, tw, kernel, stride, pad, dilation, offset_scale,
                                        margin)
-        shared = dcnv3_shared_bytes(th, tw, kk, cc, wh, ww, backward)
+        shared = dcnv3_shared_bytes(th, tw, kk, cc, wh, ww, backward, size)
         if shared > SHARED_BYTES:
             continue
         tiles = b * group * -(-ho // th) * -(-wo // tw)
@@ -324,16 +358,22 @@ def dcnv3_plan(b: int, ho: int, wo: int, group: int, group_channels: int, kernel
 
 
 def dcnv3_shared_bytes(th: int, tw: int, kk: int, cc: int, wh: int, ww: int,
-                       backward: bool) -> int:
+                       backward: bool, itemsize: int = 4) -> int:
     """Shared memory of one block, as the launchers compute it: the tile's
-    samples (16 bytes each, plus 8 for their corner), the window's x, and in
-    the backward the samples' four sums (16 bytes each) and the window's dx;
-    each part 16-byte aligned."""
+    samples (16 bytes each, plus 8 for their corner) and the window's x
+    (`itemsize` bytes an element); in the backward also the samples' four sums
+    and their four products mask · w (16 bytes each), the tile's output
+    gradient in float32, the samples' lists by the cell of their top-left
+    corner (each sample once and each of the (wh + 1)(ww + 1) cells twice, 4
+    bytes each) and the static scale (BWD_STATIC_BYTES). The geometry and the
+    window are 16-byte aligned."""
     n = th * tw * kk
     geometry = 16 * n + _align16(8 * n)
     if backward:
-        return geometry + 16 * n + (wh * ww * cc + 3) // 4 * 4 * 4 * 2
-    return geometry + wh * ww * cc * 4
+        cells = (wh + 1) * (ww + 1)
+        return (geometry + 32 * n + _align16(wh * ww * cc * itemsize) + th * tw * cc * 4
+                + 4 * (n + 2 * cells + 1) + BWD_STATIC_BYTES)
+    return geometry + wh * ww * cc * itemsize
 
 
 def dcnv3_window_escapes(offset: torch.Tensor, h: int, w: int, kernel: int, stride: int,
@@ -356,6 +396,9 @@ def dcnv3_window_escapes(offset: torch.Tensor, h: int, w: int, kernel: int, stri
     return out.float().mean().item()
 
 
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the launchers' type codes
+
+
 def _launch(fn, ptrs, x, offset, kernel, stride, pad, dilation, group, group_channels,
             offset_scale, row0=0, plan=None):
     """Launch `fn` on `ptrs` with the cached plan of its shape, or with `plan`
@@ -363,11 +406,13 @@ def _launch(fn, ptrs, x, offset, kernel, stride, pad, dilation, group, group_cha
     launch, error_string = _BOUND.get(fn) or _bind(fn)
     b, h, w, c = x.shape
     ho, wo = offset.shape[1:3]
+    backward = fn == "dcnv3_backward_launch"
     if plan is None:
         plan = dcnv3_plan(b, ho, wo, group, group_channels, kernel, stride, pad, dilation,
-                          offset_scale, fn == "dcnv3_backward_launch")
+                          offset_scale, backward, itemsize=x.element_size())
     args = (*(t.data_ptr() for t in ptrs), b, h, w, c, ho, wo, group, group_channels, kernel,
-            stride, pad, dilation, row0, offset_scale, *plan[:7])
+            stride, pad, dilation, row0, offset_scale, *plan[:7], _DTYPES[x.dtype],
+            *((BWD_PARTS,) if backward else ()))
     if x.device.index == torch.cuda.current_device():
         rc = launch(*args, torch.cuda.current_stream().cuda_stream)
     else:
@@ -377,10 +422,22 @@ def _launch(fn, ptrs, x, offset, kernel, stride, pad, dilation, group, group_cha
         raise RuntimeError(f"{fn} failed: {error_string(rc).decode()}")
 
 
+def _backward(x, offset, mask, grad_out, cfg, plan=None):
+    """K3 on CUDA tensors: (dx, doffset, dmask), each in its input's type, with
+    the fixed-point sums of dx (one int64 an element) and the first pass's
+    maxima as scratch; `plan` as `_launch`'s."""
+    dx, doffset, dmask = torch.empty_like(x), torch.empty_like(offset), torch.empty_like(mask)
+    sums = torch.empty(x.shape, dtype=torch.int64, device=x.device)  # zeroed by the first pass
+    part = torch.empty(2 * BWD_PARTS, dtype=torch.float32, device=x.device)
+    _launch("dcnv3_backward_launch", (x, offset, mask, grad_out, dx, doffset, dmask, sums, part),
+            x, offset, *cfg, plan=plan)
+    return dx, doffset, dmask
+
+
 def _forward(x, offset, mask, cfg):
     if x.device.type in ("cpu", "meta"):
         return dcnv3_core(x, offset, mask, *cfg)
-    out = torch.empty((x.shape[0], *offset.shape[1:3], x.shape[3]), dtype=torch.float32,
+    out = torch.empty((x.shape[0], *offset.shape[1:3], x.shape[3]), dtype=x.dtype,
                       device=x.device)
     _launch("dcnv3_sampling_launch", (x, offset, mask, out), x, offset, *cfg)
     dcnv3_sampling.launches += 1
@@ -426,9 +483,10 @@ def dcnv3_sampling_backward(x, offset, mask, grad_out, kernel: int, stride: int,
                             offset_scale: float, row0: int = 0):
     """(dx, doffset, dmask) of DCNv3 sampling for the output gradient
     `grad_out` (B, Ho, Wo, C) of the output rows from global row `row0`; dx
-    covers all of x. On CUDA tensors this launches csrc/dcnv3_bwd.cu and
-    counts the launch in `dcnv3_sampling_backward.launches`; on CPU tensors it
-    runs `dcnv3_core_bwd`."""
+    covers all of x, each gradient in its input's type. On CUDA tensors this
+    launches csrc/dcnv3_bwd.cu (its three kernels, one call) and counts the
+    call in `dcnv3_sampling_backward.launches`; the same inputs give the same
+    bits on every call. On CPU tensors it runs `dcnv3_core_bwd`."""
     _check(x, offset, mask, kernel, stride, pad, dilation, group, group_channels, row0)
     want = (x.shape[0], *offset.shape[1:3], x.shape[3])
     if tuple(grad_out.shape) != want or grad_out.dtype != x.dtype or grad_out.device != x.device:
@@ -441,20 +499,17 @@ def dcnv3_sampling_backward(x, offset, mask, grad_out, kernel: int, stride: int,
         raise ValueError(f"dcnv3_sampling_backward: unsupported device {x.device}")
     if not grad_out.is_contiguous():
         raise ValueError("dcnv3_sampling_backward expects a contiguous grad_out")
-    dx = torch.zeros_like(x)  # the kernel accumulates into it
-    doffset = torch.empty_like(offset)
-    dmask = torch.empty_like(mask)
-    _launch("dcnv3_backward_launch", (x, offset, mask, grad_out, dx, doffset, dmask), x, offset,
-            *cfg)
+    out = _backward(x, offset, mask, grad_out, cfg)
     dcnv3_sampling_backward.launches += 1
-    return dx, doffset, dmask
+    return out
 
 
 dcnv3_sampling_backward.launches = 0
 
-# launch function -> (source in csrc/, pointer arguments, error-string function)
-_KERNELS = {"dcnv3_sampling_launch": ("dcnv3", 4, "dcnv3_error_string"),
-            "dcnv3_backward_launch": ("dcnv3_bwd", 7, "dcnv3_backward_error_string")}
+# launch function -> (source in csrc/, pointer arguments, trailing int arguments (the type code;
+# the backward's first-pass blocks), error-string function)
+_KERNELS = {"dcnv3_sampling_launch": ("dcnv3", 4, 1, "dcnv3_error_string"),
+            "dcnv3_backward_launch": ("dcnv3_bwd", 9, 2, "dcnv3_backward_error_string")}
 _BOUND: dict = {}  # launch function -> (launch, error string), bound once
 
 
@@ -462,11 +517,11 @@ def _bind(fn: str):
     """Build and load `fn`'s library at first use and bind its two functions;
     later calls find them in `_BOUND` without taking the build's locks."""
     from yolo_dual_tpu_torch.kernels.build import load_library
-    name, n_ptr, err = _KERNELS[fn]
+    name, n_ptr, n_tail, err = _KERNELS[fn]
     lib = load_library(name)
     launch, error_string = getattr(lib, fn), getattr(lib, err)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch.argtypes = [p] * n_ptr + [i] * 13 + [ctypes.c_float] + [i] * 7 + [p]
+    launch.argtypes = [p] * n_ptr + [i] * 13 + [ctypes.c_float] + [i] * (7 + n_tail) + [p]
     launch.restype = ctypes.c_int
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p

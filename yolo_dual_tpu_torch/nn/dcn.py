@@ -344,13 +344,10 @@ class DCNv3(nn.Module):
         offset = self.offset(x1).contiguous()
         mask = self.mask(x1)
         b, h, w, _ = mask.shape
+        # softmax in float32, then the projections' type (JAX nn/dcn.py:395-396): under
+        # autocast the sampling takes bfloat16 and computes in float32, as JAX's kernels do
         mask = mask.reshape(b, h, w, g, kk).float().softmax(-1).reshape(b, h, w, g * kk)
         mask = mask.to(proj.dtype)
-        # the sampling runs in float32, as JAX's kernels compute
-        # (kernels/dcn_sampling.py:321-329): under autocast the bfloat16 projections are
-        # converted here, at the autograd Function's boundary, and their gradients back
-        proj, offset, mask = (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
-                              for t in (proj, offset, mask))
         band = ()
         if spatial.space_mesh() is not None:  # the band's rows, sampled in the whole map
             band = (spatial.space_mesh().space_rank * h,)  # row0
